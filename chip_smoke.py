@@ -23,10 +23,28 @@ failure:
              default P16H768A12 model; 8 PNG jobs through register/login/
              CSRF/POST/?wait= polling; every mask equals ModelRunner.predict
              of the same decoded image; jobs/s.
+6. flash_train  the training kernels (forward with lse and dropout, dQ,
+             dK/dV) vs their plain versions, bf16 and fp32, dropout 0 and
+             0.1 under one seed, at the training micro-batch
+             (B*H = 48, N = 197, d = 64), (384, 197, 64), N = 785/1025/3137
+             and d = 80/16/32/128; timed against the plain versions and
+             F.scaled_dot_product_attention (forward with dropout, and its
+             backward as forward+backward minus forward);
+7. train     the port's Trainer.fit on ViT-B/16 (17 classes, bf16, the CE
+             defaults: batch 16 = 4 micro-batches of 4, dropout 0.1, Adam)
+             over a 224^2 synthetic set: finite losses, 12 x 4 launches of
+             each training kernel per optimizer step and none of the
+             inference kernel; evaluate launches the inference kernel only;
+             images/s and steps/s (best of 3 rounds, and at batch 32 with
+             accumulate 1), peak memory, a profile of one step;
+8. train_fp32_step  one fp32 optimizer step, dropout off, with the kernels
+             and with eager attention on the same weights and batch: loss
+             and every gradient agree.
 
 Then it prints the card's name and power limit as nvidia-smi gives them,
-one JSON line describing every kernel of the main path (launches counted
-during the serving run), and, last, {"ok": true, "device": {...}}.
+one JSON line describing every kernel (launches of the serving kernels
+counted during the serving run, of the training kernels during the train
+run), and, last, {"ok": true, "device": {...}}.
 Without CUDA it exits with code 1 and prints no result.
 """
 
@@ -66,6 +84,20 @@ STD = (0.229, 0.224, 0.225)
 # under the elementwise bound.
 FLASH_TOL = {torch.float32: (2e-5, 0.0), torch.bfloat16: (2.0 ** -7, 2.0 ** -8)}
 FLASH_BF16_REL_NORM = 2.0 ** -8
+# Training kernels. Forward output: FLASH_TOL (it rounds P as the
+# inference kernel does). lse (fp32 in both dtypes): atol 3.8e-6, twice the
+# largest error measured on the card (1.9e-6 at N = 3137). Gradients, fp32:
+# the JAX package's gradient tolerance (tests/test_flash_attention.py:47-48).
+# Gradients, bf16: atol 2^-8 * max|want| + rtol 2^-8 (admits a one-ulp
+# difference in the final rounding anywhere; the largest error measured was
+# 0.47-0.69 of it), and the error's norm within 4.4e-4 of the plain
+# gradient's, twice the largest measured (2.2e-4 at N = 3137): it refuses a
+# tail of rows past N read as data instead of masked
+# (tests/test_torch_flash_train.py).
+LSE_ATOL = 3.8e-6
+GRAD_TOL = {torch.float32: (5e-5, 5e-4), torch.bfloat16: (2.0 ** -8, 2.0 ** -8)}
+GRAD_BF16_REL_NORM = 4.4e-4
+LOSS_RTOL = 1e-5            # fp32 train step, kernels vs eager attention
 LOGITS_TOL = (5e-5, 1e-4)   # fp32 seg logits, atol / rtol
 # The kernel and the plain epilogue differ only by FMA contraction (a few
 # fp32 ulps), so a flip between them must sit on a logit gap below this.
@@ -90,6 +122,25 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int = 10) -> float:
+    """Device time of fn() per call: the summed durations of the kernels
+    and copies it ran (torch.profiler), without the host's launch overhead
+    between calls, which sets the pace of back-to-back calls of a small
+    kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    return us / 1e3 / iters
 
 
 def bound_ms(peaks, n_bytes: float, n_ops: float, op_type: str):
@@ -118,6 +169,23 @@ def flash_agrees(got: torch.Tensor, want: torch.Tensor):
     ok, err = close(got, want, atol, rtol)
     if bf16:
         ok = ok and rel_norm <= FLASH_BF16_REL_NORM
+    return ok, {"max_abs_err": err, "atol": atol, "rtol": rtol,
+                "rel_err_norm": rel_norm}
+
+
+def grad_agrees(got: torch.Tensor, want: torch.Tensor):
+    """(ok, fields) of a backward kernel's gradient against its plain
+    version, at GRAD_TOL for want's dtype (bf16: atol scaled to max|want|,
+    plus the error-norm gate)."""
+    atol, rtol = GRAD_TOL[want.dtype]
+    bf16 = want.dtype == torch.bfloat16
+    got, want = got.float(), want.float()
+    rel_norm = float((got - want).norm() / want.norm())
+    if bf16:
+        atol *= float(want.abs().max())
+    ok, err = close(got, want, atol, rtol)
+    if bf16:
+        ok = ok and rel_norm <= GRAD_BF16_REL_NORM
     return ok, {"max_abs_err": err, "atol": atol, "rtol": rtol,
                 "rel_err_norm": rel_norm}
 
@@ -361,6 +429,301 @@ def profile_steps(step, batch: int, steps: int = 5, top: int = 12):
                      "share": us / 1e3 / busy_ms} for k, us in ranked]}
 
 
+def phase_flash_train(peaks, gen):
+    """Kernels 2-4 vs their plain versions; returns the timed rows of the
+    training micro-batch shape (B*H = 48, N = 197, d = 64) and of
+    (24, 3137, 64), bf16, dropout 0.1, by kernel."""
+    from visiontransformer_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd_dkv,
+        flash_attention_bwd_dkv_plain,
+        flash_attention_bwd_dq,
+        flash_attention_bwd_dq_plain,
+        flash_attention_train,
+        flash_attention_train_plain,
+    )
+
+    cases = [(4, 12, 197, 64), (32, 12, 197, 64), (4, 12, 785, 64),
+             (4, 12, 1025, 64), (2, 12, 3137, 64), (8, 16, 257, 80),
+             (2, 4, 130, 16), (2, 4, 130, 32), (2, 4, 130, 128)]
+    timed = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for b, h, n, d in cases:
+            for rate in (0.0, 0.1):
+                qkv = torch.randn(b, n, 3, h, d, generator=gen, device="cuda")
+                qkv = qkv.to(dtype).permute(2, 0, 3, 1, 4)
+                q, k, v = qkv[0], qkv[1], qkv[2]
+                # dO as autograd hands it over: a transposed view.
+                do = torch.randn(b, n, h, d, generator=gen, device="cuda")
+                do = do.to(dtype).transpose(1, 2)
+                seed = torch.randint(0, 2 ** 31, (), generator=gen,
+                                     device="cuda")
+                out, lse = flash_attention_train(q, k, v, rate, seed)
+                p_out, p_lse = flash_attention_train_plain(q, k, v, rate,
+                                                           seed)
+                delta = (do.float() * p_out.float()).sum(-1)
+                bwd = (q, k, v, do, p_lse, delta, rate, seed)
+                dq = flash_attention_bwd_dq(*bwd)
+                dk, dv = flash_attention_bwd_dkv(*bwd)
+                p_dq = flash_attention_bwd_dq_plain(*bwd)
+                p_dk, p_dv = flash_attention_bwd_dkv_plain(*bwd)
+                torch.cuda.synchronize()
+                checks = {"out": flash_agrees(out, p_out)}
+                ok, err = close(lse, p_lse, LSE_ATOL, 0.0)
+                checks["lse"] = (ok, {"max_abs_err": err, "atol": LSE_ATOL})
+                for name, got, want in (("dq", dq, p_dq), ("dk", dk, p_dk),
+                                        ("dv", dv, p_dv)):
+                    checks[name] = grad_agrees(got, want)
+                row = {"shape": [b, h, n, d], "dtype": str(dtype)[6:],
+                       "rate": rate,
+                       **{name: fields for name, (_, fields) in checks.items()}}
+                failed = [name for name, (ok, _) in checks.items() if not ok]
+                if (dtype == torch.bfloat16 and d == 64
+                        and (b * h, n) in ((48, 197), (24, 3137))):
+                    row["timing"] = _time_train_kernels(
+                        peaks, q, k, v, do, p_lse, delta, rate, seed)
+                    if rate > 0.0:
+                        timed[(b * h, n)] = row
+                emit("flash_train", **row)
+                if failed:
+                    raise AssertionError(f"training kernels {failed} "
+                                         f"disagree: {row}")
+    return timed
+
+
+def _time_train_kernels(peaks, q, k, v, do, lse, delta, rate, seed):
+    """ms, plain ms, library ms (device time, ``device_ms``) and bound of
+    kernels 2, 3 and 4 on these inputs, and call_ms, the kernel's time per
+    call back to back (CUDA events, host overhead included). Library:
+    F.scaled_dot_product_attention with the same dropout rate, forward for
+    kernel 2 and backward (forward + backward minus forward) for kernels 3
+    and 4 together."""
+    from visiontransformer_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd_dkv,
+        flash_attention_bwd_dkv_plain,
+        flash_attention_bwd_dq,
+        flash_attention_bwd_dq_plain,
+        flash_attention_train,
+        flash_attention_train_plain,
+    )
+
+    b, h, n, d = q.shape
+    bh, elt = b * h, q.element_size()
+    bwd = (q, k, v, do, lse, delta, rate, seed)
+    # The plain versions draw the dropout mask with int64 tensor ops; a few
+    # calls time them.
+    plain_iters = 2 if n > 1024 else 5
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+
+    def sdpa_fwd():
+        with torch.no_grad():
+            F.scaled_dot_product_attention(*leaves, dropout_p=rate)
+
+    def sdpa_fwd_bwd():
+        F.scaled_dot_product_attention(*leaves, dropout_p=rate).backward(do)
+
+    sdpa_fwd_ms = device_ms(sdpa_fwd)
+    sdpa_bwd_ms = device_ms(sdpa_fwd_bwd) - sdpa_fwd_ms
+    rows = {}
+    for name, fn, plain, n_bytes, n_ops, library in (
+            ("fwd_train", lambda: flash_attention_train(q, k, v, rate, seed),
+             lambda: flash_attention_train_plain(q, k, v, rate, seed),
+             4 * bh * n * d * elt + 4 * bh * n, 4 * bh * n * n * d,
+             sdpa_fwd_ms),
+            ("bwd_dq", lambda: flash_attention_bwd_dq(*bwd),
+             lambda: flash_attention_bwd_dq_plain(*bwd),
+             5 * bh * n * d * elt + 8 * bh * n, 6 * bh * n * n * d,
+             sdpa_bwd_ms),
+            ("bwd_dkv", lambda: flash_attention_bwd_dkv(*bwd),
+             lambda: flash_attention_bwd_dkv_plain(*bwd),
+             6 * bh * n * d * elt + 8 * bh * n, 8 * bh * n * n * d,
+             sdpa_bwd_ms)):
+        row = {"ms": device_ms(fn), "call_ms": time_ms(fn),
+               "plain_ms": device_ms(plain, iters=plain_iters),
+               "library_ms": library}
+        row["bound_ms"], row["bound_by"] = bound_ms(peaks, n_bytes, n_ops,
+                                                    "bf16")
+        rows[name] = row
+    rows["library_note"] = ("SDPA forward with dropout; SDPA backward "
+                            "(fwd+bwd minus fwd) covers bwd_dq and bwd_dkv "
+                            "together")
+    return rows
+
+
+def _synthetic_ce_set(root: str, n_samples: int):
+    """The port's copy of generate_multiclass at 224^2, as a CE dataset."""
+    from visiontransformer_tpu_torch.data import CESegmentationDataset
+    from visiontransformer_tpu_torch.data.synthetic import generate_multiclass
+
+    generate_multiclass(root, n_samples=n_samples, image_size=224)
+    return CESegmentationDataset(f"{root}/image_png", f"{root}/mask_png",
+                                 image_size=224, cache=True)
+
+
+def _train_launches():
+    from visiontransformer_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        flash_attention_bwd_dkv,
+        flash_attention_bwd_dq,
+        flash_attention_train,
+    )
+
+    fns = {"flash_attention_fwd": flash_attention,
+           "flash_attention_fwd_train": flash_attention_train,
+           "flash_attention_bwd_dq": flash_attention_bwd_dq,
+           "flash_attention_bwd_dkv": flash_attention_bwd_dkv}
+
+    def reset():
+        for fn in fns.values():
+            fn.launches = 0
+
+    return reset, lambda: {name: fn.launches for name, fn in fns.items()}
+
+
+def phase_train():
+    """The port's Trainer on ViT-B/16 with the CE defaults (bf16)."""
+    import csv
+
+    from visiontransformer_tpu_torch.configs import CE_TRAIN_DEFAULTS
+    from visiontransformer_tpu_torch.data.pipeline import batch_iterator
+    from visiontransformer_tpu_torch.models.registry import vitseg_config
+    from visiontransformer_tpu_torch.train.trainer import Trainer
+    from visiontransformer_tpu_torch.utils.csvlog import CSVLogger
+
+    cfg = vitseg_config("P16H768A12", num_classes=17,
+                        compute_dtype="bfloat16")
+    tcfg = dataclasses.replace(CE_TRAIN_DEFAULTS, max_epochs=1,
+                               log_every_n_steps=1)
+    layers, accum = cfg.vit.num_hidden_layers, tcfg.accumulate_grad_batches
+    reset, read = _train_launches()
+    result = {"config": "P16H768A12", "classes": 17, "dtype": "bfloat16",
+              "batch": tcfg.batch_size, "accumulate": accum,
+              "dropout": [cfg.vit.hidden_dropout_prob,
+                          cfg.vit.attention_probs_dropout_prob]}
+    with tempfile.TemporaryDirectory() as tmp:
+        data = _synthetic_ce_set(f"{tmp}/data", 3 * tcfg.batch_size)
+        trainer = Trainer(cfg, tcfg, device="cuda",
+                          logger=CSVLogger(f"{tmp}/logs"))
+        reset()
+        t0 = time.perf_counter()
+        state = trainer.fit(data)
+        torch.cuda.synchronize()
+        result["fit_s"] = time.perf_counter() - t0
+        launches = read()
+        with open(trainer.logger.path) as f:
+            losses = [float(r["train_loss_step"]) for r in csv.DictReader(f)
+                      if r["train_loss_step"]]
+        result.update(steps=state.step, losses=losses, launches=launches)
+        per_step = layers * accum * state.step
+        want = {"flash_attention_fwd": 0, "flash_attention_fwd_train":
+                per_step, "flash_attention_bwd_dq": per_step,
+                "flash_attention_bwd_dkv": per_step}
+        if state.step < 3 or launches != want:
+            raise AssertionError(f"train launches {launches} over "
+                                 f"{state.step} steps, expected {want}")
+        if len(losses) != state.step or not all(
+                np.isfinite(x) for x in losses):
+            raise AssertionError(f"train losses {losses}")
+
+        reset()
+        metrics = trainer.evaluate(data, state.model)
+        launches = read()
+        batches = len(data) // tcfg.batch_size
+        if (launches["flash_attention_fwd"] != layers * batches
+                or any(v for k, v in launches.items()
+                       if k != "flash_attention_fwd")
+                or not np.isfinite(metrics["loss"])):
+            raise AssertionError(f"evaluate launches {launches}, {metrics}")
+        result.update(eval_loss=metrics["loss"], eval_launches=launches)
+
+        # Throughput on batches already on the card (no host decode).
+        for batch_size, accumulate, key in ((tcfg.batch_size, accum,
+                                             "reference"),
+                                            (32, 1, "batch32")):
+            trainer.train_cfg = dataclasses.replace(
+                tcfg, batch_size=batch_size,
+                accumulate_grad_batches=accumulate)
+            batches = [{k: torch.from_numpy(v).to("cuda") for k, v in b.items()}
+                       for b in batch_iterator(data, batch_size, shuffle=True,
+                                               seed=1)]
+            step = _train_step_fn(trainer, state, batches)
+            step()
+            torch.cuda.synchronize()
+            if key == "reference":
+                torch.cuda.reset_peak_memory_stats()
+            best = 0.0
+            for _ in range(3):
+                t0 = time.perf_counter()
+                for _ in range(5):
+                    step()
+                torch.cuda.synchronize()
+                best = max(best, 5 / (time.perf_counter() - t0))
+            result[key] = {"batch": batch_size, "accumulate": accumulate,
+                           "steps_per_s": best,
+                           "images_per_s": best * batch_size}
+            if key == "reference":
+                result["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            result[key]["profile"] = profile_steps(step, batch_size, steps=3)
+        trainer.train_cfg = tcfg
+    emit("train", **result)
+    return result
+
+
+def _train_step_fn(trainer, state, batches):
+    count = [0]
+
+    def step():
+        trainer.train_step(state, batches[count[0] % len(batches)], count[0])
+        count[0] += 1
+
+    return step
+
+
+def phase_train_fp32_step():
+    """One fp32 optimizer step, dropout off, kernels vs eager attention on
+    the same weights and batch."""
+    from visiontransformer_tpu_torch.configs import CE_TRAIN_DEFAULTS
+    from visiontransformer_tpu_torch.models.registry import vitseg_config
+    from visiontransformer_tpu_torch.train.trainer import Trainer
+
+    cfg = vitseg_config("P16H768A12", num_classes=17, compute_dtype="float32")
+    cfg = dataclasses.replace(cfg, vit=dataclasses.replace(
+        cfg.vit, hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0))
+    tcfg = CE_TRAIN_DEFAULTS
+    rng = np.random.default_rng(0)
+    batch = {"image": rng.random((tcfg.batch_size, 224, 224, 3), np.float32),
+             "mask": rng.integers(0, 17, (tcfg.batch_size, 256, 256),
+                                  dtype=np.int32)}
+    reset, read = _train_launches()
+    runs = {}
+    for impl in ("flash", "eager"):
+        trainer = Trainer(cfg, tcfg, device="cuda", attn_impl=impl)
+        state = trainer.init_state()
+        reset()
+        _, metrics = trainer.train_step(state, batch, seed=0)
+        runs[impl] = (float(metrics["loss"]), read(),
+                      {name: p.grad.detach() for name, p in
+                       state.model.named_parameters()})
+        del state
+    (loss_k, launches, grads_k), (loss_e, _, grads_e) = (runs["flash"],
+                                                         runs["eager"])
+    checks = {name: close(grads_k[name], grads_e[name],
+                          *GRAD_TOL[torch.float32]) for name in grads_k}
+    bad = [name for name, (ok, _) in checks.items() if not ok]
+    worst = max(checks, key=lambda name: checks[name][1])
+    per_step = cfg.vit.num_hidden_layers * tcfg.accumulate_grad_batches
+    result = {"loss_kernels": loss_k, "loss_eager": loss_e,
+              "loss_rel_diff": abs(loss_k - loss_e) / abs(loss_e),
+              "grads": len(grads_k), "grads_failed": bad,
+              "worst_grad": {"name": worst,
+                             "max_abs_err": checks[worst][1]},
+              "grad_tol": GRAD_TOL[torch.float32], "launches": launches}
+    emit("train_fp32_step", **result)
+    if (result["loss_rel_diff"] > LOSS_RTOL or bad
+            or launches["flash_attention_bwd_dkv"] != per_step):
+        raise AssertionError(f"fp32 train step: kernels vs eager {result}")
+    return result
+
+
 class _Client:
     def __init__(self, base):
         self.base, self.cookies = base, {}
@@ -520,9 +883,13 @@ def main() -> int:
     upsample = phase_upsample(peaks, gen)
     model = phase_model(gen)
     serving = phase_serving()
+    flash_train = phase_flash_train(peaks, gen)
+    train = phase_train()
+    phase_train_fp32_step()
     emit("done", seconds=time.perf_counter() - t0,
          masks_per_s=model["bfloat16"]["masks_per_s"],
-         jobs_per_s=serving["jobs_per_s"])
+         jobs_per_s=serving["jobs_per_s"],
+         train_images_per_s=train["reference"]["images_per_s"])
 
     src = "visiontransformer_tpu_torch/csrc/"
     kernels = [
@@ -541,6 +908,25 @@ def main() -> int:
                                      "bound_ms", "bound_by", "library_ms")},
          "shape": upsample["shape"], "out": upsample["out"]},
     ]
+    main_row = flash_train[(48, 197)]
+    for name, key, line in (("flash_attention_fwd_train", "fwd_train", 92),
+                            ("flash_attention_bwd_dq", "bwd_dq", 278),
+                            ("flash_attention_bwd_dkv", "bwd_dkv", 315)):
+        source = "flash_attention_fwd.cu" if key == "fwd_train" else (
+            f"flash_attention_{key}.cu")
+        errs = [main_row[k]["max_abs_err"] for k in (
+            ("out",) if key == "fwd_train" else
+            ("dq",) if key == "bwd_dq" else ("dk", "dv"))]
+        kernels.append({
+            "name": name, "route": "cuda", "source": src + source,
+            "replaces": f"visiontransformer_tpu/ops/flash_attention.py:{line}",
+            "launches": train["launches"][name],
+            "max_abs_err": max(errs),
+            **{k: main_row["timing"][key][k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            "shape": main_row["shape"], "dtype": main_row["dtype"],
+            "dropout": main_row["rate"],
+            "n3137": flash_train[(24, 3137)]["timing"][key]})
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

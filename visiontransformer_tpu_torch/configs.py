@@ -1,16 +1,19 @@
 """Typed configuration objects of the ViT segmentation model.
 
 A copy of the TPU package's ``configs.py`` (``ViTConfig``, ``ViTSegConfig``,
-the 9-config sweep table and the named size presets) with the same field
-names and defaults; ``ViTSegConfig.dtype`` is a ``torch.dtype``. Fields the
-port does not use yet (dropout, ``remat``, ``token_merge_r``) are kept so
-that one configuration means the same model in both packages.
+the 9-config sweep table, the named size presets, ``TrainConfig`` and the
+CE/PAED training defaults) with the same field names and defaults;
+``ViTSegConfig.dtype`` is a ``torch.dtype``. Fields the port does not use
+yet (``remat``, ``token_merge_r``, the mesh and parallelism fields of
+``TrainConfig``) are kept so that one configuration means the same model and
+schedule in both packages; ``not_ported`` names those set away from their
+defaults, and the port's entry points reject them.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -160,3 +163,67 @@ def vit_config_by_name(name: str, **overrides) -> ViTConfig:
         return ViTConfig(**{**VIT_PRESETS[name], **overrides})
     known = [e.name for e in SWEEP_CONFIGS] + sorted(VIT_PRESETS)
     raise KeyError(f"unknown ViT config {name!r}; known: {known}")
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Training hyperparameters (the TPU package's ``TrainConfig``).
+
+    Defaults mirror the CE driver (reference model/CE/createViTmodel.py:57-77):
+    Adam lr=1e-5, max_epochs=100, EarlyStopping(valid_loss, patience=3).
+    ``batch_size`` is the optimizer batch and ``accumulate_grad_batches``
+    the number of micro-batches it is split into: batch_size=16,
+    accumulate=4 is the reference's schedule (loader batch 4, accumulate 4).
+    The PAED binary trainer overrides (reference
+    model/PAED/classes.py:536-548): AdamW lr=1e-4 + ReduceLROnPlateau
+    (patience=30) monitoring val_IoU.
+    """
+
+    batch_size: int = 16
+    learning_rate: float = 1e-5
+    optimizer: str = "adam"  # "adam" | "adamw"
+    weight_decay: float = 0.01  # torch AdamW default, used when optimizer="adamw"
+    accumulate_grad_batches: int = 4
+    remat: bool = False
+    max_epochs: int = 100
+    early_stopping_monitor: Optional[str] = "valid_loss"
+    early_stopping_patience: int = 3
+    early_stopping_mode: str = "min"
+    plateau_patience: Optional[int] = None  # ReduceLROnPlateau patience, None = off
+    plateau_monitor: str = "val_IoU"
+    plateau_mode: str = "max"
+    plateau_factor: float = 0.1  # torch ReduceLROnPlateau default
+    seed: int = 42
+    log_every_n_steps: int = 50
+    checkpoint_dir: Optional[str] = None
+    # Mesh, FSDP, sequence and pipeline parallelism: fields of the TPU
+    # package kept for parity; not ported yet (ROADMAP §1 item 12).
+    mesh_shape: Optional[Tuple[int, ...]] = None
+    fsdp: bool = False
+    fsdp_min_size: Optional[int] = None
+    seq_parallel: bool = False
+    pipeline_stages: int = 1
+    pipeline_microbatches: Optional[int] = None
+
+    def not_ported(self) -> List[str]:
+        """Fields set away from their defaults that the port does not
+        implement yet: remat, checkpoints (ROADMAP §1 item 8) and
+        parallelism (item 12)."""
+        default = TrainConfig()
+        names = ("remat", "checkpoint_dir", "mesh_shape", "fsdp",
+                 "fsdp_min_size", "seq_parallel", "pipeline_stages",
+                 "pipeline_microbatches")
+        return [n for n in names if getattr(self, n) != getattr(default, n)]
+
+
+CE_TRAIN_DEFAULTS = TrainConfig()
+
+PAED_TRAIN_DEFAULTS = TrainConfig(
+    learning_rate=1e-4,
+    optimizer="adamw",
+    early_stopping_monitor="val_loss",
+    early_stopping_patience=6,  # reference model/PAED/ViTscript.py:70
+    plateau_patience=30,
+    plateau_monitor="val_IoU",
+    plateau_mode="max",
+)

@@ -1,14 +1,25 @@
-// Flash-attention forward, inference variant, for Hopper (sm_90a).
+// Flash-attention forward for Hopper (sm_90a), inference and training.
 //
-// Replaces visiontransformer_tpu/ops/flash_attention.py:_fwd_kernel with
-// need_lse=False and no dropout: out = softmax(Q K^T * d^-1/2) V over
-// (B, H, N, d), computed online over key tiles so the N x N score matrix
-// never reaches device memory.
+// Replaces visiontransformer_tpu/ops/flash_attention.py:_fwd_kernel:
+// out = softmax(Q K^T * d^-1/2) V over (B, H, N, d), computed online over
+// key tiles so the N x N score matrix never reaches device memory.
+// Inference (kTrain = false) is need_lse=False without dropout. Training
+// (kTrain = true, vt_flash_attention_fwd_train) also writes
+// lse = m + log(l) (natural log, fp32, (B*H, N)) and applies attention
+// dropout inside the kernel: the normalized probabilities are multiplied
+// by mask / keep before P V while the softmax denominator sums the
+// undropped p (as _fwd_kernel :131-143 does). The mask comes from
+// Philox4x32-10 keyed by (seed, b*H + h) with counter (query row, key
+// column) (flash_attention_common.cuh), so the backward kernels regenerate
+// it with their own tiling. In bf16, P * mask / keep is rounded to bf16
+// before P V, where the TPU kernel rounds it.
 //
 // What bounds it: at the serving shape (B*H = 384, N = 197, d = 64, bf16)
 // the kernel must move 4 * B*H*N*d * 2 bytes (Q, K, V read, O written:
 // 38.7 MB) against 4 * B*H*N^2*d = 3.8 GFLOP, so on an H100 it is bound by
-// memory bytes, not by the tensor cores.
+// memory bytes, not by the tensor cores. The training variant adds the
+// 4 * B*H*N bytes of lse and one Philox draw per probability; it is bound
+// the same way.
 //
 // Design. The TPU kernel kept all of one head's K/V in VMEM and walked the
 // grid in order; here blocks run in parallel, each with a few KB of static
@@ -38,9 +49,9 @@
 // dimension must be contiguous, and for bf16 rows must be 16-byte aligned
 // (the wrapper raises otherwise).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_attention_common.cuh"
+
+using namespace vt_flash;
 
 namespace {
 
@@ -48,19 +59,22 @@ constexpr int kBlockQ = 64;                 // query rows per block
 constexpr int kQuad = 4;                    // threads per query row
 constexpr int kBlockK = 32;                 // keys per shared-memory tile
 constexpr int kThreads = kBlockQ * kQuad;   // 256
-constexpr float kNegInf = -1.0e30f;
 
-struct Strides {
-  long long b, h, n;
+// What the training variant needs besides the inference arguments.
+struct TrainArgs {
+  float* lse;                // (B*H, N) fp32, natural log
+  const long long* seed;     // device scalar; its low 32 bits key Philox
+  uint32_t keep_threshold;   // ceil(keep * 2^24); 2^24 means no dropout
+  float inv_keep;            // 1 / keep
 };
 
 // ---------------------------------------------------------------- fp32 path
-template <int D>
+template <int D, bool kTrain>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ o,
                      Strides sq, Strides sk, Strides sv, Strides so, int heads,
-                     int n, float scale) {
+                     int n, float scale, TrainArgs train) {
   static_assert(D % kQuad == 0, "head dim must split over a quad");
   constexpr int kPer = D / kQuad;
   __shared__ float k_s[kBlockK][D];
@@ -125,6 +139,17 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       l_tile += s[j];
     }
     l = l * alpha + l_tile;
+    if constexpr (kTrain) {
+      // The denominator above summed the undropped p; only P V drops.
+      if (train.keep_threshold < (1u << 24)) {
+        const uint32_t seed = static_cast<uint32_t>(*train.seed);
+#pragma unroll
+        for (int j = 0; j < kBlockK; ++j)
+          s[j] = dropout_keep(seed, blockIdx.y, row, key0 + j,
+                              train.keep_threshold)
+                     ? s[j] * train.inv_keep : 0.0f;
+      }
+    }
 #pragma unroll
     for (int i = 0; i < kPer; ++i) acc[i] *= alpha;
 #pragma unroll
@@ -140,45 +165,26 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const float inv = 1.0f / fmaxf(l, 1.0e-30f);
 #pragma unroll
     for (int i = 0; i < kPer; ++i) ob[part + kQuad * i] = acc[i] * inv;
+    if constexpr (kTrain) {
+      if (part == 0)
+        train.lse[static_cast<long long>(blockIdx.y) * n + row] =
+            m + logf(fmaxf(l, 1.0e-30f));
+    }
   }
 }
 
 // -------------------------------------------------------- bf16 tensor cores
-using bf16 = __nv_bfloat16;
 constexpr int kMmaWarps = 8;
 constexpr int kMmaThreads = 32 * kMmaWarps;
 constexpr int kMmaBlockQ = 16 * kMmaWarps;  // 128 query rows per block
-constexpr int kPad = 8;                     // bf16 padding per smem row
-constexpr int kVec = 8;                     // bf16 per 16-byte load
 
-__device__ __forceinline__ uint32_t pack2(bf16 lo, bf16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
-}
-
-__device__ __forceinline__ uint32_t pack2f(float lo, float hi) {
-  return pack2(__float2bfloat16(lo), __float2bfloat16(hi));
-}
-
-// D (16x8, fp32) += A (16x16, bf16, row) * B (16x8, bf16, col).
-__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Fragment layouts (PTX ISA, mma.m16n8k16): lane = 4 * g + t. A holds
-// rows g and g + 8, columns 2t, 2t + 1 (+ 8); B holds k = 2t, 2t + 1
-// (+ 8) of column g; C holds rows g and g + 8, columns 2t, 2t + 1.
-template <int D>
+// Fragment layouts: see mma16816 in flash_attention_common.cuh.
+template <int D, bool kTrain>
 __global__ void __launch_bounds__(kMmaThreads)
 flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const bf16* __restrict__ v, bf16* __restrict__ o,
                       Strides sq, Strides sk, Strides sv, Strides so,
-                      int heads, int n, float scale) {
+                      int heads, int n, float scale, TrainArgs train) {
   static_assert(D % 16 == 0, "head dim must be a multiple of 16");
   constexpr int kSteps = D / 16;          // k-steps of Q K^T
   constexpr int kOutTiles = D / 8;        // n-tiles of O
@@ -196,7 +202,7 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int row_hi = row_lo + 8;
   // Scores live in the log2 domain: exp(x) = exp2(x * log2(e)), with the
   // factor folded into the softmax scale.
-  const float scale_log2e = scale * 1.4426950408889634f;
+  const float scale_log2e = scale * kLog2e;
 
   const bf16* qb = q + b * sq.b + h * sq.h;
   const bf16* kb = k + b * sk.b + h * sk.h;
@@ -305,6 +311,23 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         l[e >> 1] += s[nt][e];
       }
     }
+    if constexpr (kTrain) {
+      // l above summed the undropped p; only P V drops.
+      if (train.keep_threshold < (1u << 24)) {
+        const uint32_t seed = static_cast<uint32_t>(*train.seed);
+#pragma unroll
+        for (int nt = 0; nt < kKeyTiles; ++nt) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int row = (e < 2) ? row_lo : row_hi;
+            const int key = key0 + nt * 8 + 2 * t + (e & 1);
+            s[nt][e] = dropout_keep(seed, blockIdx.y, row, key,
+                                    train.keep_threshold)
+                           ? s[nt][e] * train.inv_keep : 0.0f;
+          }
+        }
+      }
+    }
 #pragma unroll
     for (int ot = 0; ot < kOutTiles; ++ot) {
       acc[ot][0] *= alpha[0];
@@ -348,29 +371,54 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       ob[row_hi * so.n + c + 1] = __float2bfloat16(acc[ot][3] * inv_hi);
     }
   }
+  if constexpr (kTrain) {
+    // lse in natural-log units: m lives in the log2 domain.
+    float* lse = train.lse + static_cast<long long>(blockIdx.y) * n;
+    if (t == 0 && row_lo < n)
+      lse[row_lo] = m[0] * kLn2 + logf(fmaxf(l[0], 1.0e-30f));
+    if (t == 0 && row_hi < n)
+      lse[row_hi] = m[1] * kLn2 + logf(fmaxf(l[1], 1.0e-30f));
+  }
 }
 
-template <int D>
+template <int D, bool kTrain>
 cudaError_t launch(int dtype, const void* q, const void* k, const void* v,
                    void* o, Strides sq, Strides sk, Strides sv, Strides so,
-                   int batch, int heads, int n, float scale,
+                   int batch, int heads, int n, float scale, TrainArgs train,
                    cudaStream_t stream) {
   if (dtype == 0) {
     const dim3 grid((n + kBlockQ - 1) / kBlockQ, batch * heads);
-    flash_fwd_f32_kernel<D><<<grid, kThreads, 0, stream>>>(
+    flash_fwd_f32_kernel<D, kTrain><<<grid, kThreads, 0, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<float*>(o), sq, sk, sv, so,
-        heads, n, scale);
+        heads, n, scale, train);
   } else if (dtype == 1) {
     const dim3 grid((n + kMmaBlockQ - 1) / kMmaBlockQ, batch * heads);
-    flash_fwd_bf16_kernel<D><<<grid, kMmaThreads, 0, stream>>>(
+    flash_fwd_bf16_kernel<D, kTrain><<<grid, kMmaThreads, 0, stream>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k),
         static_cast<const bf16*>(v), static_cast<bf16*>(o), sq, sk, sv, so,
-        heads, n, scale);
+        heads, n, scale, train);
   } else {
     return cudaErrorInvalidValue;
   }
   return cudaGetLastError();
+}
+
+template <bool kTrain>
+int dispatch(int dtype, const void* q, const void* k, const void* v, void* o,
+             Strides sq, Strides sk, Strides sv, Strides so, int batch,
+             int heads, int n, int d, float scale, TrainArgs train,
+             cudaStream_t s) {
+  if (batch <= 0 || heads <= 0 || n <= 0 || batch * heads > 65535)
+    return cudaErrorInvalidValue;
+  switch (d) {
+    case 16: return launch<16, kTrain>(dtype, q, k, v, o, sq, sk, sv, so, batch, heads, n, scale, train, s);
+    case 32: return launch<32, kTrain>(dtype, q, k, v, o, sq, sk, sv, so, batch, heads, n, scale, train, s);
+    case 64: return launch<64, kTrain>(dtype, q, k, v, o, sq, sk, sv, so, batch, heads, n, scale, train, s);
+    case 80: return launch<80, kTrain>(dtype, q, k, v, o, sq, sk, sv, so, batch, heads, n, scale, train, s);
+    case 128: return launch<128, kTrain>(dtype, q, k, v, o, sq, sk, sv, so, batch, heads, n, scale, train, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -389,17 +437,28 @@ int vt_flash_attention_fwd(int dtype, const void* q, const void* k,
                            void* stream) {
   const Strides sq{q_sb, q_sh, q_sn}, sk{k_sb, k_sh, k_sn};
   const Strides sv{v_sb, v_sh, v_sn}, so{o_sb, o_sh, o_sn};
-  if (batch <= 0 || heads <= 0 || n <= 0 || batch * heads > 65535)
-    return cudaErrorInvalidValue;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (d) {
-    case 16: return launch<16>(dtype, q, k, v, o, sq, sk, sv, so, batch, heads, n, scale, s);
-    case 32: return launch<32>(dtype, q, k, v, o, sq, sk, sv, so, batch, heads, n, scale, s);
-    case 64: return launch<64>(dtype, q, k, v, o, sq, sk, sv, so, batch, heads, n, scale, s);
-    case 80: return launch<80>(dtype, q, k, v, o, sq, sk, sv, so, batch, heads, n, scale, s);
-    case 128: return launch<128>(dtype, q, k, v, o, sq, sk, sv, so, batch, heads, n, scale, s);
-    default: return cudaErrorInvalidValue;
-  }
+  return dispatch<false>(dtype, q, k, v, o, sq, sk, sv, so, batch, heads, n,
+                         d, scale, TrainArgs{nullptr, nullptr, 1u << 24, 1.0f},
+                         static_cast<cudaStream_t>(stream));
+}
+
+// The training forward: as vt_flash_attention_fwd, plus lse (B*H, N) fp32
+// and dropout keyed by the int64 device scalar *seed; keep_threshold =
+// ceil(keep * 2^24) (2^24: no dropout), inv_keep = 1 / keep.
+int vt_flash_attention_fwd_train(
+    int dtype, const void* q, const void* k, const void* v, void* o,
+    void* lse, long long q_sb, long long q_sh, long long q_sn, long long k_sb,
+    long long k_sh, long long k_sn, long long v_sb, long long v_sh,
+    long long v_sn, long long o_sb, long long o_sh, long long o_sn,
+    int batch, int heads, int n, int d, float scale, const void* seed,
+    unsigned int keep_threshold, float inv_keep, void* stream) {
+  const Strides sq{q_sb, q_sh, q_sn}, sk{k_sb, k_sh, k_sn};
+  const Strides sv{v_sb, v_sh, v_sn}, so{o_sb, o_sh, o_sn};
+  const TrainArgs train{static_cast<float*>(lse),
+                        static_cast<const long long*>(seed), keep_threshold,
+                        inv_keep};
+  return dispatch<true>(dtype, q, k, v, o, sq, sk, sv, so, batch, heads, n, d,
+                        scale, train, static_cast<cudaStream_t>(stream));
 }
 
 const char* vt_error_string(int err) {

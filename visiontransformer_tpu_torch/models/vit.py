@@ -1,19 +1,29 @@
-"""ViT backbone, inference forward.
+"""ViT backbone forward, for inference and training.
 
 Mirrors the TPU package's ``models/vit.py`` (HF ``ViTModel`` semantics):
 patch embedding as patchify + one matmul, CLS token and learned position
 embeddings, pre-LN encoder blocks with a fused (H, 3H) QKV projection and
-exact-erf GELU MLP, final LayerNorm. Dropout is off (inference only);
-remat, token merging and sharding are not ported.
+exact-erf GELU MLP, final LayerNorm. With ``deterministic=False`` dropout
+applies where the TPU package applies it (embeddings, attention probs,
+attention output, MLP output), its draws taken in that order from one
+explicit ``torch.Generator``. Remat, token merging and sharding are not
+ported.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 from torch import nn
 
 from visiontransformer_tpu_torch.configs import ViTConfig
-from visiontransformer_tpu_torch.nn.layers import LayerNorm, Linear, gelu_exact
+from visiontransformer_tpu_torch.nn.layers import (
+    LayerNorm,
+    Linear,
+    dropout,
+    gelu_exact,
+)
 from visiontransformer_tpu_torch.ops.attention import multi_head_attention
 
 
@@ -45,8 +55,11 @@ class ViT(nn.Module):
         self.final_ln = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps)
 
     def forward(self, images: torch.Tensor, *, attn_impl: str = "auto",
-                dtype: torch.dtype = torch.float32) -> torch.Tensor:
-        return vit_apply(self, images, attn_impl=attn_impl, dtype=dtype)
+                dtype: torch.dtype = torch.float32,
+                deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        return vit_apply(self, images, attn_impl=attn_impl, dtype=dtype,
+                         deterministic=deterministic, generator=generator)
 
 
 def patchify(images: torch.Tensor, patch_size: int) -> torch.Tensor:
@@ -59,41 +72,58 @@ def patchify(images: torch.Tensor, patch_size: int) -> torch.Tensor:
 
 
 def vit_embed(model: ViT, images: torch.Tensor, *,
-              dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """Patchify + project + CLS + position embeddings."""
+              dtype: torch.dtype = torch.float32, deterministic: bool = True,
+              generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Patchify + project + CLS + position embeddings + embedding
+    dropout."""
     x = patchify(images.to(dtype), model.cfg.patch_size)
     x = model.patch_embed(x, dtype=dtype)
     cls = model.cls_token.to(dtype).expand(x.shape[0], -1, -1)
     x = torch.cat([cls, x], dim=1)
-    return x + model.pos_embed.to(dtype)
+    x = x + model.pos_embed.to(dtype)
+    return dropout(x, model.cfg.hidden_dropout_prob, generator=generator,
+                   deterministic=deterministic)
 
 
 def encoder_layer(layer: EncoderLayer, x: torch.Tensor, cfg: ViTConfig, *,
-                  attn_impl: str) -> torch.Tensor:
+                  attn_impl: str, deterministic: bool = True,
+                  generator: Optional[torch.Generator] = None
+                  ) -> torch.Tensor:
     b, n, h = x.shape
     nh, hd = cfg.num_attention_heads, cfg.head_dim
+    rate = cfg.hidden_dropout_prob
 
     y = layer.ln1(x)
     qkv = layer.qkv(y).reshape(b, n, 3, nh, hd).permute(2, 0, 3, 1, 4)
-    attn = multi_head_attention(qkv[0], qkv[1], qkv[2],
-                                implementation=attn_impl)
+    attn = multi_head_attention(
+        qkv[0], qkv[1], qkv[2], implementation=attn_impl,
+        dropout_rate=cfg.attention_probs_dropout_prob, generator=generator,
+        deterministic=deterministic)
     attn = attn.transpose(1, 2).reshape(b, n, h)
-    x = x + layer.attn_out(attn)
+    x = x + dropout(layer.attn_out(attn), rate, generator=generator,
+                    deterministic=deterministic)
 
     y = layer.ln2(x)
-    y = gelu_exact(layer.mlp_in(y))
-    return x + layer.mlp_out(y)
+    y = layer.mlp_out(gelu_exact(layer.mlp_in(y)))
+    return x + dropout(y, rate, generator=generator,
+                       deterministic=deterministic)
 
 
-def vit_encode(model: ViT, x: torch.Tensor, *, attn_impl: str) -> torch.Tensor:
+def vit_encode(model: ViT, x: torch.Tensor, *, attn_impl: str,
+               deterministic: bool = True,
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """Encoder blocks + final LayerNorm over embedded tokens."""
     for layer in model.layers:
-        x = encoder_layer(layer, x, model.cfg, attn_impl=attn_impl)
+        x = encoder_layer(layer, x, model.cfg, attn_impl=attn_impl,
+                          deterministic=deterministic, generator=generator)
     return model.final_ln(x)
 
 
 def vit_apply(model: ViT, images: torch.Tensor, *, attn_impl: str = "auto",
-              dtype: torch.dtype = torch.float32) -> torch.Tensor:
+              dtype: torch.dtype = torch.float32, deterministic: bool = True,
+              generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """(B, H, W, C) images -> (B, N+1, hidden) final token states."""
-    x = vit_embed(model, images, dtype=dtype)
-    return vit_encode(model, x, attn_impl=attn_impl)
+    x = vit_embed(model, images, dtype=dtype, deterministic=deterministic,
+                  generator=generator)
+    return vit_encode(model, x, attn_impl=attn_impl,
+                      deterministic=deterministic, generator=generator)

@@ -4,6 +4,8 @@ Mirrors the TPU package's ``models/vitseg.py``: drop the CLS token, fold
 the tokens to the (g, g) grid, Conv3×3(hidden→256) + ReLU +
 Conv1×1(256→classes), then one bilinear upsample (align_corners=False) to
 the output size. Activations are NHWC throughout, as in the TPU package.
+``vitseg_apply`` with ``deterministic=False`` and a generator is the
+training forward (dropout in the backbone, fp32 logits at the input size).
 """
 
 from __future__ import annotations
@@ -33,18 +35,23 @@ class ViTSeg(nn.Module):
         self.head_conv1 = Conv2d(cfg.vit.hidden_size, cfg.head_channels, 3)
         self.head_conv2 = Conv2d(cfg.head_channels, cfg.num_classes, 1)
 
-    def forward(self, images: torch.Tensor, *,
-                attn_impl: str = "auto") -> torch.Tensor:
-        return vitseg_apply(self, images, attn_impl=attn_impl)
+    def forward(self, images: torch.Tensor, *, attn_impl: str = "auto",
+                deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        return vitseg_apply(self, images, attn_impl=attn_impl,
+                            deterministic=deterministic, generator=generator)
 
 
 def vitseg_head_logits(model: ViTSeg, images: torch.Tensor, *,
-                       attn_impl: str = "auto") -> torch.Tensor:
+                       attn_impl: str = "auto", deterministic: bool = True,
+                       generator: Optional[torch.Generator] = None
+                       ) -> torch.Tensor:
     """(B, H, W, 3) images -> (B, g, g, classes) grid logits, in the
     compute dtype (before the upsample)."""
     cfg = model.cfg
     tokens = vit_apply(model.backbone, images, attn_impl=attn_impl,
-                       dtype=cfg.dtype)
+                       dtype=cfg.dtype, deterministic=deterministic,
+                       generator=generator)
     g = cfg.vit.grid_size
     features = tokens[:, 1:, :].reshape(tokens.shape[0], g, g,
                                         cfg.vit.hidden_size)
@@ -53,9 +60,12 @@ def vitseg_head_logits(model: ViTSeg, images: torch.Tensor, *,
 
 
 def vitseg_apply(model: ViTSeg, images: torch.Tensor, *,
-                 attn_impl: str = "auto") -> torch.Tensor:
-    """(B, H, W, 3) images -> (B, H, W, classes) fp32 logits."""
-    x = vitseg_head_logits(model, images, attn_impl=attn_impl)
+                 attn_impl: str = "auto", deterministic: bool = True,
+                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """(B, H, W, 3) images -> (B, H, W, classes) fp32 logits, upsampled to
+    the input size by ``resize_bilinear_mm`` in fp32."""
+    x = vitseg_head_logits(model, images, attn_impl=attn_impl,
+                           deterministic=deterministic, generator=generator)
     return resize_bilinear_mm(x.float(), (images.shape[1], images.shape[2]))
 
 

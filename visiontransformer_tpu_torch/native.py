@@ -1,10 +1,12 @@
-"""Connected-component detections for the serving worker.
+"""Host helpers from the repository's C++ library.
 
-A ``ctypes`` binding to ``vn_detections`` of the repository's C++ host
-library (``native/vitseg_native.cpp``, built with ``make -C native`` at
-first use), with a pure-Python per-class fallback when the library cannot
-be built or ``VITSEG_NATIVE=0``. Both are host code; the fallback is not a
-device fallback.
+``ctypes`` bindings to ``vn_detections`` (connected-component detections
+for the serving worker), ``vn_remap_u8`` and ``vn_resize_nearest_pil_u8``
+(mask LUT remap and PIL-exact nearest resize for the datasets) of
+``native/vitseg_native.cpp``, built with ``make -C native`` at first use,
+each with a pure-Python/numpy/PIL fallback when the library cannot be built
+or ``VITSEG_NATIVE=0``. All are host code; a fallback is not a device
+fallback.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import threading
 from typing import List, Optional, Tuple
 
 import numpy as np
+from PIL import Image
 
 _NATIVE_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "native")
@@ -26,6 +29,7 @@ _LIB: Optional[ctypes.CDLL] = None
 _TRIED = False
 
 _i32 = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+_u8 = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
 
 
 def _load() -> Optional[ctypes.CDLL]:
@@ -49,6 +53,11 @@ def _load() -> Optional[ctypes.CDLL]:
         lib.vn_detections.argtypes = [_i32, _i32, ctypes.c_int, ctypes.c_int,
                                       _i32, ctypes.c_int]
         lib.vn_detections.restype = ctypes.c_int
+        lib.vn_remap_u8.argtypes = [_u8, _i32, _i32, ctypes.c_long]
+        lib.vn_remap_u8.restype = None
+        lib.vn_resize_nearest_pil_u8.argtypes = [
+            _u8, _u8, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int]
+        lib.vn_resize_nearest_pil_u8.restype = None
         _LIB = lib
         return _LIB
 
@@ -130,3 +139,28 @@ def detections(class_mask: np.ndarray) -> List[Tuple[int, int, int, int, int]]:
         if n <= capacity:
             return sorted(tuple(int(v) for v in row) for row in boxes[:n])
         capacity = n  # the first pass counted them all; one retry at most
+
+
+def remap_u8(values: np.ndarray, lut: np.ndarray) -> np.ndarray:
+    """values: uint8 array; lut: 256-entry int32 -> class indices."""
+    lib = _load()
+    values = np.ascontiguousarray(values, np.uint8)
+    lut = np.ascontiguousarray(lut, np.int32)
+    if lib is None:
+        return lut[values]
+    out = np.empty(values.shape, np.int32)
+    lib.vn_remap_u8(values.reshape(-1), lut, out.reshape(-1), values.size)
+    return out
+
+
+def resize_nearest_pil_u8(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
+    """PIL-NEAREST-exact resize of a 2D uint8 image to (h, w)."""
+    lib = _load()
+    img = np.ascontiguousarray(img, np.uint8)
+    oh, ow = size
+    if lib is None:
+        return np.asarray(Image.fromarray(img).resize((ow, oh), Image.NEAREST))
+    ih, iw = img.shape
+    out = np.empty((oh, ow), np.uint8)
+    lib.vn_resize_nearest_pil_u8(img, out, ih, iw, oh, ow)
+    return out

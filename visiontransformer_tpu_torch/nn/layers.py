@@ -4,9 +4,10 @@ The functions mirror the TPU package's ``nn/layers.py`` arithmetic: a
 linear kernel is stored (in, out) in fp32 and cast to the activation dtype
 at use, with the bias added after the product in that dtype; LayerNorm runs
 in fp32 and casts back; convolutions take NHWC activations and HWIO
-kernels. The modules hold parameters under the TPU package's names
-(``kernel``, ``bias``, ``scale``), so its parameter tree maps onto their
-state dict key for key (``ckpt/convert.py``).
+kernels; dropout draws its mask from an explicit generator. The modules
+hold parameters under the TPU package's names (``kernel``, ``bias``,
+``scale``), so its parameter tree maps onto their state dict key for key
+(``ckpt/convert.py``).
 """
 
 from __future__ import annotations
@@ -43,6 +44,22 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, *,
 def gelu_exact(x: torch.Tensor) -> torch.Tensor:
     """Exact (erf) GELU, as HF ViT uses."""
     return F.gelu(x, approximate="none")
+
+
+def dropout(x: torch.Tensor, rate: float, *,
+            generator: Optional[torch.Generator],
+            deterministic: bool) -> torch.Tensor:
+    """Inverted dropout (torch nn.Dropout semantics): keep each element
+    with probability 1 - rate and scale it by 1 / (1 - rate), the keep
+    draws coming from ``generator`` (on x's device)."""
+    if deterministic or rate == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout needs an explicit torch.Generator "
+                         "(or deterministic=True)")
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, 0.0)
 
 
 def _same_padding(size: int, k: int, stride: int, dilation: int):

@@ -5,8 +5,8 @@ C interface, loaded with ``ctypes`` (no PyTorch headers: a few seconds per
 file instead of minutes). All sources build together, one ``nvcc`` process
 each, the first time any kernel is needed; importing the package builds
 nothing. Libraries land in ``_build/<hash>/`` beside the package, keyed by a
-hash of the sources and the flags, so an edited source rebuilds and an
-unchanged one is reused.
+hash of the sources, the shared headers (``csrc/*.cuh``) and the flags, so
+an edited source or header rebuilds and an unchanged tree is reused.
 """
 
 from __future__ import annotations
@@ -50,9 +50,10 @@ def sources() -> Dict[str, Path]:
 
 
 def build_dir() -> Path:
+    """Keyed by the flags, every source and every shared header."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name, path in sources().items():
-        digest.update(name.encode())
+    for path in sorted(CSRC_DIR.glob("*.cu")) + sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(path.name.encode())
         digest.update(path.read_bytes())
     return BUILD_ROOT / digest.hexdigest()[:16]
 

@@ -2,39 +2,78 @@
 
 - ``"eager"``: plain PyTorch attention, mirroring the TPU package's
   ``ops/attention.py:_xla_attention`` (scale rounded to the compute dtype,
-  fp32 logits and softmax, probs cast to the compute dtype before P·V).
-- ``"flash"``: the hand-written flash-attention kernel
-  (``ops/flash_attention.py``); its plain version on a CPU tensor.
+  fp32 logits and softmax, dropout on the fp32 probs, probs cast to the
+  compute dtype before P·V).
+- ``"flash"``: the hand-written flash-attention kernels
+  (``ops/flash_attention.py``; their plain versions on a CPU tensor), with
+  dropout inside the kernels; the dropout seed is drawn from the generator
+  as an int64 scalar on the generator's device, so drawing it never waits
+  for the card.
 - ``"auto"``: flash on a CUDA tensor at every sequence length, eager on the
   CPU. The TPU package's ``N >= 512`` threshold was a TPU measurement and
   is not carried over.
+
+Dropout applies only when ``deterministic`` is False and the rate is above
+0, and then needs an explicit ``torch.Generator``.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
 from visiontransformer_tpu_torch.ops.flash_attention import flash_attention
 
 IMPLEMENTATIONS = ("auto", "eager", "flash")
+# Attention dropout seeds are drawn in [0, 2^31).
+_SEED_BOUND = 2 ** 31
 
 
-def eager_attention(q: torch.Tensor, k: torch.Tensor,
-                    v: torch.Tensor) -> torch.Tensor:
+def eager_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    dropout_rate: float = 0.0,
+                    generator: Optional[torch.Generator] = None,
+                    deterministic: bool = True) -> torch.Tensor:
     head_dim = torch.tensor(float(q.shape[-1]), dtype=torch.float32)
     scale = float(1.0 / torch.sqrt(head_dim).to(q.dtype))
     logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
-    probs = torch.softmax(logits, dim=-1).to(q.dtype)
-    return torch.matmul(probs, v)
+    probs = torch.softmax(logits, dim=-1)
+    if not deterministic and dropout_rate > 0.0:
+        keep = 1.0 - dropout_rate
+        mask = torch.rand(probs.shape, generator=_required(generator),
+                          device=probs.device) < keep
+        probs = torch.where(mask, probs / keep, 0.0)
+    return torch.matmul(probs.to(q.dtype), v)
+
+
+def _required(generator: Optional[torch.Generator]) -> torch.Generator:
+    if generator is None:
+        raise ValueError("dropout needs an explicit torch.Generator "
+                         "(or deterministic=True)")
+    return generator
+
+
+def draw_seed(generator: torch.Generator) -> torch.Tensor:
+    """An int64 scalar in [0, 2^31) from ``generator``, on its device."""
+    return torch.randint(0, _SEED_BOUND, (), generator=generator,
+                         device=generator.device)
 
 
 def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         *, implementation: str = "auto") -> torch.Tensor:
+                         *, implementation: str = "auto",
+                         dropout_rate: float = 0.0,
+                         generator: Optional[torch.Generator] = None,
+                         deterministic: bool = True) -> torch.Tensor:
     if implementation == "auto":
         implementation = "flash" if q.is_cuda else "eager"
     if implementation == "flash":
-        return flash_attention(q, k, v)
+        if deterministic or dropout_rate == 0.0:
+            return flash_attention(q, k, v)
+        return flash_attention(q, k, v, dropout_rate=dropout_rate,
+                               dropout_seed=draw_seed(_required(generator)))
     if implementation == "eager":
-        return eager_attention(q, k, v)
+        return eager_attention(q, k, v, dropout_rate=dropout_rate,
+                               generator=generator,
+                               deterministic=deterministic)
     raise ValueError(f"unknown attention implementation {implementation!r}; "
                      f"known: {IMPLEMENTATIONS}")

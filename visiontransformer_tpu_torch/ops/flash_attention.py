@@ -1,17 +1,40 @@
-"""Flash-attention forward (inference) on Hopper, and its plain version.
+"""Flash attention on Hopper (forward, training forward, backward), and the
+plain versions of each kernel.
 
-``flash_attention`` launches ``csrc/flash_attention_fwd.cu`` for a CUDA
-tensor: softmax(Q·Kᵀ·d^-½)·V over (B, H, N, d), online over key tiles, with
-the N×N scores never in device memory. It replaces the TPU package's
-``ops/flash_attention.py:_fwd_kernel`` with ``need_lse=False`` and no
-dropout; the training variant (lse, dropout) and the backward kernels are
-not ported yet. For a CPU tensor it runs ``flash_attention_plain``.
+Kernels (``csrc/``), each replacing a kernel of the TPU package's
+``ops/flash_attention.py``:
+
+- ``flash_attention_fwd.cu``, inference: softmax(Q·Kᵀ·d^-½)·V online over
+  key tiles (``_fwd_kernel`` with ``need_lse=False``), launched by
+  ``flash_attention`` when no gradient is needed;
+- the same source, training (``flash_attention_train``): also writes the
+  natural-log lse and applies attention dropout inside the kernel
+  (``_fwd_kernel`` with ``need_lse=True``);
+- ``flash_attention_bwd_dq.cu`` (``flash_attention_bwd_dq``) and
+  ``flash_attention_bwd_dkv.cu`` (``flash_attention_bwd_dkv``): the two
+  backward kernels (``_bwd_dq_kernel``, ``_bwd_dkv_kernel``).
+
+``FlashAttention`` (a ``torch.autograd.Function``) joins the training
+forward and the backward kernels; it saves q, k, v (views, as the model
+passes them), the output and the lse, never an N×N tensor. Δ = rowsum(dO∘O)
+is one PyTorch reduction, as the TPU package computes it outside Pallas.
+
+Dropout keeps probability (row i, column j) of head b·H + h when the top 24
+bits of Philox4x32-10 (key (seed, b·H + h), counter (i, j, 0, 0), first
+word), read as u in [0, 1), fall below keep. ``dropout_keep_mask`` computes
+the same bits in PyTorch, so a kernel and its plain version drop the same
+probabilities. The bitstream is the port's own, not the TPU package's.
+
+Every wrapper runs its kernel for a CUDA tensor and its plain version for a
+CPU tensor; anything else raises. A kernel that fails to build or launch
+raises (``_build.check``).
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -20,71 +43,401 @@ from visiontransformer_tpu_torch.ops import _build
 HEAD_DIMS = (16, 32, 64, 80, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
+Seed = Union[int, torch.Tensor]
 
+_STRIDES = [ctypes.c_longlong] * 3
+_SIGNATURES = {
+    "flash_attention_fwd": {
+        "vt_flash_attention_fwd": (
+            [ctypes.c_int] + [ctypes.c_void_p] * 4 + _STRIDES * 4
+            + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p],
+            ctypes.c_int),
+        "vt_flash_attention_fwd_train": (
+            [ctypes.c_int] + [ctypes.c_void_p] * 5 + _STRIDES * 4
+            + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p,
+                                    ctypes.c_uint, ctypes.c_float,
+                                    ctypes.c_void_p],
+            ctypes.c_int)},
+    "flash_attention_bwd_dq": {
+        "vt_flash_attention_bwd_dq": (
+            [ctypes.c_int] + [ctypes.c_void_p] * 7 + _STRIDES * 5
+            + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p,
+                                    ctypes.c_uint, ctypes.c_float,
+                                    ctypes.c_void_p],
+            ctypes.c_int)},
+    "flash_attention_bwd_dkv": {
+        "vt_flash_attention_bwd_dkv": (
+            [ctypes.c_int] + [ctypes.c_void_p] * 8 + _STRIDES * 6
+            + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p,
+                                    ctypes.c_uint, ctypes.c_float,
+                                    ctypes.c_void_p],
+            ctypes.c_int)},
+}
+
+
+# ------------------------------------------------------------------ dropout
+_MASK32 = 0xFFFFFFFF
+_PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+_PHILOX_W = (0x9E3779B9, 0xBB67AE85)
+
+
+def _mulhilo32(a: int, b: torch.Tensor):
+    """(hi, lo) 32-bit halves of the 64-bit product of the constant a and
+    the uint32 values in the int64 tensor b, with b split into 16-bit
+    halves so that no int64 product overflows."""
+    t_lo = a * (b & 0xFFFF)          # < 2^48
+    t_hi = a * (b >> 16)             # < 2^48
+    lo = (t_lo + ((t_hi & 0xFFFF) << 16)) & _MASK32
+    hi = (t_hi + (t_lo >> 16)) >> 16
+    return hi, lo
+
+
+def philox4x32_10(counter, key):
+    """Philox4x32-10 (Salmon et al., SC'11) over int64 tensors holding
+    uint32 values: counter (c0, c1, c2, c3), key (k0, k1), broadcast
+    together; returns the four output words."""
+    c0, c1, c2, c3 = counter
+    k0, k1 = key
+    for _ in range(10):
+        hi0, lo0 = _mulhilo32(_PHILOX_M[0], c0)
+        hi1, lo1 = _mulhilo32(_PHILOX_M[1], c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+        k0 = (k0 + _PHILOX_W[0]) & _MASK32
+        k1 = (k1 + _PHILOX_W[1]) & _MASK32
+    return c0, c1, c2, c3
+
+
+def keep_threshold(rate: float) -> int:
+    """ceil(keep · 2^24): a draw keeps when its top 24 bits are below it
+    (u = bits · 2^-24 < keep). 2^24 keeps everything."""
+    if not 0.0 <= rate < 1.0:
+        raise ValueError(f"dropout rate must be in [0, 1), got {rate}")
+    return min(1 << 24, math.ceil((1.0 - rate) * (1 << 24)))
+
+
+def _seed_tensor(seed: Seed, device) -> torch.Tensor:
+    if isinstance(seed, torch.Tensor):
+        return seed.reshape(()).to(device=device, dtype=torch.int64)
+    return torch.tensor(int(seed), dtype=torch.int64, device=device)
+
+
+def dropout_keep_mask(seed: Seed, bh: int, n_rows: int, n_cols: int,
+                      rate: float, device=None) -> torch.Tensor:
+    """(bh, n_rows, n_cols) bool keep-mask of the kernels' dropout, for
+    heads 0..bh-1 (b·H + h order)."""
+    device = seed.device if isinstance(seed, torch.Tensor) else device
+    k0 = _seed_tensor(seed, device) & _MASK32
+    threshold = keep_threshold(rate)
+    rows = torch.arange(n_rows, device=device).view(n_rows, 1)
+    cols = torch.arange(n_cols, device=device).view(1, n_cols)
+    zero = torch.zeros((), dtype=torch.int64, device=device)
+    # Heads in chunks of at most 2^25 elements bound the int64 temporaries.
+    step = max(1, (1 << 25) // max(1, n_rows * n_cols))
+    masks = []
+    for start in range(0, bh, step):
+        k1 = torch.arange(start, min(bh, start + step),
+                          device=device).view(-1, 1, 1)
+        word = philox4x32_10((rows, cols, zero, zero), (k0, k1))[0]
+        masks.append((word >> 8) < threshold)
+    return torch.cat(masks)
+
+
+def _dropout_scale(seed: Optional[Seed], rate: float, bh: int, n: int,
+                   device) -> Optional[torch.Tensor]:
+    """(bh, n, n) fp32 mask / keep, or None without dropout."""
+    if rate == 0.0:
+        return None
+    inv_keep = float(torch.tensor(1.0 / (1.0 - rate), dtype=torch.float32))
+    mask = dropout_keep_mask(seed, bh, n, n, rate, device)
+    return mask.to(torch.float32) * inv_keep
+
+
+# ----------------------------------------------------------- plain versions
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
                           v: torch.Tensor) -> torch.Tensor:
-    """The same function in plain PyTorch, fp32 math: fp32 scale 1/√d as
-    the TPU kernel's ``_fwd`` uses, output in the input dtype."""
+    """The inference kernel's function in plain PyTorch, fp32 math: fp32
+    scale 1/√d as the TPU kernel's ``_fwd`` uses, output in the input
+    dtype."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     p = torch.softmax(s, dim=-1)
     return torch.matmul(p, v.float()).to(q.dtype)
 
 
-_SIGNATURES = {"vt_flash_attention_fwd": (
-    [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 12
-    + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p], ctypes.c_int)}
+def _scores(q, k):
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    return torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor,
-                    v: torch.Tensor) -> torch.Tensor:
+def flash_attention_train_plain(q: torch.Tensor, k: torch.Tensor,
+                                v: torch.Tensor, rate: float = 0.0,
+                                seed: Optional[Seed] = None
+                                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The training forward in plain PyTorch: (out, lse), lse = m + log l
+    in fp32 (natural log) of shape (B, H, N). The denominator sums the
+    undropped probabilities; P · mask / keep is rounded to the input dtype
+    before P·V, where the kernel rounds it."""
+    b, h, n, _ = q.shape
+    s = _scores(q, k)
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(-1, keepdim=True)
+    drop = _dropout_scale(seed, rate, b * h, n, q.device)
+    if drop is not None:
+        p = p * drop.view(b, h, n, n)
+    pv = torch.matmul(p.to(q.dtype).float(), v.float())
+    return (pv / l).to(q.dtype), (m + torch.log(l)).squeeze(-1)
+
+
+def _bwd_plain(q, k, v, do, lse, delta, rate, seed):
+    """(P · mask / keep, dS) in fp32, each as the kernels round them."""
+    b, h, n, _ = q.shape
+    p = torch.exp(_scores(q, k) - lse.float().unsqueeze(-1))
+    dp = torch.matmul(do.float(), v.float().transpose(-1, -2))
+    drop = _dropout_scale(seed, rate, b * h, n, q.device)
+    pd = p
+    if drop is not None:
+        drop = drop.view(b, h, n, n)
+        pd, dp = p * drop, dp * drop
+    ds = p * (dp - delta.float().unsqueeze(-1))
+    return pd.to(q.dtype).float(), ds.to(q.dtype).float()
+
+
+def flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, rate=0.0,
+                                 seed=None) -> torch.Tensor:
+    """dQ = (P ∘ (dP · mask/keep − Δ)) · K · scale, dS rounded to the input
+    dtype before the product."""
+    _, ds = _bwd_plain(q, k, v, do, lse, delta, rate, seed)
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    return (torch.matmul(ds, k.float()) * scale).to(q.dtype)
+
+
+def flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta, rate=0.0,
+                                  seed=None
+                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dK, dV): dV = (P · mask/keep)ᵀ · dO, dK = dSᵀ · Q · scale."""
+    pd, ds = _bwd_plain(q, k, v, do, lse, delta, rate, seed)
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    dk = torch.matmul(ds.transpose(-1, -2), q.float()) * scale
+    dv = torch.matmul(pd.transpose(-1, -2), do.float())
+    return dk.to(q.dtype), dv.to(q.dtype)
+
+
+# ----------------------------------------------------------------- wrappers
+def _check(name: str, q: torch.Tensor, *others: torch.Tensor) -> None:
+    """Raise unless q and others are (B, H, N, d) CUDA views the kernels
+    take: one shape, float32 or bfloat16, d in HEAD_DIMS, last dimension
+    contiguous, bf16 rows 16-byte aligned."""
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {q.device}")
+    if q.dim() != 4 or any(t.shape != q.shape for t in others):
+        raise ValueError(f"{name}: inputs must share one (B, H, N, d) shape, "
+                         f"got {[tuple(t.shape) for t in (q, *others)]}")
+    if q.dtype not in _DTYPE_CODES or any(t.dtype != q.dtype for t in others):
+        raise TypeError(f"{name}: inputs must all be float32 or bfloat16, "
+                        f"got {[t.dtype for t in (q, *others)]}")
+    if any(t.device != q.device for t in others):
+        raise ValueError(f"{name}: inputs must be on one device")
+    b, h, _, d = q.shape
+    if d not in HEAD_DIMS:
+        raise ValueError(f"{name}: head dim {d} not in {HEAD_DIMS}")
+    if b * h > 65535:
+        raise ValueError(f"{name}: B*H = {b * h} exceeds 65535")
+    if not all(_kernel_layout(t) for t in (q, *others)):
+        # The tensor-core path moves rows as 16-byte vectors.
+        raise ValueError(f"{name}: the last dimension must be contiguous and "
+                         f"bfloat16 rows must start on 16-byte boundaries")
+
+
+def _kernel_layout(t: torch.Tensor) -> bool:
+    if t.stride(-1) != 1:
+        return False
+    return t.dtype != torch.bfloat16 or (
+        t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:3]))
+
+
+def _strides(*tensors):
+    return [s for t in tensors for s in t.stride()[:3]]
+
+
+def _dropout_args(rate: float, seed: Optional[Seed], device):
+    """(seed tensor or None, threshold, 1/keep) for a kernel launch."""
+    threshold = keep_threshold(rate)
+    if rate == 0.0:
+        return None, threshold, 1.0
+    if seed is None:
+        raise ValueError("dropout_rate > 0 requires dropout_seed")
+    return _seed_tensor(seed, device), threshold, 1.0 / (1.0 - rate)
+
+
+def _stream(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def flash_attention_train(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          rate: float = 0.0, seed: Optional[Seed] = None
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Training forward (kernel 2): (out, lse) as
+    ``flash_attention_train_plain``, lse (B, H, N) fp32."""
+    if q.device.type == "cpu":
+        if rate > 0.0 and seed is None:
+            raise ValueError("dropout_rate > 0 requires dropout_seed")
+        return flash_attention_train_plain(q, k, v, rate, seed)
+    _check("flash_attention_train", q, k, v)
+    seed_t, threshold, inv_keep = _dropout_args(rate, seed, q.device)
+    b, h, n, d = q.shape
+    out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    lse = torch.empty(b, h, n, dtype=torch.float32, device=q.device)
+    lib = _build.load("flash_attention_fwd",
+                      _SIGNATURES["flash_attention_fwd"])
+    with torch.cuda.device(q.device):
+        err = lib.vt_flash_attention_fwd_train(
+            _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            out.data_ptr(), lse.data_ptr(), *_strides(q, k, v, out), b, h, n,
+            d, 1.0 / math.sqrt(d),
+            None if seed_t is None else seed_t.data_ptr(), threshold,
+            inv_keep, _stream(q.device))
+    _build.check(lib, err, "flash_attention_train")
+    flash_attention_train.launches += 1
+    return out, lse
+
+
+def _backward_inputs(do: torch.Tensor) -> torch.Tensor:
+    # dO comes from autograd: a strided view as a rule, copied only when its
+    # rows do not suit the kernels' 16-byte loads.
+    return do if _kernel_layout(do) else do.contiguous()
+
+
+def flash_attention_bwd_dq(q, k, v, do, lse, delta, rate: float = 0.0,
+                           seed: Optional[Seed] = None) -> torch.Tensor:
+    """dQ (kernel 3) from q, k, v, dO (B, H, N, d) and the forward's lse and
+    Δ = rowsum(dO∘O), both (B, H, N) fp32."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, rate,
+                                            seed)
+    do = _backward_inputs(do)
+    _check("flash_attention_bwd_dq", q, k, v, do)
+    lse, delta = _rows(lse, q), _rows(delta, q)
+    seed_t, threshold, inv_keep = _dropout_args(rate, seed, q.device)
+    b, h, n, d = q.shape
+    dq = torch.empty_like(q, memory_format=torch.contiguous_format)
+    lib = _build.load("flash_attention_bwd_dq",
+                      _SIGNATURES["flash_attention_bwd_dq"])
+    with torch.cuda.device(q.device):
+        err = lib.vt_flash_attention_bwd_dq(
+            _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            *_strides(q, k, v, do, dq), b, h, n, d, 1.0 / math.sqrt(d),
+            None if seed_t is None else seed_t.data_ptr(), threshold,
+            inv_keep, _stream(q.device))
+    _build.check(lib, err, "flash_attention_bwd_dq")
+    flash_attention_bwd_dq.launches += 1
+    return dq
+
+
+def flash_attention_bwd_dkv(q, k, v, do, lse, delta, rate: float = 0.0,
+                            seed: Optional[Seed] = None
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dK, dV) (kernel 4), inputs as ``flash_attention_bwd_dq``."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta, rate,
+                                             seed)
+    do = _backward_inputs(do)
+    _check("flash_attention_bwd_dkv", q, k, v, do)
+    lse, delta = _rows(lse, q), _rows(delta, q)
+    seed_t, threshold, inv_keep = _dropout_args(rate, seed, q.device)
+    b, h, n, d = q.shape
+    dk = torch.empty_like(q, memory_format=torch.contiguous_format)
+    dv = torch.empty_like(q, memory_format=torch.contiguous_format)
+    lib = _build.load("flash_attention_bwd_dkv",
+                      _SIGNATURES["flash_attention_bwd_dkv"])
+    with torch.cuda.device(q.device):
+        err = lib.vt_flash_attention_bwd_dkv(
+            _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), *_strides(q, k, v, do, dk, dv), b, h, n, d,
+            1.0 / math.sqrt(d),
+            None if seed_t is None else seed_t.data_ptr(), threshold,
+            inv_keep, _stream(q.device))
+    _build.check(lib, err, "flash_attention_bwd_dkv")
+    flash_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+def _rows(x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """A (B, H, N) fp32 per-row tensor, contiguous, as the kernels read it."""
+    if x.shape != q.shape[:3] or x.dtype != torch.float32:
+        raise ValueError(f"per-row input must be (B, H, N) float32, got "
+                         f"{tuple(x.shape)} {x.dtype}")
+    return x.contiguous()
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention whose forward is kernel 2 and whose backward is kernels 3
+    and 4 (their plain versions on a CPU tensor)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, rate: float, seed: Optional[torch.Tensor]):
+        out, lse = flash_attention_train(q, k, v, rate, seed)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.rate, ctx.seed = rate, seed
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        delta = (do.float() * out.float()).sum(-1)
+        dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, ctx.rate,
+                                    ctx.seed)
+        dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, ctx.rate,
+                                         ctx.seed)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    dropout_rate: float = 0.0,
+                    dropout_seed: Optional[Seed] = None) -> torch.Tensor:
     """(B, H, N, d) q, k, v -> (B, H, N, d) attention output.
 
-    CUDA: the hand-written kernel, for float32 or bfloat16 and d in
-    HEAD_DIMS; the inputs may be strided views whose last dimension is
-    contiguous. CPU: the plain version. Anything else raises."""
+    When a gradient is needed (grad mode on and an input requires grad),
+    ``FlashAttention``: kernel 2 forward, kernels 3 and 4 backward.
+    Otherwise without dropout the inference kernel (serving, evaluation),
+    with dropout kernel 2 alone. dropout_rate > 0 needs dropout_seed (an
+    int, or an int64 scalar tensor, which may live on the device). CUDA:
+    float32 or bfloat16, d in HEAD_DIMS, strided views with a contiguous
+    last dimension. CPU: the plain versions. Anything else raises."""
+    if dropout_rate > 0.0 and dropout_seed is None:
+        raise ValueError("dropout_rate > 0 requires dropout_seed")
+    needs_grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v))
+    if needs_grad:
+        seed = (None if dropout_rate == 0.0
+                else _seed_tensor(dropout_seed, q.device))
+        return FlashAttention.apply(q, k, v, float(dropout_rate), seed)
+    if dropout_rate > 0.0:
+        return flash_attention_train(q, k, v, dropout_rate, dropout_seed)[0]
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: unsupported device {q.device}")
-    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
-        raise ValueError(f"flash_attention: q, k, v must share one (B, H, N, "
-                         f"d) shape, got {tuple(q.shape)}, {tuple(k.shape)}, "
-                         f"{tuple(v.shape)}")
-    if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"flash_attention: q, k, v must all be float32 or "
-                        f"bfloat16, got {q.dtype}, {k.dtype}, {v.dtype}")
-    if k.device != q.device or v.device != q.device:
-        raise ValueError("flash_attention: q, k, v must be on one device")
+    _check("flash_attention", q, k, v)
     b, h, n, d = q.shape
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {d} not in {HEAD_DIMS}")
-    if any(t.stride(-1) != 1 for t in (q, k, v)):
-        raise ValueError("flash_attention: the last dimension of q, k and v "
-                         "must be contiguous")
-    if b * h > 65535:
-        raise ValueError(f"flash_attention: B*H = {b * h} exceeds 65535")
-    if q.dtype == torch.bfloat16 and not all(
-            t.data_ptr() % 16 == 0 and all(st % 8 == 0 for st in t.stride()[:3])
-            for t in (q, k, v)):
-        # The tensor-core path moves rows as 16-byte vectors.
-        raise ValueError("flash_attention: bfloat16 rows of q, k and v must "
-                         "start on 16-byte boundaries")
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     if out.numel() == 0:
         return out
-    lib = _build.load("flash_attention_fwd", _SIGNATURES)
-    strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
+    lib = _build.load("flash_attention_fwd",
+                      _SIGNATURES["flash_attention_fwd"])
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
         err = lib.vt_flash_attention_fwd(
             _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            out.data_ptr(), *strides, b, h, n, d, 1.0 / math.sqrt(d), stream)
+            out.data_ptr(), *_strides(q, k, v, out), b, h, n, d,
+            1.0 / math.sqrt(d), _stream(q.device))
     _build.check(lib, err, "flash_attention")
     flash_attention.launches += 1
     return out
 
 
-# Kernel launches since the last reset (read by chip_smoke.py to prove the
-# main path ran through the kernel).
+# Kernel launches since the last reset, one count per kernel (read by
+# chip_smoke.py to prove the main path ran through each kernel).
 flash_attention.launches = 0
+flash_attention_train.launches = 0
+flash_attention_bwd_dq.launches = 0
+flash_attention_bwd_dkv.launches = 0

@@ -1,9 +1,14 @@
-"""Bilinear resize in interpolation-matrix form (align_corners=False).
+"""Resize ops with the TPU package's index semantics.
 
-Copy of the TPU package's ``ops/resize.py:bilinear_matrix`` and
-``resize_bilinear_mm``: the source coordinates are computed in float64 on
-the host, so the matrix is bit-identical to the reference's; the resize is
-two fp32 products with it.
+- ``bilinear_matrix`` / ``resize_bilinear_mm``: bilinear resize
+  (align_corners=False) in interpolation-matrix form, copies of the TPU
+  package's: the source coordinates are computed in float64 on the host, so
+  the matrix is bit-identical to the reference's; the resize is two fp32
+  products with it.
+- ``resize_nearest_torch``: torch ``F.interpolate(mode='nearest')``
+  indices, src = floor(dst · in/out) computed in float64, as the TPU
+  package's ``_nearest_indices_torch``; the training tasks bring integer
+  targets to the input size with it.
 """
 
 from __future__ import annotations
@@ -44,3 +49,30 @@ def resize_bilinear_mm(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
     ww = _matrix_on(out_w, x.shape[2], str(x.device))
     x = torch.einsum("Hh,bhwc->bHwc", wh, x.float())
     return torch.einsum("Ww,bHwc->bHWc", ww, x)
+
+
+def nearest_indices_torch(out_size: int, in_size: int) -> np.ndarray:
+    """int64 source indices floor(i · in/out), clipped, for
+    F.interpolate(mode='nearest'); float64 avoids fp32 boundary errors at
+    exact-integer source coordinates."""
+    scale = in_size / out_size
+    idx = np.floor(np.arange(out_size, dtype=np.float64) * scale)
+    return np.clip(idx.astype(np.int64), 0, in_size - 1)
+
+
+@functools.lru_cache(maxsize=64)
+def _nearest_on(out_size: int, in_size: int, device: str) -> torch.Tensor:
+    # Cached per device: a fresh copy from host memory would wait for the
+    # card at every call.
+    return torch.from_numpy(nearest_indices_torch(out_size, in_size)).to(device)
+
+
+def resize_nearest_torch(x: torch.Tensor, size: Tuple[int, int],
+                         h_axis: int = -2, w_axis: int = -1) -> torch.Tensor:
+    """torch F.interpolate(mode='nearest') semantics along (h_axis,
+    w_axis), for any dtype (integer targets included)."""
+    h_axis, w_axis = h_axis % x.dim(), w_axis % x.dim()
+    rows = _nearest_on(size[0], x.shape[h_axis], str(x.device))
+    cols = _nearest_on(size[1], x.shape[w_axis], str(x.device))
+    return torch.index_select(torch.index_select(x, h_axis, rows), w_axis,
+                              cols)

@@ -1,0 +1,238 @@
+"""Single-device trainer (the TPU package's ``train/trainer.py``).
+
+One optimizer step: ``accumulate_grad_batches`` micro-batches, each with
+its own dropout generator, gradients summed by autograd into ``.grad``,
+scaled by 1/accum, then one Adam/AdamW step (the averaged-gradient
+semantics of Lightning's accumulate_grad_batches, reference
+createViTmodel.py:74). Evaluation runs under ``torch.no_grad``, so its
+attention takes the inference kernel. ``fit`` mirrors the TPU package's:
+shuffled ``batch_iterator`` with ``prefetch``, per-step and per-epoch CSV
+logs with its column names, EarlyStopping and ReduceLROnPlateau on the
+host between epochs.
+
+Not ported yet, and rejected when asked for: mesh, FSDP, sequence and
+pipeline parallelism, multi-host, remat (ROADMAP §1 item 12), checkpoints
+and resume (item 8), the profiler trace. No tfevents file is written.
+Metrics stay 0-dim device tensors until a log line or the epoch's mean
+needs them, so a step does not wait for the card.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Callable, Dict, Iterable, Optional, Union
+
+import numpy as np
+import torch
+
+from visiontransformer_tpu_torch.ckpt.convert import load_jax_params
+from visiontransformer_tpu_torch.configs import TrainConfig, ViTSegConfig
+from visiontransformer_tpu_torch.data.pipeline import batch_iterator, prefetch
+from visiontransformer_tpu_torch.device import resolve_device
+from visiontransformer_tpu_torch.models.registry import init_vitseg_
+from visiontransformer_tpu_torch.models.vitseg import ViTSeg
+from visiontransformer_tpu_torch.train.optim import (
+    EarlyStopping,
+    PlateauScheduler,
+    build_optimizer,
+    set_learning_rate,
+)
+from visiontransformer_tpu_torch.train.state import TrainState
+from visiontransformer_tpu_torch.train.tasks import get_task
+from visiontransformer_tpu_torch.utils.csvlog import CSVLogger
+
+_MASK63 = (1 << 63) - 1
+
+
+def fold_seed(seed: int, data: int) -> int:
+    """A new 63-bit seed from (seed, data), as jax.random.fold_in derives a
+    key: the trainer's per-step and per-micro-batch dropout seeds."""
+    x = (seed * 0x9E3779B97F4A7C15 + data + 1) & _MASK63
+    x = ((x ^ (x >> 31)) * 0xBF58476D1CE4E5B9) & _MASK63
+    return x ^ (x >> 29)
+
+
+class Trainer:
+    def __init__(self, seg_cfg: ViTSegConfig, train_cfg: TrainConfig,
+                 task: str = "ce", *,
+                 device: Optional[Union[str, torch.device]] = None,
+                 logger: Optional[CSVLogger] = None,
+                 attn_impl: str = "auto"):
+        """device: None means CUDA (raises without it). attn_impl: the
+        attention implementation of every step ("auto" = the kernels on
+        CUDA)."""
+        self.device = resolve_device(device)
+        not_ported = train_cfg.not_ported()
+        if not_ported:
+            raise NotImplementedError(
+                f"TrainConfig fields not ported yet: {not_ported}")
+        if train_cfg.batch_size % train_cfg.accumulate_grad_batches != 0:
+            raise ValueError(
+                f"batch_size={train_cfg.batch_size} must be divisible by "
+                f"accumulate_grad_batches={train_cfg.accumulate_grad_batches} "
+                f"(the step splits it into that many micro-batches)")
+        self.seg_cfg = seg_cfg
+        self.train_cfg = train_cfg
+        self.task_name = task
+        self.task_fn = get_task(task)
+        self.logger = logger
+        self.attn_impl = attn_impl
+
+    # ------------------------------------------------------------------ init
+    def init_state(self, params=None) -> TrainState:
+        """Random weights from ``init_vitseg_`` seeded with
+        ``TrainConfig.seed``, or ``params``, a TPU-package param tree with
+        numpy leaves, through the weight bridge."""
+        model = ViTSeg(self.seg_cfg)
+        if params is None:
+            init_vitseg_(model, torch.Generator().manual_seed(
+                self.train_cfg.seed))
+        else:
+            load_jax_params(model, params)
+        model.to(self.device).train()
+        return TrainState(model=model, optimizer=build_optimizer(
+            self.train_cfg, model.parameters()))
+
+    # ----------------------------------------------------------------- steps
+    def _place(self, batch) -> Dict[str, torch.Tensor]:
+        """The batch on the trainer's device; host arrays go to the card
+        through pinned memory without waiting for it."""
+        if self.device.type != "cuda":
+            return {k: torch.as_tensor(v).to(self.device)
+                    for k, v in batch.items()}
+        return {k: v.to(self.device) if isinstance(v, torch.Tensor)
+                else torch.from_numpy(np.ascontiguousarray(v)).pin_memory()
+                .to(self.device, non_blocking=True)
+                for k, v in batch.items()}
+
+    def train_step(self, state: TrainState, batch, seed: int):
+        """One optimizer step over ``accumulate_grad_batches`` micro-batches;
+        micro-batch i draws its dropout from a generator seeded with
+        ``fold_seed(seed, i)``. Returns (state, mean metrics), the state
+        updated in place."""
+        accum = self.train_cfg.accumulate_grad_batches
+        total = len(batch["image"])
+        if total % accum:
+            raise ValueError(
+                f"batch size {total} is not divisible by "
+                f"accumulate_grad_batches={accum}; the trailing "
+                f"{total % accum} samples would be silently dropped")
+        micro = total // accum
+        batch = self._place(batch)
+        state.optimizer.zero_grad(set_to_none=True)
+        metric_list = []
+        for i in range(accum):
+            part = {k: v[i * micro:(i + 1) * micro] for k, v in batch.items()}
+            generator = torch.Generator(device=self.device).manual_seed(
+                fold_seed(seed, i))
+            loss, metrics = self.task_fn(
+                state.model, part, self.seg_cfg, generator=generator,
+                deterministic=False, attn_impl=self.attn_impl)
+            loss.backward()
+            metric_list.append({k: v.detach() for k, v in metrics.items()})
+        if accum > 1:
+            grads = [p.grad for p in state.model.parameters()
+                     if p.grad is not None]
+            torch._foreach_mul_(grads, 1.0 / accum)
+        state.optimizer.step()
+        state.step += 1
+        return state, {k: torch.stack([m[k] for m in metric_list]).mean()
+                       for k in metric_list[0]}
+
+    def eval_step(self, model: ViTSeg, batch) -> Dict[str, torch.Tensor]:
+        with torch.no_grad():
+            _, metrics = self.task_fn(model, self._place(batch), self.seg_cfg,
+                                      deterministic=True,
+                                      attn_impl=self.attn_impl)
+        return metrics
+
+    # ------------------------------------------------------------------- fit
+    def fit(self, train_dataset, val_dataset=None, *,
+            state: Optional[TrainState] = None,
+            max_epochs: Optional[int] = None,
+            checkpoint_dir: Optional[str] = None,
+            resume_from: Optional[str] = None,
+            profile_dir: Optional[str] = None,
+            on_epoch_end: Optional[Callable[[int, Dict[str, float]], None]] = None
+            ) -> TrainState:
+        """Train for ``max_epochs`` (default ``TrainConfig.max_epochs``) or
+        until EarlyStopping stops it."""
+        for name, value in (("checkpoint_dir", checkpoint_dir),
+                            ("resume_from", resume_from),
+                            ("profile_dir", profile_dir)):
+            if value:
+                raise NotImplementedError(f"fit({name}=...) is not ported yet")
+        cfg = self.train_cfg
+        max_epochs = max_epochs if max_epochs is not None else cfg.max_epochs
+        if state is None:
+            state = self.init_state()
+
+        stopper = None
+        if cfg.early_stopping_monitor:
+            stopper = EarlyStopping(cfg.early_stopping_patience,
+                                    cfg.early_stopping_mode)
+        plateau = None
+        if cfg.plateau_patience:
+            plateau = PlateauScheduler(cfg.learning_rate,
+                                       mode=cfg.plateau_mode,
+                                       factor=cfg.plateau_factor,
+                                       patience=cfg.plateau_patience)
+
+        for epoch in range(max_epochs):
+            # ---- train ----
+            t0 = time.time()
+            train_metrics = []
+            for batch in prefetch(batch_iterator(
+                    train_dataset, cfg.batch_size, shuffle=True,
+                    seed=cfg.seed, epoch=epoch)):
+                state, metrics = self.train_step(
+                    state, batch, fold_seed(cfg.seed, state.step))
+                train_metrics.append(metrics)
+                if self.logger and state.step % cfg.log_every_n_steps == 0:
+                    self.logger.log(
+                        {f"train_{k}_step": float(v) for k, v in metrics.items()},
+                        epoch=epoch, step=state.step)
+
+            epoch_metrics = _mean_metrics(train_metrics, prefix="train_")
+            epoch_metrics["epoch_time_s"] = time.time() - t0
+
+            # ---- validate ----
+            if val_dataset is not None:
+                val_metrics = [self.eval_step(state.model, batch)
+                               for batch in batch_iterator(val_dataset,
+                                                           cfg.batch_size)]
+                epoch_metrics.update(_mean_metrics(val_metrics,
+                                                   prefix="valid_"))
+
+            if self.logger:
+                self.logger.log(epoch_metrics, epoch=epoch, step=state.step)
+            if on_epoch_end:
+                on_epoch_end(epoch, epoch_metrics)
+
+            # ---- schedules (host-side) ----
+            if plateau is not None:
+                monitored = epoch_metrics.get(cfg.plateau_monitor)
+                if monitored is not None:
+                    set_learning_rate(state.optimizer, plateau.step(monitored))
+            if stopper is not None:
+                monitored = epoch_metrics.get(cfg.early_stopping_monitor)
+                if monitored is not None and stopper.step(monitored):
+                    break
+        return state
+
+    def evaluate(self, dataset, model: ViTSeg, *,
+                 batch_size: Optional[int] = None) -> Dict[str, float]:
+        batch_size = batch_size or self.train_cfg.batch_size
+        return _mean_metrics([self.eval_step(model, b)
+                              for b in batch_iterator(dataset, batch_size)],
+                             prefix="")
+
+
+def _mean_metrics(metric_dicts: Iterable[Dict], prefix: str) -> Dict[str, float]:
+    out: Dict[str, float] = {}
+    metric_dicts = list(metric_dicts)
+    if not metric_dicts:
+        return out
+    for key in metric_dicts[0]:
+        out[prefix + key] = float(np.mean([float(m[key]) for m in metric_dicts]))
+    return out
