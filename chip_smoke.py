@@ -3,8 +3,8 @@
     python3 chip_smoke.py
 
 Needs one CUDA card and nvcc (CUDA_HOME or /usr/local/cuda). It builds the
-port's kernels from visiontransformer_tpu_torch/csrc, then runs five
-phases, each printing one JSON line, and raises (exit code != 0) on any
+port's kernels from visiontransformer_tpu_torch/csrc, then runs the
+phases below, each printing JSON lines, and raises (exit code != 0) on any
 failure:
 
 1. env       card, power limit, torch/CUDA versions, kernel build time;
@@ -12,6 +12,17 @@ failure:
              at the serving shape (B*H = 384, N = 197, d = 64), at
              N = 785/1025/3137, and at d = 80/16/32/128; timed against the
              plain version and F.scaled_dot_product_attention;
+2b. flash_variants  the tuning sweeps' kernels (6: softmax forms; 7:
+             q chains per warp; 8, 9: transposed P·V): both port sweeps
+             (scripts/tune_flash2, tune_flash3) at their defaults, with
+             their launches and kernel 1's counted; then every
+             instantiation, and kernel 1 (the sweeps' production kernel),
+             vs its plain version (kernel 6's bf16exp mode also vs a plain
+             version that rounds its exp as the card does), bf16, at
+             (B*H, N, d) = (192, 1025, 64), (384, 197, 64) and
+             (24, 3137, 64), strided views of a fused QKV; one
+             configuration per kernel timed at the first two against its
+             plain version, kernel 1 and SDPA;
 3. upsample  fused upsample+argmax kernel vs argmax(resize_bilinear_mm),
              (32, 14, 14, 17) -> 512^2 and 224^2, plus the tie case;
 4. model     ViT-B/16 (17 classes, full width and depth, seeded random
@@ -44,7 +55,8 @@ failure:
 Then it prints the card's name and power limit as nvidia-smi gives them,
 one JSON line describing every kernel (launches of the serving kernels
 counted during the serving run, of the training kernels during the train
-run), and, last, {"ok": true, "device": {...}}.
+run, of the sweep kernels during the two sweeps), and, last,
+{"ok": true, "device": {...}}.
 Without CUDA it exits with code 1 and prints no result.
 """
 
@@ -97,6 +109,22 @@ FLASH_BF16_REL_NORM = 2.0 ** -8
 LSE_ATOL = 3.8e-6
 GRAD_TOL = {torch.float32: (5e-5, 5e-4), torch.bfloat16: (2.0 ** -8, 2.0 ** -8)}
 GRAD_BF16_REL_NORM = 4.4e-4
+# Tuning-sweep kernels 6-9 (bf16): FLASH_TOL and its norm gate, as kernel 1,
+# except kernel 6's bf16exp mode, which is held twice, as flash_agrees'
+# (atol scale, rtol, error norm). The kernel takes exp in bf16 as the bf16
+# ex2 of x·log2 e rounded to bf16, where its plain version's torch exp (the
+# TPU kernel's bf16 jnp.exp) computes in fp32 and rounds once. Against that
+# plain version, BF16EXP_TOL: twice the largest errors measured on an H100
+# over the three VARIANT_SHAPES and key tiles 32/64/128, 0.0105·max|plain|
+# (N = 1025) and a norm of 0.0055 (N = 3137). The product's rounding moves
+# p as much as the mode's own rounding does, so an output with exp in fp32
+# passes that gate too. Against bf16exp_card_plain, which rounds as the
+# kernel does, BF16EXP_CARD_TOL: FLASH_TOL, and an error norm of twice the
+# largest measured on an H100 over the same cases, 2.09e-4 (N = 3137); an
+# output with exp in fp32, or with torch's bf16 exp, lies more than five
+# times that gate away (tests/test_torch_flash_variants.py).
+BF16EXP_TOL = (0.021, 0.0, 0.011)
+BF16EXP_CARD_TOL = (2.0 ** -7, 2.0 ** -8, 4.2e-4)
 LOSS_RTOL = 1e-5            # fp32 train step, kernels vs eager attention
 LOGITS_TOL = (5e-5, 1e-4)   # fp32 seg logits, atol / rtol
 # The kernel and the plain epilogue differ only by FMA contraction (a few
@@ -133,14 +161,19 @@ def device_ms(fn, iters: int = 10) -> float:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
-    return us / 1e3 / iters
+    # A profile now and then records no device event at all; try again
+    # rather than report 0 ms.
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+        if us > 0:
+            return us / 1e3 / iters
+    raise RuntimeError("torch.profiler recorded no device time in 3 tries")
 
 
 def bound_ms(peaks, n_bytes: float, n_ops: float, op_type: str):
@@ -156,19 +189,22 @@ def close(a: torch.Tensor, b: torch.Tensor, atol: float, rtol: float):
     return ok, float(err.max())
 
 
-def flash_agrees(got: torch.Tensor, want: torch.Tensor):
+def flash_agrees(got: torch.Tensor, want: torch.Tensor, tol=None):
     """(ok, fields) of the flash kernel's output against its plain version
     on the same inputs, at FLASH_TOL for want's dtype (bf16: scaled to
-    want, plus the error-norm gate)."""
-    atol, rtol = FLASH_TOL[want.dtype]
+    want, plus the error-norm gate). ``tol`` = (atol, rtol, error norm)
+    replaces FLASH_TOL and FLASH_BF16_REL_NORM, read as they are."""
     bf16 = want.dtype == torch.bfloat16
+    if tol is None:
+        tol = (*FLASH_TOL[want.dtype], FLASH_BF16_REL_NORM)
+    atol, rtol, max_norm = tol
     got, want = got.float(), want.float()
     rel_norm = float((got - want).norm() / want.norm())
     if bf16:
         atol *= float(want.abs().max())
     ok, err = close(got, want, atol, rtol)
     if bf16:
-        ok = ok and rel_norm <= FLASH_BF16_REL_NORM
+        ok = ok and rel_norm <= max_norm
     return ok, {"max_abs_err": err, "atol": atol, "rtol": rtol,
                 "rel_err_norm": rel_norm}
 
@@ -266,6 +302,150 @@ def phase_flash(peaks, gen):
             if (b, h, n, d) == (32, 12, 197, 64) and dtype == torch.bfloat16:
                 main_row = row
     return main_row
+
+
+# The sweep kernels by TPU kernel: (source, line replaced, the configuration
+# timed and listed on the kernels line).
+VARIANT_KERNELS = {
+    "flash_variant": ("flash_variants.cu", "scripts/tune_flash2.py:41",
+                      "base/64"),
+    "flash_multiq": ("flash_chains.cu", "scripts/tune_flash3.py:51",
+                     "dualq/64"),
+    "flash_pvt": ("flash_chains.cu", "scripts/tune_flash3.py:94", "pvT/64"),
+    "flash_dualq_pvt": ("flash_chains.cu", "scripts/tune_flash3.py:132",
+                        "dualq_pvT/64"),
+}
+# (B, H, N): the sweeps' shape (BH = 192, N = 1025), the serving shape
+# (384, 197) and (24, 3137); the first two are timed.
+VARIANT_SHAPES = ((16, 12, 1025), (32, 12, 197), (2, 12, 3137))
+
+
+def _variant_cases():
+    """(kernel, "config", kernel call, checks) for every instantiation of
+    kernels 6-9; checks are (label, plain call, flash_agrees tol), the
+    first against the kernel's own plain version, each at its block_k."""
+    from functools import partial
+
+    from visiontransformer_tpu_torch.ops import flash_variants as fv
+
+    cases = []
+    for mode in fv.MODES:
+        for bk in fv.VARIANT_BLOCK_KS:
+            config = f"{mode}/{bk}"
+            checks = [(config, partial(fv.variant_plain, mode=mode, block_k=bk),
+                       BF16EXP_TOL if mode == "bf16exp" else None)]
+            if mode == "bf16exp":
+                checks.append((f"{config} card", partial(
+                    fv.bf16exp_card_plain, block_k=bk), BF16EXP_CARD_TOL))
+            cases.append(("flash_variant", config, partial(
+                fv.flash_variant, mode=mode, block_k=bk), checks))
+    for bk in fv.CHAIN_BLOCK_KS:
+        for name, config, kernel, plain in (
+                ("flash_multiq", "dualq", partial(fv.flash_multiq, chains=2),
+                 fv.multiq_plain),
+                ("flash_multiq", "quadq", partial(fv.flash_multiq, chains=4),
+                 fv.multiq_plain),
+                ("flash_pvt", "pvT", fv.flash_pvt, fv.pvt_plain),
+                ("flash_dualq_pvt", "dualq_pvT", fv.flash_dualq_pvt,
+                 fv.dualq_pvt_plain)):
+            config = f"{config}/{bk}"
+            cases.append((name, config, partial(kernel, block_k=bk),
+                          [(config, partial(plain, block_k=bk), None)]))
+    return cases
+
+
+def phase_flash_variants(peaks, gen):
+    """Kernels 6-9: both tuning sweeps at their defaults (the path that
+    launches them and kernel 1, counted), then every instantiation and
+    kernel 1 against its plain version at VARIANT_SHAPES, and the listed
+    configurations timed. Returns the kernels-line entries."""
+    from visiontransformer_tpu_torch.ops import flash_variants as fv
+    from visiontransformer_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        flash_attention_plain,
+    )
+    from visiontransformer_tpu_torch.scripts import tune_flash2, tune_flash3
+
+    for name in VARIANT_KERNELS:
+        getattr(fv, name).launches = 0
+    flash_attention.launches = 0
+    t0 = time.perf_counter()
+    tune_flash2.main([])
+    tune_flash3.main([])
+    sweep_s = time.perf_counter() - t0
+    launches = {name: getattr(fv, name).launches for name in VARIANT_KERNELS}
+    emit("flash_variants_sweeps", seconds=sweep_s, launches=launches,
+         flash_attention_launches=flash_attention.launches)
+    launches_all = {**launches, "flash_attention": flash_attention.launches}
+    if not all(launches_all.values()):
+        raise AssertionError(f"sweeps missed a kernel: {launches_all}")
+
+    cases = _variant_cases()
+    entries = {}
+    for b, h, n in VARIANT_SHAPES:
+        qkv = torch.randn(b, n, 3, h, 64, generator=gen, device="cuda")
+        qkv = qkv.to(torch.bfloat16).permute(2, 0, 3, 1, 4)
+        q, k, v = qkv[0], qkv[1], qkv[2]
+        checks, failed = {}, []
+        # Kernel 1, the sweeps' production kernel, at the same shape.
+        production = ("flash_attention", "flash_attention", flash_attention,
+                      [("flash_attention", flash_attention_plain, None)])
+        for _, _, kernel, kernel_checks in [production, *cases]:
+            got = kernel(q, k, v)
+            for label, plain, tol in kernel_checks:
+                want = plain(q, k, v)
+                torch.cuda.synchronize()
+                ok, checks[label] = flash_agrees(got, want, tol)
+                if not ok:
+                    failed.append(label)
+        row = {"shape": [b * h, n, 64], "checks": checks}
+        if n in (1025, 197):
+            row["timing"] = _time_variants(peaks, q, k, v, cases)
+            row["timing"]["flash_attention_ms"] = device_ms(
+                lambda: flash_attention(q, k, v))
+        emit("flash_variants", **row)
+        if failed:
+            raise AssertionError(f"sweep kernels {failed} disagree at "
+                                 f"{row['shape']}: {checks}")
+        if n == 1025:
+            entries = {name: {**row["timing"][config],
+                              "max_abs_err": checks[config]["max_abs_err"]}
+                       for name, (_, _, config) in VARIANT_KERNELS.items()}
+        elif n == 197:
+            for name, (_, _, config) in VARIANT_KERNELS.items():
+                entries[name]["serving_shape"] = row["timing"][config]
+    src = "visiontransformer_tpu_torch/csrc/"
+    return [{"name": name, "route": "cuda", "source": src + source,
+             "replaces": replaces, "launches": launches[name],
+             **{k: entries[name][k] for k in (
+                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                 "library_ms")},
+             "config": config, "shape": [192, 1025, 64], "dtype": "bfloat16",
+             "call_ms": entries[name]["call_ms"],
+             "serving_shape": entries[name]["serving_shape"]}
+            for name, (source, replaces, config) in VARIANT_KERNELS.items()]
+
+
+def _time_variants(peaks, q, k, v, cases):
+    """Device time (``device_ms``) of each listed configuration, of its
+    plain version and of SDPA on the same inputs, with call_ms (CUDA
+    events, back to back) and the bound."""
+    b, h, n, d = q.shape
+    bound = bound_ms(peaks, 4 * b * h * n * d * q.element_size(),
+                     4 * b * h * n * n * d, "bf16")
+    library = device_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+    listed = {config for _, _, config in VARIANT_KERNELS.values()}
+    timing = {}
+    for _, config, kernel, checks in cases:
+        if config in listed:
+            plain = checks[0][1]  # the kernel's own plain version
+            fn = lambda: kernel(q, k, v)
+            timing[config] = {
+                "ms": device_ms(fn), "call_ms": time_ms(fn),
+                "plain_ms": device_ms(lambda: plain(q, k, v), iters=3),
+                "library_ms": library, "bound_ms": bound[0],
+                "bound_by": bound[1]}
+    return timing
 
 
 def phase_upsample(peaks, gen):
@@ -880,6 +1060,7 @@ def main() -> int:
     t0 = time.perf_counter()
     smi, peaks = phase_env()
     flash = phase_flash(peaks, gen)
+    variants = phase_flash_variants(peaks, gen)
     upsample = phase_upsample(peaks, gen)
     model = phase_model(gen)
     serving = phase_serving()
@@ -927,6 +1108,7 @@ def main() -> int:
             "shape": main_row["shape"], "dtype": main_row["dtype"],
             "dropout": main_row["rate"],
             "n3137": flash_train[(24, 3137)]["timing"][key]})
+    kernels += variants
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

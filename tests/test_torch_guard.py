@@ -95,3 +95,11 @@ def test_worker_registry_and_server_default_to_cuda(no_cuda, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         server.main(["--db", str(tmp_path / "serving.db"),
                      "--media-root", str(tmp_path / "media"), "--port", "0"])
+
+
+@pytest.mark.parametrize("sweep", ["tune_flash2", "tune_flash3"])
+def test_flash_sweeps_default_to_cuda(no_cuda, sweep):
+    module = importlib.import_module(
+        f"visiontransformer_tpu_torch.scripts.{sweep}")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        module.main(["200", "2"])
