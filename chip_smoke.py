@@ -37,10 +37,18 @@ failure:
 6. flash_train  the training kernels (forward with lse and dropout, dQ,
              dK/dV) vs their plain versions, bf16 and fp32, dropout 0 and
              0.1 under one seed, at the training micro-batch
-             (B*H = 48, N = 197, d = 64), (384, 197, 64), N = 785/1025/3137
-             and d = 80/16/32/128; timed against the plain versions and
-             F.scaled_dot_product_attention (forward with dropout, and its
-             backward as forward+backward minus forward);
+             (B*H = 48, N = 197, d = 64), (384, 197, 64), N = 785/1025/3137,
+             d = 80/16/32/128, and on the edges of the backward kernels'
+             64-row tiles (N = 1, 63, 64, 65, 127, 129, 255, 256, 257), so
+             every instantiation of dQ and dK/dV (bf16 "wgmma" at d = 64,
+             "stream" at the other head dims, fp32 "scalar") is checked;
+             delta = rowsum(dO * O) from the dQ kernel's prologue vs
+             PyTorch's; timed at (48, 197), (48, 785),
+             (48, 1025) and (24, 3137), with and without dropout, against
+             the plain versions and F.scaled_dot_product_attention (forward
+             with dropout, and its backward as forward+backward minus
+             forward), with one line for dQ + dK/dV + delta beside SDPA's
+             backward;
 7. train     the port's Trainer.fit on ViT-B/16 (17 classes, bf16, the CE
              defaults: batch 16 = 4 micro-batches of 4, dropout 0.1, Adam)
              over a 224^2 synthetic set: finite losses, 12 x 4 launches of
@@ -51,6 +59,11 @@ failure:
 8. train_fp32_step  one fp32 optimizer step, dropout off, with the kernels
              and with eager attention on the same weights and batch: loss
              and every gradient agree.
+9. train_bf16_dropout_step  one bf16 optimizer step with dropout 0.1,
+             through the kernels and through their plain versions on the
+             card (same weights, batch and seeds): loss and every gradient
+             agree, so forward, dQ and dK/dV draw one mask on the path that
+             trains.
 
 Then it prints the card's name and power limit as nvidia-smi gives them,
 one JSON line describing every kernel (launches of the serving kernels
@@ -106,7 +119,28 @@ FLASH_BF16_REL_NORM = 2.0 ** -8
 # gradient's, twice the largest measured (2.2e-4 at N = 3137): it refuses a
 # tail of rows past N read as data instead of masked
 # (tests/test_torch_flash_train.py).
+# delta = rowsum(dO * O) from the dQ kernel's prologue against PyTorch's: both
+# sum 64 to 128 fp32 products of the same bf16 values, in another order;
+# atol and rtol are four times the largest differences measured on an H100
+# (9.5e-7 absolute at |delta| up to 30).
+# N = 1: softmax over one key is 1, so without dropout dQ and dK are zero by
+# construction and kernel and plain version both return rounding noise
+# around zero, which a gate relative to max|plain| cannot hold; where that
+# case misses GRAD_TOL it must hold |dQ|, |dK| <= ZERO_GRAD_ATOL in both
+# (fp32 noise of dP - delta, 64 terms of size O(1)).
+# The bf16 dropout train step: per-parameter gradients through the kernels
+# against the plain versions, GRAD_TOL's elementwise form; the error norm,
+# accumulated over 12 layers of one-ulp bf16 differences, within
+# STEP_GRAD_REL_NORM, twice the largest measured on an H100 (1.45e-2, the
+# position embedding's gradient; backward kernels that drew the forward's
+# mask one column off are refused on a small model:
+# tests/test_torch_flash_bwd.py); the loss within STEP_LOSS_RTOL (measured
+# 1.2e-6).
 LSE_ATOL = 3.8e-6
+DELTA_TOL = (4e-6, 1e-6)
+ZERO_GRAD_ATOL = 1e-5
+STEP_GRAD_REL_NORM = 3e-2
+STEP_LOSS_RTOL = 2e-3
 GRAD_TOL = {torch.float32: (5e-5, 5e-4), torch.bfloat16: (2.0 ** -8, 2.0 ** -8)}
 GRAD_BF16_REL_NORM = 4.4e-4
 # Tuning-sweep kernels 6-9 (bf16): FLASH_TOL and its norm gate, as kernel 1,
@@ -256,7 +290,8 @@ def phase_env():
     ptxas = []
     for log in sorted(out_dir.glob("*.log")):
         ptxas += [line.strip() for line in log.read_text().splitlines()
-                  if "registers" in line or "spill" in line]
+                  if "registers" in line or "spill" in line
+                  or "Compiling entry" in line]
     print("\n".join(ptxas), file=sys.stderr)
     peaks = _PEAKS["pcie" if "PCIe" in smi else "sxm"]
     emit("env", nvidia_smi=smi, torch=torch.__version__,
@@ -601,7 +636,12 @@ def profile_steps(step, batch: int, steps: int = 5, top: int = 12):
                                  + e.time_range.elapsed_us())
     busy_ms = sum(device_us.values()) / 1e3
     ranked = sorted(device_us.items(), key=lambda kv: -kv[1])[:top]
-    return {"steps": steps, "batch": batch,
+    # The port's own kernels (compiled into anonymous namespaces), whatever
+    # their rank.
+    mark = "(anonymous namespace)::"
+    own = {k.split(mark)[1].split("(")[0]: us / 1e3 / steps
+           for k, us in device_us.items() if mark in k}
+    return {"steps": steps, "batch": batch, "own_kernels_ms_per_step": own,
             "wall_ms_per_step": wall_ms / steps,
             "device_ms_per_step": busy_ms / steps,
             "device_busy_share": busy_ms / wall_ms,
@@ -609,22 +649,41 @@ def profile_steps(step, batch: int, steps: int = 5, top: int = 12):
                      "share": us / 1e3 / busy_ms} for k, us in ranked]}
 
 
+# (B, H, N, d) of the flash_train checks: the main shapes, then the edges of
+# the backward kernels' 64-row tiles.
+TRAIN_CASES = [(4, 12, 197, 64), (32, 12, 197, 64), (4, 12, 785, 64),
+               (4, 12, 1025, 64), (2, 12, 3137, 64), (8, 16, 257, 80),
+               (2, 4, 130, 16), (2, 4, 130, 32), (2, 4, 130, 128)]
+TRAIN_EDGE_NS = (1, 63, 64, 65, 127, 129, 255, 256, 257)
+# (B*H, N) timed, bf16, d = 64, each with and without dropout.
+TRAIN_TIMED = ((48, 197), (48, 785), (48, 1025), (24, 3137))
+
+
 def phase_flash_train(peaks, gen):
-    """Kernels 2-4 vs their plain versions; returns the timed rows of the
-    training micro-batch shape (B*H = 48, N = 197, d = 64) and of
-    (24, 3137, 64), bf16, dropout 0.1, by kernel."""
+    """Kernels 2-4 vs their plain versions; returns the timed rows by
+    (B*H, N, rate), bf16, d = 64."""
     from visiontransformer_tpu_torch.ops.flash_attention import (
+        attention_delta_plain,
+        backward_path,
         flash_attention_bwd_dkv,
         flash_attention_bwd_dkv_plain,
         flash_attention_bwd_dq,
+        flash_attention_bwd_dq_delta,
         flash_attention_bwd_dq_plain,
         flash_attention_train,
         flash_attention_train_plain,
     )
 
-    cases = [(4, 12, 197, 64), (32, 12, 197, 64), (4, 12, 785, 64),
-             (4, 12, 1025, 64), (2, 12, 3137, 64), (8, 16, 257, 80),
-             (2, 4, 130, 16), (2, 4, 130, 32), (2, 4, 130, 128)]
+    # Tile edges: all of them on the d = 64 instantiation; 63 to 129 on the
+    # other head dims' with two chains a warp (32) and one (128), at the
+    # micro-batch's 48 heads: where one large dS rounds to the other bf16
+    # neighbour, a whole row of dQ or dK moves with it, which six heads
+    # of 65 rows do not average out (error norm 4.40e-4 at (2, 3, 65, 32),
+    # the same error against an fp64 reference as the plain version's).
+    # (N = 1 with dropout leaves dQ and dK the rounding of O, one value a
+    # head: at d = 128 the order of a 128-term sum decides it.)
+    cases = TRAIN_CASES + [(2, 3, n, 64) for n in TRAIN_EDGE_NS] + [
+        (4, 12, n, d) for d in (32, 128) for n in TRAIN_EDGE_NS[1:6]]
     timed = {}
     for dtype in (torch.bfloat16, torch.float32):
         for b, h, n, d in cases:
@@ -640,29 +699,42 @@ def phase_flash_train(peaks, gen):
                 out, lse = flash_attention_train(q, k, v, rate, seed)
                 p_out, p_lse = flash_attention_train_plain(q, k, v, rate,
                                                            seed)
-                delta = (do.float() * p_out.float()).sum(-1)
+                delta = attention_delta_plain(do, p_out)
                 bwd = (q, k, v, do, p_lse, delta, rate, seed)
-                dq = flash_attention_bwd_dq(*bwd)
-                dk, dv = flash_attention_bwd_dkv(*bwd)
                 p_dq = flash_attention_bwd_dq_plain(*bwd)
                 p_dk, p_dv = flash_attention_bwd_dkv_plain(*bwd)
-                torch.cuda.synchronize()
                 checks = {"out": flash_agrees(out, p_out)}
                 ok, err = close(lse, p_lse, LSE_ATOL, 0.0)
                 checks["lse"] = (ok, {"max_abs_err": err, "atol": LSE_ATOL})
-                for name, got, want in (("dq", dq, p_dq), ("dk", dk, p_dk),
-                                        ("dv", dv, p_dv)):
-                    checks[name] = grad_agrees(got, want)
+                dq = flash_attention_bwd_dq(*bwd)
+                dq_d, delta_k = flash_attention_bwd_dq_delta(
+                    q, k, v, do, p_lse, p_out, rate, seed)
+                dk, dv = flash_attention_bwd_dkv(*bwd)
+                torch.cuda.synchronize()
+                for key, got, want in (("dq", dq, p_dq),
+                                       ("dq_delta", dq_d, p_dq),
+                                       ("dk", dk, p_dk), ("dv", dv, p_dv)):
+                    ok, fields = grad_agrees(got, want)
+                    if not ok and n == 1 and key != "dv":
+                        # Zero by construction: hold both to zero.
+                        worst = float(torch.maximum(
+                            got.float().abs().max(),
+                            want.float().abs().max()))
+                        ok, fields = worst <= ZERO_GRAD_ATOL, {
+                            "max_abs_err": worst, "atol": ZERO_GRAD_ATOL}
+                    checks[key] = (ok, fields)
+                ok, err = close(delta_k, delta, *DELTA_TOL)
+                checks["delta"] = (ok, {"max_abs_err": err,
+                                        "atol": DELTA_TOL[0]})
                 row = {"shape": [b, h, n, d], "dtype": str(dtype)[6:],
-                       "rate": rate,
+                       "rate": rate, "path": backward_path(n, d, dtype),
                        **{name: fields for name, (_, fields) in checks.items()}}
                 failed = [name for name, (ok, _) in checks.items() if not ok]
                 if (dtype == torch.bfloat16 and d == 64
-                        and (b * h, n) in ((48, 197), (24, 3137))):
+                        and (b * h, n) in TRAIN_TIMED):
                     row["timing"] = _time_train_kernels(
-                        peaks, q, k, v, do, p_lse, delta, rate, seed)
-                    if rate > 0.0:
-                        timed[(b * h, n)] = row
+                        peaks, q, k, v, do, out, lse, rate, seed)
+                    timed[(b * h, n, rate)] = row
                 emit("flash_train", **row)
                 if failed:
                     raise AssertionError(f"training kernels {failed} "
@@ -670,17 +742,24 @@ def phase_flash_train(peaks, gen):
     return timed
 
 
-def _time_train_kernels(peaks, q, k, v, do, lse, delta, rate, seed):
+def _time_train_kernels(peaks, q, k, v, do, out, lse, rate, seed):
     """ms, plain ms, library ms (device time, ``device_ms``) and bound of
     kernels 2, 3 and 4 on these inputs, and call_ms, the kernel's time per
-    call back to back (CUDA events, host overhead included). Library:
-    F.scaled_dot_product_attention with the same dropout rate, forward for
-    kernel 2 and backward (forward + backward minus forward) for kernels 3
-    and 4 together."""
+    call back to back (CUDA events, host overhead included). Kernel 3 is
+    timed as the training path launches it, with delta = rowsum(dO * O)
+    computed in its prologue from ``out`` (so it reads O too: 6 tensors of
+    B*H*N*d, lse, and writes delta), against the plain delta and dQ;
+    given_delta_ms: the launch that reads a given delta; delta_ms: the
+    difference; delta_torch_ms: the same reduction as PyTorch operations.
+    Library: F.scaled_dot_product_attention with the same dropout rate,
+    forward for kernel 2 and backward (forward + backward minus forward)
+    for kernels 3 and 4 together; bwd_sum_ms is dQ + dK/dV beside it."""
     from visiontransformer_tpu_torch.ops.flash_attention import (
+        attention_delta_plain,
         flash_attention_bwd_dkv,
         flash_attention_bwd_dkv_plain,
         flash_attention_bwd_dq,
+        flash_attention_bwd_dq_delta,
         flash_attention_bwd_dq_plain,
         flash_attention_train,
         flash_attention_train_plain,
@@ -688,6 +767,7 @@ def _time_train_kernels(peaks, q, k, v, do, lse, delta, rate, seed):
 
     b, h, n, d = q.shape
     bh, elt = b * h, q.element_size()
+    delta = attention_delta_plain(do, out)
     bwd = (q, k, v, do, lse, delta, rate, seed)
     # The plain versions draw the dropout mask with int64 tensor ops; a few
     # calls time them.
@@ -709,9 +789,11 @@ def _time_train_kernels(peaks, q, k, v, do, lse, delta, rate, seed):
              lambda: flash_attention_train_plain(q, k, v, rate, seed),
              4 * bh * n * d * elt + 4 * bh * n, 4 * bh * n * n * d,
              sdpa_fwd_ms),
-            ("bwd_dq", lambda: flash_attention_bwd_dq(*bwd),
-             lambda: flash_attention_bwd_dq_plain(*bwd),
-             5 * bh * n * d * elt + 8 * bh * n, 6 * bh * n * n * d,
+            ("bwd_dq", lambda: flash_attention_bwd_dq_delta(
+                q, k, v, do, lse, out, rate, seed),
+             lambda: flash_attention_bwd_dq_plain(
+                 q, k, v, do, lse, attention_delta_plain(do, out), rate, seed),
+             6 * bh * n * d * elt + 8 * bh * n, 6 * bh * n * n * d,
              sdpa_bwd_ms),
             ("bwd_dkv", lambda: flash_attention_bwd_dkv(*bwd),
              lambda: flash_attention_bwd_dkv_plain(*bwd),
@@ -723,9 +805,17 @@ def _time_train_kernels(peaks, q, k, v, do, lse, delta, rate, seed):
         row["bound_ms"], row["bound_by"] = bound_ms(peaks, n_bytes, n_ops,
                                                     "bf16")
         rows[name] = row
+    given = device_ms(lambda: flash_attention_bwd_dq(*bwd))
+    rows["bwd_dq"]["given_delta_ms"] = given
+    rows["bwd_dq"]["delta_ms"] = rows["bwd_dq"]["ms"] - given
+    rows["bwd_dq"]["delta_torch_ms"] = device_ms(
+        lambda: attention_delta_plain(do, out))
+    rows["bwd_sum_ms"] = rows["bwd_dq"]["ms"] + rows["bwd_dkv"]["ms"]
+    rows["sdpa_bwd_ms"] = sdpa_bwd_ms
     rows["library_note"] = ("SDPA forward with dropout; SDPA backward "
                             "(fwd+bwd minus fwd) covers bwd_dq and bwd_dkv "
-                            "together")
+                            "together; bwd_sum_ms = dQ (delta in its "
+                            "prologue) + dK/dV")
     return rows
 
 
@@ -904,6 +994,108 @@ def phase_train_fp32_step():
     return result
 
 
+def step_grads_agree(got: dict, want: dict):
+    """(failed names, error norms, elementwise checks) of one optimizer
+    step's per-parameter gradients against the plain versions': GRAD_TOL's
+    bf16 elementwise form, and the error's norm within STEP_GRAD_REL_NORM
+    of the plain gradient's."""
+    atol, rtol = GRAD_TOL[torch.bfloat16]
+    checks, norms = {}, {}
+    for name, grad in want.items():
+        checks[name] = close(got[name], grad,
+                             atol * float(grad.abs().max()), rtol)
+        norms[name] = float((got[name] - grad).norm() / grad.norm())
+    bad = [name for name, (ok, _) in checks.items() if not ok]
+    bad += [name for name, x in norms.items()
+            if not x <= STEP_GRAD_REL_NORM and name not in bad]
+    return bad, norms, checks
+
+
+def _plain_training_kernels():
+    """Context manager: ``FlashAttention`` runs the plain versions of
+    kernels 2, 3 and 4 (on whatever device the tensors are)."""
+    import contextlib
+
+    from visiontransformer_tpu_torch.ops import flash_attention as fa
+
+    @contextlib.contextmanager
+    def patched():
+        saved = (fa.flash_attention_train, fa.flash_attention_bwd_dq_delta,
+                 fa.flash_attention_bwd_dkv)
+
+        def dq_delta(q, k, v, do, lse, out, rate=0.0, seed=None):
+            delta = fa.attention_delta_plain(do, out)
+            return fa.flash_attention_bwd_dq_plain(q, k, v, do, lse, delta,
+                                                   rate, seed), delta
+
+        fa.flash_attention_train = fa.flash_attention_train_plain
+        fa.flash_attention_bwd_dq_delta = dq_delta
+        fa.flash_attention_bwd_dkv = fa.flash_attention_bwd_dkv_plain
+        try:
+            yield
+        finally:
+            (fa.flash_attention_train, fa.flash_attention_bwd_dq_delta,
+             fa.flash_attention_bwd_dkv) = saved
+
+    return patched()
+
+
+def phase_train_bf16_dropout_step():
+    """One bf16 optimizer step with the CE defaults' dropout 0.1, through
+    the kernels and through their plain versions on the card, on the same
+    weights, batch and seeds."""
+    import contextlib
+
+    from visiontransformer_tpu_torch.configs import CE_TRAIN_DEFAULTS
+    from visiontransformer_tpu_torch.models.registry import vitseg_config
+    from visiontransformer_tpu_torch.train.trainer import Trainer
+
+    cfg = vitseg_config("P16H768A12", num_classes=17,
+                        compute_dtype="bfloat16")
+    tcfg = CE_TRAIN_DEFAULTS
+    rng = np.random.default_rng(1)
+    batch = {"image": rng.random((tcfg.batch_size, 224, 224, 3), np.float32),
+             "mask": rng.integers(0, 17, (tcfg.batch_size, 256, 256),
+                                  dtype=np.int32)}
+    reset, read = _train_launches()
+    runs = {}
+    for impl, context in (("kernels", contextlib.nullcontext()),
+                          ("plain", _plain_training_kernels())):
+        trainer = Trainer(cfg, tcfg, device="cuda")
+        state = trainer.init_state()
+        reset()
+        with context:
+            _, metrics = trainer.train_step(state, batch, seed=0)
+        runs[impl] = (float(metrics["loss"]), read(),
+                      {name: p.grad.detach() for name, p in
+                       state.model.named_parameters()})
+        del state
+    (loss_k, launches, grads_k), (loss_p, launches_p, grads_p) = (
+        runs["kernels"], runs["plain"])
+    atol, rtol = GRAD_TOL[torch.bfloat16]
+    bad, norms, checks = step_grads_agree(grads_k, grads_p)
+    worst = max(norms, key=norms.get)
+    per_step = cfg.vit.num_hidden_layers * tcfg.accumulate_grad_batches
+    result = {"loss_kernels": loss_k, "loss_plain": loss_p,
+              "loss_rel_diff": abs(loss_k - loss_p) / abs(loss_p),
+              "dropout": [cfg.vit.hidden_dropout_prob,
+                          cfg.vit.attention_probs_dropout_prob],
+              "grads": len(grads_k), "grads_failed": bad,
+              "worst_grad": {"name": worst, "rel_err_norm": norms[worst],
+                             "max_abs_err": checks[worst][1]},
+              "grad_tol": [atol, rtol, STEP_GRAD_REL_NORM],
+              "launches": launches, "launches_plain": launches_p}
+    emit("train_bf16_dropout_step", **result)
+    if (result["loss_rel_diff"] > STEP_LOSS_RTOL or bad
+            or cfg.vit.attention_probs_dropout_prob <= 0.0
+            or launches["flash_attention_bwd_dkv"] != per_step
+            or launches["flash_attention_bwd_dq"] != per_step
+            or launches["flash_attention_fwd_train"] != per_step
+            or any(launches_p.values())):
+        raise AssertionError(f"bf16 dropout step: kernels vs plain {result}")
+    return result
+
+
 class _Client:
     def __init__(self, base):
         self.base, self.cookies = base, {}
@@ -1067,6 +1259,7 @@ def main() -> int:
     flash_train = phase_flash_train(peaks, gen)
     train = phase_train()
     phase_train_fp32_step()
+    phase_train_bf16_dropout_step()
     emit("done", seconds=time.perf_counter() - t0,
          masks_per_s=model["bfloat16"]["masks_per_s"],
          jobs_per_s=serving["jobs_per_s"],
@@ -1089,7 +1282,7 @@ def main() -> int:
                                      "bound_ms", "bound_by", "library_ms")},
          "shape": upsample["shape"], "out": upsample["out"]},
     ]
-    main_row = flash_train[(48, 197)]
+    main_row = flash_train[(48, 197, 0.1)]
     for name, key, line in (("flash_attention_fwd_train", "fwd_train", 92),
                             ("flash_attention_bwd_dq", "bwd_dq", 278),
                             ("flash_attention_bwd_dkv", "bwd_dkv", 315)):
@@ -1107,7 +1300,18 @@ def main() -> int:
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
             "shape": main_row["shape"], "dtype": main_row["dtype"],
             "dropout": main_row["rate"],
-            "n3137": flash_train[(24, 3137)]["timing"][key]})
+            "n3137": flash_train[(24, 3137, 0.1)]["timing"][key]})
+    for bh, n in TRAIN_TIMED:
+        for rate in (0.0, 0.1):
+            t = flash_train[(bh, n, rate)]["timing"]
+            emit("flash_train_backward", shape=[bh, n, 64], rate=rate,
+                 path=flash_train[(bh, n, rate)]["path"],
+                 dq_ms=t["bwd_dq"]["ms"], dkv_ms=t["bwd_dkv"]["ms"],
+                 dq_given_delta_ms=t["bwd_dq"]["given_delta_ms"],
+                 delta_ms=t["bwd_dq"]["delta_ms"],
+                 delta_torch_ms=t["bwd_dq"]["delta_torch_ms"],
+                 bwd_sum_ms=t["bwd_sum_ms"], sdpa_bwd_ms=t["sdpa_bwd_ms"],
+                 ratio=t["bwd_sum_ms"] / t["sdpa_bwd_ms"])
     kernels += variants
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -160,6 +160,39 @@ def test_kept_fraction_within_4_sigma(rate):
         keep_threshold(1.0)
 
 
+@pytest.mark.parametrize("n", [65, 197])
+def test_dropout_function_matches_autograd_at_odd_n(rng, n):
+    # As test_dropout_backward_matches_autograd_with_mask, at odd N: the
+    # last row and column are half of a 2x2 Philox block.
+    rate, seed = 0.2, 29
+    q, k, v, w = _arrays(rng, n, count=4)
+    keep_scale = dropout_keep_mask(seed, 2, n, n, rate).view(1, 2, n, n)
+    keep_scale = keep_scale.float() * float(
+        torch.tensor(1 / (1 - rate), dtype=torch.float32))
+    ref = _leaves(q, k, v)
+    want_out = _plain_attention(*ref, keep_scale)
+    (want_out * torch.from_numpy(w)).sum().backward()
+    got = _leaves(q, k, v)
+    out = flash_attention(*got, dropout_rate=rate, dropout_seed=seed)
+    (out * torch.from_numpy(w)).sum().backward()
+    torch.testing.assert_close(out, want_out, atol=1e-5, rtol=0)
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a.grad, b.grad, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("shape", [(197, 197), (1, 3137), (3137, 1)])
+def test_kept_fraction_of_each_word_within_4_sigma(shape):
+    # Each of the four words of a Philox call serves one parity class of
+    # (row, column); every class keeps its share.
+    rate, (rows, cols) = 0.1, shape
+    mask = dropout_keep_mask(9, 4, rows, cols, rate).float()
+    for i in range(min(2, rows)):
+        for j in range(min(2, cols)):
+            part = mask[:, i::2, j::2]
+            sigma = ((1 - rate) * rate / part.numel()) ** 0.5
+            assert abs(float(part.mean()) - (1 - rate)) < 4 * sigma, (i, j)
+
+
 def test_dropout_gradients_match_finite_difference(rng):
     n = 64
     q, k, v, w = _arrays(rng, n, h=1, count=4)

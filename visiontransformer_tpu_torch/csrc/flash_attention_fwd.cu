@@ -9,17 +9,18 @@
 // dropout inside the kernel: the normalized probabilities are multiplied
 // by mask / keep before P V while the softmax denominator sums the
 // undropped p (as _fwd_kernel :131-143 does). The mask comes from
-// Philox4x32-10 keyed by (seed, b*H + h) with counter (query row, key
-// column) (flash_attention_common.cuh), so the backward kernels regenerate
-// it with their own tiling. In bf16, P * mask / keep is rounded to bf16
+// Philox4x32-10 keyed by (seed, b*H + h), one call per 2 x 2 block of
+// (query row, key column) (flash_attention_common.cuh), so the backward
+// kernels regenerate it with their own tiling. In bf16, P * mask / keep is rounded to bf16
 // before P V, where the TPU kernel rounds it.
 //
 // What bounds it: at the serving shape (B*H = 384, N = 197, d = 64, bf16)
 // the kernel must move 4 * B*H*N*d * 2 bytes (Q, K, V read, O written:
 // 38.7 MB) against 4 * B*H*N^2*d = 3.8 GFLOP, so on an H100 it is bound by
 // memory bytes, not by the tensor cores. The training variant adds the
-// 4 * B*H*N bytes of lse and one Philox draw per probability; it is bound
-// the same way.
+// 4 * B*H*N bytes of lse and one Philox call per four probabilities (bf16;
+// a lane draws for its mma fragment and trades two words with the lane
+// four over); it is bound the same way.
 //
 // Design. The TPU kernel kept all of one head's K/V in VMEM and walked the
 // grid in order; here blocks run in parallel, each with a few KB of static
@@ -317,14 +318,13 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         const uint32_t seed = static_cast<uint32_t>(*train.seed);
 #pragma unroll
         for (int nt = 0; nt < kKeyTiles; ++nt) {
+          // One Philox call per lane for its four probabilities.
+          const uint32_t keep = dropout_keep_frag<false>(
+              seed, blockIdx.y, row_lo, key0 + nt * 8 + 2 * t,
+              train.keep_threshold, lane);
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int row = (e < 2) ? row_lo : row_hi;
-            const int key = key0 + nt * 8 + 2 * t + (e & 1);
-            s[nt][e] = dropout_keep(seed, blockIdx.y, row, key,
-                                    train.keep_threshold)
-                           ? s[nt][e] * train.inv_keep : 0.0f;
-          }
+          for (int e = 0; e < 4; ++e)
+            s[nt][e] = (keep >> e) & 1u ? s[nt][e] * train.inv_keep : 0.0f;
         }
       }
     }

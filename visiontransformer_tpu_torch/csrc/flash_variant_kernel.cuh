@@ -79,37 +79,6 @@ struct Config {
   static constexpr int kSmemBytes = 4 * kTileElems * static_cast<int>(sizeof(bf16));
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte asynchronous copy to shared memory; src_bytes = 0 writes zeros.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_u32(dst)), "l"(src), "r"(src_bytes) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Every group but the newest has landed.
-__device__ __forceinline__ void cp_async_wait_prev() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-
-// Four 8x8 bf16 matrices, transposed: lanes 8i..8i+7 give the row
-// addresses of matrix i, and register i receives, in lane 4g + t, its
-// elements (2t, g) and (2t + 1, g).
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const bf16* row) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(row)) : "memory");
-}
-
 // The 8x8 bf16 matrix held as one pair per lane (lane 4g + t: row g,
 // columns 2t, 2t + 1, the C-fragment layout of one half of an m16n8 tile),
 // transposed in registers.
@@ -125,10 +94,6 @@ __device__ __forceinline__ uint32_t ex2_bf16x2(uint32_t x) {
   uint32_t y;
   asm("ex2.approx.ftz.bf16x2 %0, %1;\n" : "=r"(y) : "r"(x));
   return y;
-}
-
-__device__ __forceinline__ float2 unpack2(uint32_t x) {
-  return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&x));
 }
 
 // exp of x0, x1 as the TPU kernel's bf16 mode takes it: x rounded to bf16,
@@ -217,7 +182,7 @@ rows_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                                          sk, sv, key0 + kBlockK, n);
     }
     cp_async_commit();  // an empty group on the last tile keeps the count
-    cp_async_wait_prev();
+    cp_async_wait<1>();
     __syncthreads();
     if (warp_active) {
       const bf16* ks = smem + 2 * (tile & 1) * Cfg::kTileElems;
@@ -434,7 +399,7 @@ cols_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                                          sk, sv, key0 + kBlockK, n);
     }
     cp_async_commit();
-    cp_async_wait_prev();
+    cp_async_wait<1>();
     __syncthreads();
     if (warp_active) {
       const bf16* ks = smem + 2 * (tile & 1) * Cfg::kTileElems;

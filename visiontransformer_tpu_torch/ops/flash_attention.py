@@ -17,13 +17,24 @@ Kernels (``csrc/``), each replacing a kernel of the TPU package's
 ``FlashAttention`` (a ``torch.autograd.Function``) joins the training
 forward and the backward kernels; it saves q, k, v (views, as the model
 passes them), the output and the lse, never an N×N tensor. Δ = rowsum(dO∘O)
-is one PyTorch reduction, as the TPU package computes it outside Pallas.
+is computed by the dQ kernel's prologue from the saved output
+(``flash_attention_bwd_dq_delta``) and handed to the dK/dV kernel; the
+standalone wrappers also take a given Δ, as the TPU kernels do.
+
+The bf16 backward kernels walk a ring of 64-row tiles, on warpgroup products
+at d = 64 ("wgmma", every ViT configuration here) and on ``mma.sync`` at the
+other head dims ("stream"); fp32 runs the scalar kernels ("scalar").
+``backward_path`` names the instantiation of a shape; the sequence length
+does not enter: an instantiation that staged a short head whole was
+measured no faster at N = 197 (PERF.md) and was not kept.
 
 Dropout keeps probability (row i, column j) of head b·H + h when the top 24
-bits of Philox4x32-10 (key (seed, b·H + h), counter (i, j, 0, 0), first
-word), read as u in [0, 1), fall below keep. ``dropout_keep_mask`` computes
-the same bits in PyTorch, so a kernel and its plain version drop the same
-probabilities. The bitstream is the port's own, not the TPU package's.
+bits of a word of Philox4x32-10, read as u in [0, 1), fall below keep. One
+call, key (seed, b·H + h), counter (i >> 1, j >> 1, 0, 0), draws the 2×2
+block of probabilities around (i, j): word 2·(i & 1) + (j & 1).
+``dropout_keep_mask`` computes the same bits in PyTorch, so a kernel and its
+plain version drop the same probabilities. The bitstream is the port's own,
+not the TPU package's.
 
 Every wrapper runs its kernel for a CUDA tensor and its plain version for a
 CPU tensor; anything else raises. A kernel that fails to build or launch
@@ -60,7 +71,7 @@ _SIGNATURES = {
             ctypes.c_int)},
     "flash_attention_bwd_dq": {
         "vt_flash_attention_bwd_dq": (
-            [ctypes.c_int] + [ctypes.c_void_p] * 7 + _STRIDES * 5
+            [ctypes.c_int] + [ctypes.c_void_p] * 8 + _STRIDES * 6
             + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p,
                                     ctypes.c_uint, ctypes.c_float,
                                     ctypes.c_void_p],
@@ -124,12 +135,15 @@ def _seed_tensor(seed: Seed, device) -> torch.Tensor:
 def dropout_keep_mask(seed: Seed, bh: int, n_rows: int, n_cols: int,
                       rate: float, device=None) -> torch.Tensor:
     """(bh, n_rows, n_cols) bool keep-mask of the kernels' dropout, for
-    heads 0..bh-1 (b·H + h order)."""
+    heads 0..bh-1 (b·H + h order): one Philox call per 2×2 block, element
+    (i, j) reading word 2·(i & 1) + (j & 1) of the call with counter
+    (i >> 1, j >> 1)."""
     device = seed.device if isinstance(seed, torch.Tensor) else device
     k0 = _seed_tensor(seed, device) & _MASK32
     threshold = keep_threshold(rate)
-    rows = torch.arange(n_rows, device=device).view(n_rows, 1)
-    cols = torch.arange(n_cols, device=device).view(1, n_cols)
+    half_rows, half_cols = (n_rows + 1) // 2, (n_cols + 1) // 2
+    rows = torch.arange(half_rows, device=device).view(half_rows, 1)
+    cols = torch.arange(half_cols, device=device).view(1, half_cols)
     zero = torch.zeros((), dtype=torch.int64, device=device)
     # Heads in chunks of at most 2^25 elements bound the int64 temporaries.
     step = max(1, (1 << 25) // max(1, n_rows * n_cols))
@@ -137,8 +151,12 @@ def dropout_keep_mask(seed: Seed, bh: int, n_rows: int, n_cols: int,
     for start in range(0, bh, step):
         k1 = torch.arange(start, min(bh, start + step),
                           device=device).view(-1, 1, 1)
-        word = philox4x32_10((rows, cols, zero, zero), (k0, k1))[0]
-        masks.append((word >> 8) < threshold)
+        words = philox4x32_10((rows, cols, zero, zero), (k0, k1))
+        # (heads, half_rows, half_cols, i & 1, j & 1) -> (heads, rows, cols)
+        block = torch.stack(words, -1).view(-1, half_rows, half_cols, 2, 2)
+        block = block.permute(0, 1, 3, 2, 4).reshape(
+            -1, 2 * half_rows, 2 * half_cols)
+        masks.append((block[:, :n_rows, :n_cols] >> 8) < threshold)
     return torch.cat(masks)
 
 
@@ -308,16 +326,28 @@ def _backward_inputs(do: torch.Tensor) -> torch.Tensor:
     return do if _kernel_layout(do) else do.contiguous()
 
 
-def flash_attention_bwd_dq(q, k, v, do, lse, delta, rate: float = 0.0,
-                           seed: Optional[Seed] = None) -> torch.Tensor:
-    """dQ (kernel 3) from q, k, v, dO (B, H, N, d) and the forward's lse and
-    Δ = rowsum(dO∘O), both (B, H, N) fp32."""
-    if q.device.type == "cpu":
-        return flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, rate,
-                                            seed)
-    do = _backward_inputs(do)
-    _check("flash_attention_bwd_dq", q, k, v, do)
-    lse, delta = _rows(lse, q), _rows(delta, q)
+WGMMA_HEAD_DIM = 64  # the head dim the wgmma instantiation is written for
+
+
+def backward_path(n: int, d: int, dtype: torch.dtype) -> str:
+    """Which instantiation of the backward kernels a (N, d, dtype) takes on
+    the card: "scalar" for float32; for bfloat16 "wgmma" at d = 64 and
+    "stream" (the ``mma.sync`` ring) at the other head dims, at every N."""
+    if dtype == torch.float32:
+        return "scalar"
+    if dtype != torch.bfloat16:
+        raise TypeError(f"backward_path: unsupported dtype {dtype}")
+    return "wgmma" if d == WGMMA_HEAD_DIM else "stream"
+
+
+def attention_delta_plain(do: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """Δ = rowsum(dO ∘ O), (B, H, N) fp32."""
+    return (do.float() * out.float()).sum(-1)
+
+
+def _launch_bwd_dq(q, k, v, do, lse, delta, out, rate, seed):
+    """Launch kernel 3. ``out`` None: ``delta`` is read. Otherwise ``delta``
+    is an empty (B, H, N) fp32 tensor the kernel fills from ``out``."""
     seed_t, threshold, inv_keep = _dropout_args(rate, seed, q.device)
     b, h, n, d = q.shape
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
@@ -326,8 +356,11 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, rate: float = 0.0,
     with torch.cuda.device(q.device):
         err = lib.vt_flash_attention_bwd_dq(
             _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            *_strides(q, k, v, do, dq), b, h, n, d, 1.0 / math.sqrt(d),
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            None if out is None else out.data_ptr(),
+            dq.data_ptr(), *_strides(q, k, v, do, q if out is None else out,
+                                     dq),
+            b, h, n, d, 1.0 / math.sqrt(d),
             None if seed_t is None else seed_t.data_ptr(), threshold,
             inv_keep, _stream(q.device))
     _build.check(lib, err, "flash_attention_bwd_dq")
@@ -335,10 +368,45 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, rate: float = 0.0,
     return dq
 
 
+def flash_attention_bwd_dq(q, k, v, do, lse, delta, rate: float = 0.0,
+                           seed: Optional[Seed] = None) -> torch.Tensor:
+    """dQ (kernel 3) from q, k, v, dO (B, H, N, d) and the forward's lse and
+    Δ = rowsum(dO∘O), both (B, H, N) fp32. On the card the kernel runs the
+    instantiation ``backward_path`` names: bfloat16 "wgmma" at d = 64 and
+    "stream" at the other head dims, float32 the scalar kernel."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, rate,
+                                            seed)
+    do = _backward_inputs(do)
+    _check("flash_attention_bwd_dq", q, k, v, do)
+    lse, delta = _rows(lse, q), _rows(delta, q)
+    return _launch_bwd_dq(q, k, v, do, lse, delta, None, rate, seed)
+
+
+def flash_attention_bwd_dq_delta(q, k, v, do, lse, out, rate: float = 0.0,
+                                 seed: Optional[Seed] = None
+                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dQ, Δ): kernel 3 with Δ = rowsum(dO∘O) computed in its prologue
+    from the forward's output ``out`` (bfloat16 on the card; float32, whose
+    scalar kernel reads a given Δ, and the CPU compute Δ in PyTorch first).
+    Paths as ``flash_attention_bwd_dq``."""
+    if q.device.type == "cpu" or q.dtype == torch.float32:
+        delta = attention_delta_plain(do, out)
+        return flash_attention_bwd_dq(q, k, v, do, lse, delta, rate,
+                                      seed), delta
+    do = _backward_inputs(do)
+    _check("flash_attention_bwd_dq", q, k, v, do, out)
+    lse = _rows(lse, q)
+    delta = torch.empty_like(lse)
+    dq = _launch_bwd_dq(q, k, v, do, lse, delta, out, rate, seed)
+    return dq, delta
+
+
 def flash_attention_bwd_dkv(q, k, v, do, lse, delta, rate: float = 0.0,
                             seed: Optional[Seed] = None
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(dK, dV) (kernel 4), inputs as ``flash_attention_bwd_dq``."""
+    """(dK, dV) (kernel 4), inputs and instantiations as
+    ``flash_attention_bwd_dq``."""
     if q.device.type == "cpu":
         return flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta, rate,
                                              seed)
@@ -355,8 +423,8 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, rate: float = 0.0,
         err = lib.vt_flash_attention_bwd_dkv(
             _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
             do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), *_strides(q, k, v, do, dk, dv), b, h, n, d,
-            1.0 / math.sqrt(d),
+            dv.data_ptr(),
+            *_strides(q, k, v, do, dk, dv), b, h, n, d, 1.0 / math.sqrt(d),
             None if seed_t is None else seed_t.data_ptr(), threshold,
             inv_keep, _stream(q.device))
     _build.check(lib, err, "flash_attention_bwd_dkv")
@@ -386,9 +454,8 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, out, lse = ctx.saved_tensors
-        delta = (do.float() * out.float()).sum(-1)
-        dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, ctx.rate,
-                                    ctx.seed)
+        dq, delta = flash_attention_bwd_dq_delta(q, k, v, do, lse, out,
+                                                 ctx.rate, ctx.seed)
         dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, ctx.rate,
                                          ctx.seed)
         return dq, dk, dv, None, None
