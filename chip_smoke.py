@@ -10,8 +10,16 @@ failure:
 1. env       card, power limit, torch/CUDA versions, kernel build time;
 2. flash     flash-attention kernel vs its plain version, bf16 and fp32,
              at the serving shape (B*H = 384, N = 197, d = 64), at
-             N = 785/1025/3137, and at d = 80/16/32/128; timed against the
-             plain version and F.scaled_dot_product_attention;
+             N = 785/1025/3137, at d = 80/16/32/128, and on the edges of
+             the forward kernels' 64-row and 64-key tiles (N = 1, 63, 64,
+             65, 127, 129, 255, 256, 257 at d = 64, 32 and 128, 48 heads),
+             so every instantiation (bf16 "wgmma" at d = 64, "stream" at
+             the other head dims, fp32 "scalar"; forward_path) is checked;
+             at (B*H, N) = (384, 197), (192, 1025), (24, 3137), d = 64,
+             kernel 1 and kernel 2 (dropout 0 and 0.1) timed by device time
+             against the plain version and F.scaled_dot_product_attention
+             at the same rates (one flash_forward line per shape, printed
+             at the end with those of flash_train's timed shapes);
 2b. flash_variants  the tuning sweeps' kernels (6: softmax forms; 7:
              q chains per warp; 8, 9: transposed P·V): both port sweeps
              (scripts/tune_flash2, tune_flash3) at their defaults, with
@@ -71,6 +79,12 @@ counted during the serving run, of the training kernels during the train
 run, of the sweep kernels during the two sweeps), and, last,
 {"ok": true, "device": {...}}.
 Without CUDA it exits with code 1 and prints no result.
+
+Times: "ms" and "library_ms" are device time (device_ms: CUDA events
+around calls queued behind a spin kernel, so back to back on the device
+without the host's pace); "call_ms" and "plain_ms" are CUDA events around
+calls issued back to back (time_ms), the host's pace included where it
+sets it; kernel 5's "ms" is time_ms too.
 """
 
 from __future__ import annotations
@@ -172,7 +186,10 @@ def emit(phase: str, **fields) -> None:
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of fn() over iters launches (CUDA events)."""
+    """Time of fn() per call over iters calls back to back (CUDA events;
+    the host's launch overhead included where it sets the pace). The plain
+    versions are timed so: they launch more kernels than the device's
+    queue holds, so device_ms cannot queue them ahead."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -186,28 +203,48 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int = 10) -> float:
-    """Device time of fn() per call: the summed durations of the kernels
-    and copies it ran (torch.profiler), without the host's launch overhead
-    between calls, which sets the pace of back-to-back calls of a small
-    kernel."""
-    from torch.profiler import ProfilerActivity, profile
+_SPIN_MS_PER_MCYCLE = []  # device ms of torch.cuda._sleep(10**6), measured once
 
+
+def device_ms(fn, iters: int = 10) -> float:
+    """Device time of fn() per call, without the host's launch overhead
+    between calls, which sets the pace of back-to-back calls of a small
+    kernel: CUDA events around iters calls that the host queued while a
+    spin kernel held the device, so the calls ran back to back (the
+    device's own gaps between kernels are in it). The reading checks
+    itself: the event before the calls must not have fired when the last
+    call is queued, else the host set the pace and the reading is taken
+    again behind a longer spin."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    if not _SPIN_MS_PER_MCYCLE:
+        torch.cuda._sleep(10 ** 6)  # the first spin also loads its kernel
+        start.record()
+        torch.cuda._sleep(10 ** 6)
+        end.record()
+        end.synchronize()
+        _SPIN_MS_PER_MCYCLE.append(start.elapsed_time(end))
     fn()
     torch.cuda.synchronize()
-    # A profile now and then records no device event at all; try again
-    # rather than report 0 ms.
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    queue_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    spin_ms = 2 * queue_ms + 1.0
     for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        us = sum(e.time_range.elapsed_us() for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA)
-        if us > 0:
-            return us / 1e3 / iters
-    raise RuntimeError("torch.profiler recorded no device time in 3 tries")
+        torch.cuda._sleep(int(spin_ms / _SPIN_MS_PER_MCYCLE[0] * 10 ** 6))
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        ahead = not start.query()
+        end.synchronize()
+        if ahead:
+            return start.elapsed_time(end) / iters
+        spin_ms *= 4
+    raise RuntimeError("device_ms: the host could not queue the calls "
+                       "ahead of the device in 3 tries")
 
 
 def bound_ms(peaks, n_bytes: float, n_ops: float, op_type: str):
@@ -291,7 +328,7 @@ def phase_env():
     for log in sorted(out_dir.glob("*.log")):
         ptxas += [line.strip() for line in log.read_text().splitlines()
                   if "registers" in line or "spill" in line
-                  or "Compiling entry" in line]
+                  or "Compiling entry" in line or "arning" in line]
     print("\n".join(ptxas), file=sys.stderr)
     peaks = _PEAKS["pcie" if "PCIe" in smi else "sxm"]
     emit("env", nvidia_smi=smi, torch=torch.__version__,
@@ -301,16 +338,27 @@ def phase_env():
     return smi, peaks
 
 
+# (B, H, N, d) of the flash checks: the main shapes, then the edges of the
+# forward kernels' 64-row and 64-key tiles at d = 64 ("wgmma") and at
+# d = 32 and 128 ("stream", two chains a warp and one), at 48 heads.
+FLASH_CASES = [(32, 12, 197, 64), (4, 12, 785, 64), (16, 12, 1025, 64),
+               (2, 12, 3137, 64), (8, 16, 257, 80), (2, 4, 130, 16),
+               (2, 4, 130, 32), (2, 4, 130, 128)]
+FLASH_TIMED = ((384, 197), (192, 1025), (24, 3137))  # (B*H, N), d = 64
+
+
 def phase_flash(peaks, gen):
+    """Kernel 1 vs its plain version on every instantiation; returns the
+    serving shape's bf16 row and the timed rows by (B*H, N)."""
     from visiontransformer_tpu_torch.ops.flash_attention import (
         flash_attention,
         flash_attention_plain,
+        forward_path,
     )
 
-    cases = [(32, 12, 197, 64), (4, 12, 785, 64), (4, 12, 1025, 64),
-             (2, 12, 3137, 64), (8, 16, 257, 80), (2, 4, 130, 16),
-             (2, 4, 130, 32), (2, 4, 130, 128)]
-    main_row = None
+    cases = FLASH_CASES + [(4, 12, n, d) for d in (64, 32, 128)
+                           for n in TRAIN_EDGE_NS]
+    main_row, timed = None, {}
     for dtype in (torch.bfloat16, torch.float32):
         for b, h, n, d in cases:
             # Strided views of one fused QKV tensor, as the model passes.
@@ -321,22 +369,72 @@ def phase_flash(peaks, gen):
             want = flash_attention_plain(q, k, v)
             torch.cuda.synchronize()
             ok, fields = flash_agrees(got, want)
-            row = {"shape": [b, h, n, d], "dtype": str(dtype)[6:], **fields}
-            if n in (197, 3137) and d == 64:
-                elt = q.element_size()
-                row["ms"] = time_ms(lambda: flash_attention(q, k, v))
-                row["plain_ms"] = time_ms(lambda: flash_attention_plain(q, k, v))
-                row["library_ms"] = time_ms(
-                    lambda: F.scaled_dot_product_attention(q, k, v))
-                row["bound_ms"], row["bound_by"] = bound_ms(
-                    peaks, 4 * b * h * n * d * elt, 4 * b * h * n * n * d,
-                    "bf16" if dtype == torch.bfloat16 else "fp32")
-            emit("flash", **row)
+            row = {"shape": [b, h, n, d], "dtype": str(dtype)[6:],
+                   "path": forward_path(n, d, dtype), **fields}
+            if d == 64 and (b * h, n) in FLASH_TIMED:
+                if dtype == torch.bfloat16:
+                    row["timing"] = _time_forward(peaks, q, k, v, gen)
+                    row.update({key: row["timing"][key] for key in (
+                        "ms", "call_ms", "plain_ms", "library_ms",
+                        "library_call_ms", "bound_ms", "bound_by")})
+                    timed[(b * h, n)] = row
+                elif n in (197, 3137):
+                    row["ms"] = device_ms(lambda: flash_attention(q, k, v))
+                    row["plain_ms"] = time_ms(
+                        lambda: flash_attention_plain(q, k, v), 3, 1)
+                    row["library_ms"] = device_ms(
+                        lambda: F.scaled_dot_product_attention(q, k, v))
+                    row["bound_ms"], row["bound_by"] = bound_ms(
+                        peaks, 4 * b * h * n * d * 4, 4 * b * h * n * n * d,
+                        "fp32")
+            # The timing goes out on the flash_forward lines.
+            emit("flash", **{k: x for k, x in row.items() if k != "timing"})
             if not ok:
                 raise AssertionError(f"flash kernel disagrees: {row}")
             if (b, h, n, d) == (32, 12, 197, 64) and dtype == torch.bfloat16:
                 main_row = row
-    return main_row
+    return main_row, timed
+
+
+def _time_forward(peaks, q, k, v, gen):
+    """Kernels 1 and 2 (dropout 0 and 0.1) on these bf16 inputs beside SDPA
+    at the same rates, by device time (``device_ms``): ms, library_ms
+    (SDPA), bounds and ratios of kernel 1; call_ms, library_call_ms and
+    plain_ms are CUDA-event times of back-to-back calls (host overhead
+    included); train_ms, sdpa_ms, train_bound_ms and
+    train_ratio by rate for kernel 2."""
+    from visiontransformer_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        flash_attention_plain,
+        flash_attention_train,
+        forward_path,
+    )
+
+    b, h, n, d = q.shape
+    bh, elt = b * h, q.element_size()
+    seed = torch.randint(0, 2 ** 31, (), generator=gen, device="cuda")
+    kernel = lambda: flash_attention(q, k, v)
+    sdpa = lambda: F.scaled_dot_product_attention(q, k, v)
+    row = {"shape": [bh, n, d], "path": forward_path(n, d, q.dtype),
+           "ms": device_ms(kernel), "call_ms": time_ms(kernel),
+           "plain_ms": time_ms(lambda: flash_attention_plain(q, k, v), 3, 1),
+           "library_ms": device_ms(sdpa), "library_call_ms": time_ms(sdpa)}
+    row["bound_ms"], row["bound_by"] = bound_ms(
+        peaks, 4 * bh * n * d * elt, 4 * bh * n * n * d, "bf16")
+    row["ratio"] = row["ms"] / row["library_ms"]
+    train_bound = bound_ms(peaks, 4 * bh * n * d * elt + 4 * bh * n,
+                           4 * bh * n * n * d, "bf16")[0]
+    row.update(train_ms={}, sdpa_ms={}, train_bound_ms=train_bound,
+               train_ratio={})
+    for rate in (0.0, 0.1):
+        row["train_ms"][rate] = device_ms(
+            lambda: flash_attention_train(q, k, v, rate, seed))
+        with torch.no_grad():
+            row["sdpa_ms"][rate] = device_ms(
+                lambda: F.scaled_dot_product_attention(q, k, v,
+                                                       dropout_p=rate))
+        row["train_ratio"][rate] = row["train_ms"][rate] / row["sdpa_ms"][rate]
+    return row
 
 
 # The sweep kernels by TPU kernel: (source, line replaced, the configuration
@@ -462,9 +560,9 @@ def phase_flash_variants(peaks, gen):
 
 
 def _time_variants(peaks, q, k, v, cases):
-    """Device time (``device_ms``) of each listed configuration, of its
-    plain version and of SDPA on the same inputs, with call_ms (CUDA
-    events, back to back) and the bound."""
+    """Device time (``device_ms``) of each listed configuration and of
+    SDPA on the same inputs, with call_ms and plain_ms (CUDA events, back
+    to back) and the bound."""
     b, h, n, d = q.shape
     bound = bound_ms(peaks, 4 * b * h * n * d * q.element_size(),
                      4 * b * h * n * n * d, "bf16")
@@ -477,7 +575,7 @@ def _time_variants(peaks, q, k, v, cases):
             fn = lambda: kernel(q, k, v)
             timing[config] = {
                 "ms": device_ms(fn), "call_ms": time_ms(fn),
-                "plain_ms": device_ms(lambda: plain(q, k, v), iters=3),
+                "plain_ms": time_ms(lambda: plain(q, k, v), 3, 1),
                 "library_ms": library, "bound_ms": bound[0],
                 "bound_by": bound[1]}
     return timing
@@ -672,6 +770,7 @@ def phase_flash_train(peaks, gen):
         flash_attention_bwd_dq_plain,
         flash_attention_train,
         flash_attention_train_plain,
+        forward_path,
     )
 
     # Tile edges: all of them on the d = 64 instantiation; 63 to 129 on the
@@ -728,6 +827,7 @@ def phase_flash_train(peaks, gen):
                                         "atol": DELTA_TOL[0]})
                 row = {"shape": [b, h, n, d], "dtype": str(dtype)[6:],
                        "rate": rate, "path": backward_path(n, d, dtype),
+                       "fwd_path": forward_path(n, d, dtype),
                        **{name: fields for name, (_, fields) in checks.items()}}
                 failed = [name for name, (ok, _) in checks.items() if not ok]
                 if (dtype == torch.bfloat16 and d == 64
@@ -743,9 +843,10 @@ def phase_flash_train(peaks, gen):
 
 
 def _time_train_kernels(peaks, q, k, v, do, out, lse, rate, seed):
-    """ms, plain ms, library ms (device time, ``device_ms``) and bound of
-    kernels 2, 3 and 4 on these inputs, and call_ms, the kernel's time per
-    call back to back (CUDA events, host overhead included). Kernel 3 is
+    """ms, library ms (device time, ``device_ms``) and bound of kernels 2,
+    3 and 4 on these inputs (and kernel 1's ms without dropout), and
+    call_ms and plain_ms, the time per call back to back (CUDA events, host
+    overhead included). Kernel 3 is
     timed as the training path launches it, with delta = rowsum(dO * O)
     computed in its prologue from ``out`` (so it reads O too: 6 tensors of
     B*H*N*d, lse, and writes delta), against the plain delta and dQ;
@@ -756,6 +857,7 @@ def _time_train_kernels(peaks, q, k, v, do, out, lse, rate, seed):
     for kernels 3 and 4 together; bwd_sum_ms is dQ + dK/dV beside it."""
     from visiontransformer_tpu_torch.ops.flash_attention import (
         attention_delta_plain,
+        flash_attention,
         flash_attention_bwd_dkv,
         flash_attention_bwd_dkv_plain,
         flash_attention_bwd_dq,
@@ -800,7 +902,7 @@ def _time_train_kernels(peaks, q, k, v, do, out, lse, rate, seed):
              6 * bh * n * d * elt + 8 * bh * n, 8 * bh * n * n * d,
              sdpa_bwd_ms)):
         row = {"ms": device_ms(fn), "call_ms": time_ms(fn),
-               "plain_ms": device_ms(plain, iters=plain_iters),
+               "plain_ms": time_ms(plain, plain_iters, 1),
                "library_ms": library}
         row["bound_ms"], row["bound_by"] = bound_ms(peaks, n_bytes, n_ops,
                                                     "bf16")
@@ -812,6 +914,8 @@ def _time_train_kernels(peaks, q, k, v, do, out, lse, rate, seed):
         lambda: attention_delta_plain(do, out))
     rows["bwd_sum_ms"] = rows["bwd_dq"]["ms"] + rows["bwd_dkv"]["ms"]
     rows["sdpa_bwd_ms"] = sdpa_bwd_ms
+    if rate == 0.0:  # kernel 1 on the same inputs, for the flash_forward line
+        rows["fwd_infer_ms"] = device_ms(lambda: flash_attention(q, k, v))
     rows["library_note"] = ("SDPA forward with dropout; SDPA backward "
                             "(fwd+bwd minus fwd) covers bwd_dq and bwd_dkv "
                             "together; bwd_sum_ms = dQ (delta in its "
@@ -1241,6 +1345,44 @@ def phase_serving(n_jobs: int = 8):
     return result
 
 
+def _forward_lines(peaks, flash_timed, flash_train):
+    """One line per timed bf16 d = 64 shape: kernel 1, kernel 2 at dropout
+    0 and 0.1 and SDPA's forward at both rates (device time), the bounds and
+    the ratios; from phase_flash's timing where it has the shape, else from
+    flash_train's."""
+    lines = {}
+    for (bh, n), row in flash_timed.items():
+        t = row["timing"]
+        lines[(bh, n)] = {
+            "shape": [bh, n, 64], "path": t["path"], "from": "flash",
+            "fwd_ms": t["ms"], "fwd_call_ms": t["call_ms"],
+            "sdpa_ms": t["library_ms"], "sdpa_call_ms": t["library_call_ms"],
+            "fwd_bound_ms": t["bound_ms"], "fwd_ratio": t["ratio"],
+            "train_ms": t["train_ms"], "sdpa_train_ms": t["sdpa_ms"],
+            "train_bound_ms": t["train_bound_ms"],
+            "train_ratio": t["train_ratio"]}
+    for bh, n in TRAIN_TIMED:
+        if (bh, n) in lines:
+            continue
+        rows = {rate: flash_train[(bh, n, rate)] for rate in (0.0, 0.1)}
+        t0 = rows[0.0]["timing"]
+        train = {rate: r["timing"]["fwd_train"] for rate, r in rows.items()}
+        fwd_bound = bound_ms(peaks, 4 * bh * n * 64 * 2,
+                             4 * bh * n * n * 64, "bf16")[0]
+        lines[(bh, n)] = {
+            "shape": [bh, n, 64], "path": rows[0.0]["fwd_path"],
+            "from": "flash_train", "fwd_ms": t0["fwd_infer_ms"],
+            "sdpa_ms": train[0.0]["library_ms"], "fwd_bound_ms": fwd_bound,
+            "fwd_ratio": t0["fwd_infer_ms"] / train[0.0]["library_ms"],
+            "train_ms": {rate: x["ms"] for rate, x in train.items()},
+            "sdpa_train_ms": {rate: x["library_ms"]
+                              for rate, x in train.items()},
+            "train_bound_ms": train[0.0]["bound_ms"],
+            "train_ratio": {rate: x["ms"] / x["library_ms"]
+                            for rate, x in train.items()}}
+    return list(lines.values())
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the GPU",
@@ -1251,7 +1393,7 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     t0 = time.perf_counter()
     smi, peaks = phase_env()
-    flash = phase_flash(peaks, gen)
+    flash, flash_timed = phase_flash(peaks, gen)
     variants = phase_flash_variants(peaks, gen)
     upsample = phase_upsample(peaks, gen)
     model = phase_model(gen)
@@ -1272,7 +1414,8 @@ def main() -> int:
          "replaces": "visiontransformer_tpu/ops/flash_attention.py:92",
          "launches": serving["launches"]["flash_attention"],
          **{k: flash[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                  "bound_by", "library_ms")},
+                                  "bound_by", "library_ms", "call_ms",
+                                  "library_call_ms", "path")},
          "shape": flash["shape"], "dtype": flash["dtype"]},
         {"name": "upsample_argmax", "route": "cuda",
          "source": src + "upsample_argmax.cu",
@@ -1299,7 +1442,7 @@ def main() -> int:
             **{k: main_row["timing"][key][k] for k in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
             "shape": main_row["shape"], "dtype": main_row["dtype"],
-            "dropout": main_row["rate"],
+            "dropout": main_row["rate"], "path": main_row["path"],
             "n3137": flash_train[(24, 3137, 0.1)]["timing"][key]})
     for bh, n in TRAIN_TIMED:
         for rate in (0.0, 0.1):
@@ -1312,6 +1455,8 @@ def main() -> int:
                  delta_torch_ms=t["bwd_dq"]["delta_torch_ms"],
                  bwd_sum_ms=t["bwd_sum_ms"], sdpa_bwd_ms=t["sdpa_bwd_ms"],
                  ratio=t["bwd_sum_ms"] / t["sdpa_bwd_ms"])
+    for line in _forward_lines(peaks, flash_timed, flash_train):
+        emit("flash_forward", **line)
     kernels += variants
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -4,7 +4,8 @@
   JAX package (``visiontransformer_tpu`` and its submodules; the port's own
   name shares that prefix and is allowed).
 - The port's entry points default to CUDA and raise on a host without it
-  instead of falling back to the CPU.
+  instead of falling back to the CPU; chip_smoke.py exits non-zero there
+  and prints no result.
 - Importing the package builds no kernel.
 """
 
@@ -12,6 +13,8 @@ import ast
 import importlib
 import os
 import pkgutil
+import subprocess
+import sys
 
 import pytest
 import torch
@@ -103,3 +106,12 @@ def test_flash_sweeps_default_to_cuda(no_cuda, sweep):
         f"visiontransformer_tpu_torch.scripts.{sweep}")
     with pytest.raises(RuntimeError, match="CUDA"):
         module.main(["200", "2"])
+
+
+def test_chip_smoke_fails_without_cuda(no_cuda):
+    proc = subprocess.run([sys.executable, os.path.join(REPO, "chip_smoke.py")],
+                          capture_output=True, text=True, timeout=300,
+                          cwd=REPO)
+    assert proc.returncode != 0
+    assert "CUDA is not available" in proc.stderr
+    assert '"ok"' not in proc.stdout

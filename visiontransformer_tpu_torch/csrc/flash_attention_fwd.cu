@@ -11,51 +11,73 @@
 // undropped p (as _fwd_kernel :131-143 does). The mask comes from
 // Philox4x32-10 keyed by (seed, b*H + h), one call per 2 x 2 block of
 // (query row, key column) (flash_attention_common.cuh), so the backward
-// kernels regenerate it with their own tiling. In bf16, P * mask / keep is rounded to bf16
-// before P V, where the TPU kernel rounds it.
+// kernels regenerate it with their own tiling. In bf16, P * mask / keep is
+// rounded to bf16 before P V, where the TPU kernel rounds it.
 //
-// What bounds it: at the serving shape (B*H = 384, N = 197, d = 64, bf16)
-// the kernel must move 4 * B*H*N*d * 2 bytes (Q, K, V read, O written:
-// 38.7 MB) against 4 * B*H*N^2*d = 3.8 GFLOP, so on an H100 it is bound by
-// memory bytes, not by the tensor cores. The training variant adds the
-// 4 * B*H*N bytes of lse and one Philox call per four probabilities (bf16;
-// a lane draws for its mma fragment and trades two words with the lane
-// four over); it is bound the same way.
+// What bounds it on an H100. The function reads Q, K, V and writes O
+// (4 * B*H*N*d * 2 bytes in bf16) and does 4 * B*H*N^2*d operations in two
+// products, besides B*H*N^2 exponentials. At the serving shape (B*H = 384,
+// N = 197, d = 64) that is 38.7 MB against 3.8 GFLOP: 11.6 us of bytes
+// against 3.9 us of tensor-core work, so bytes bound it, and what a block
+// waits on is its serial chain (Q and the first K/V tile in, four key
+// tiles, O out): many blocks an SM and every load issued early help. At
+// (192, 1025, 64) it is 101 MB against 51.6 GFLOP: 52 us of tensor-core
+// work against 30 us of bytes, and the 202 M exponentials take about as
+// long again on the special-function units (16 a clock per SM), so
+// operations bound it and one warpgroup's softmax has to run while the
+// tensor cores serve another's products. The training variant adds 4 * B*H*N bytes of lse and one Philox
+// call (about 100 integer instructions) per lane and four probabilities,
+// which at N = 3137 costs about as much as the rest of the kernel.
 //
-// Design. The TPU kernel kept all of one head's K/V in VMEM and walked the
-// grid in order; here blocks run in parallel, each with a few KB of static
-// shared memory, so both paths below:
-//   - give one block to each (batch*head, query tile) and stream K and V
-//     through shared memory in 32-key tiles (N = 197 then pads to 224
-//     keys, not 256);
-//   - keep the running max m, sum l and the output accumulator in fp32
-//     registers;
-//   - score keys past N as -1e30, not -inf, so exp(m_old - m_new) never
-//     meets inf - inf; padded query rows compute but are never stored.
-// bf16 (the serving path) runs on the tensor cores: a block holds 128
-// query rows, each of its eight warps owns 16 and issues mma.sync
-// m16n8k16 (bf16 in, fp32 accumulate) for S = Q K^T and for O += P V,
-// with P rounded to bf16 in registers as the TPU kernel rounds it to the
-// input dtype. Q fragments stay in registers for the whole key loop; K/V
-// tiles are fetched one tile ahead as 16-byte vectors into registers, then
-// stored to shared memory, K row-major and V transposed, both with 8
-// elements of row padding so the fragment loads of a warp hit 32 distinct
-// banks. The softmax runs in the exp2 domain with log2(e) folded into the
-// scale, and a warp whose rows all lie past N only helps stage tiles.
-// fp32 (kept so parity can be checked on the card at fp32 tolerance) runs
-// scalar FMAs on 64-row blocks: four threads share a query row, each
-// holding every fourth element of q and of the accumulator. wgmma + TMA
-// are later changes. Q, K and V may be strided views (the model passes
-// slices of the fused QKV projection without a copy); only the last
-// dimension must be contiguous, and for bf16 rows must be 16-byte aligned
-// (the wrapper raises otherwise).
+// Design. One block per (batch*head, query tile) streams its head's K and V
+// through shared memory in 64-key tiles; the running max m, sum l and the
+// output accumulator stay in fp32 registers; keys past N score -1e30, not
+// -inf, so exp(m_old - m_new) never meets inf - inf; rows past N compute
+// but are never stored. The softmax runs in the exp2 domain (log2 e folded
+// into the scale) on ex2.approx.
+//   bf16, d = 64 (every ViT configuration of the repository),
+//   fwd_wgmma_kernel: warpgroups of 64 query rows on warpgroup products
+//   (wgmma). Q is staged once into a 128-byte swizzled tile and read
+//   through a descriptor. K and V arrive as swizzled 64-key tiles in a
+//   cp.async ring of four, shared by the block's warpgroups, one
+//   __syncthreads() per tile. S = Q K^T is four m64n64k16 products of two
+//   descriptors; P is packed from the S accumulators into A fragments, and
+//   O += P V is four register-A products against the V tile read MN-major
+//   through the descriptor's transpose bit (no transposed copy). Iteration
+//   j issues S of tile j and P V of tile j - 1 as one group. O leaves
+//   through the warpgroup's freed Q tile as 16-byte stores. A block holds
+//   one warpgroup or two (two share each K/V tile), chosen at launch by
+//   how well each fills the card's block slots, and the register cap lets
+//   an SM hold as many blocks as its shared memory does. Running the
+//   softmax while P V is still in flight (the softmax-MMA overlap of
+//   FlashAttention-3) was timed and won nowhere: the warp schedulers
+//   already interleave the softmax of one warpgroup with the products of
+//   the others on the SM, and the overlap held 36 more registers.
+//   bf16, other head dims (16, 32, 80, 128), fwd_stream_kernel, on mma.sync
+//   m16n8k16: four warps a block, each owning kChains slabs of 16 query
+//   rows whose Q fragments stay in registers (two chains for d <= 32, so a
+//   K or V fragment read from shared memory feeds two products); K and V
+//   arrive as row-major 64-key tiles by cp.async in a ring of three, one
+//   __syncthreads() per tile; K fragments come by ldmatrix.x4 and V's by
+//   ldmatrix.x4.trans from the same tile, whose row padding keeps both free
+//   of bank conflicts; O leaves through shared memory as 16-byte stores.
+//   In both, P (times mask / keep) is rounded to bf16 before its product,
+//   where the TPU kernel rounds it to the input dtype.
+//   fp32 (kept so parity can be checked on the card at fp32 tolerance) runs
+//   scalar FMAs on 64-row blocks: four threads share a query row, each
+//   holding every fourth element of q and of the accumulator.
+// Q, K and V may be strided views (the model passes slices of the fused QKV
+// projection without a copy); only the last dimension must be contiguous,
+// and for bf16 rows must be 16-byte aligned (the wrapper raises otherwise).
 
 #include "flash_attention_common.cuh"
+#include "flash_attention_wgmma.cuh"
 
 using namespace vt_flash;
 
 namespace {
 
+// fp32 path.
 constexpr int kBlockQ = 64;                 // query rows per block
 constexpr int kQuad = 4;                    // threads per query row
 constexpr int kBlockK = 32;                 // keys per shared-memory tile
@@ -174,213 +196,520 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// -------------------------------------------------------- bf16 tensor cores
-constexpr int kMmaWarps = 8;
-constexpr int kMmaThreads = 32 * kMmaWarps;
-constexpr int kMmaBlockQ = 16 * kMmaWarps;  // 128 query rows per block
+// ------------------------------------------------ bf16 tensor-core pieces
+// The dropout state of one thread of a training launch.
+struct Dropout {
+  bool on;
+  uint32_t seed, bh, threshold;
+  float inv_keep;
+  __device__ __forceinline__ Dropout(const TrainArgs& a, uint32_t bh_)
+      : on(a.keep_threshold < (1u << 24)),
+        seed(on ? static_cast<uint32_t>(*a.seed) : 0u), bh(bh_),
+        threshold(a.keep_threshold), inv_keep(a.inv_keep) {}
+};
 
-// Fragment layouts: see mma16816 in flash_attention_common.cuh.
-template <int D, bool kTrain>
-__global__ void __launch_bounds__(kMmaThreads)
-flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v, bf16* __restrict__ o,
-                      Strides sq, Strides sk, Strides sv, Strides so,
-                      int heads, int n, float scale, TrainArgs train) {
-  static_assert(D % 16 == 0, "head dim must be a multiple of 16");
-  constexpr int kSteps = D / 16;          // k-steps of Q K^T
-  constexpr int kOutTiles = D / 8;        // n-tiles of O
-  constexpr int kKeyTiles = kBlockK / 8;  // n-tiles of S
-  __shared__ __align__(16) bf16 k_s[kBlockK][D + kPad];
-  __shared__ __align__(16) bf16 vt_s[D][kBlockK + kPad];
-
-  const int b = blockIdx.y / heads;
-  const int h = blockIdx.y % heads;
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int warp_row0 = blockIdx.x * kMmaBlockQ + (threadIdx.x / 32) * 16;
-  const bool warp_active = warp_row0 < n;
-  const int row_lo = warp_row0 + g;
-  const int row_hi = row_lo + 8;
-  // Scores live in the log2 domain: exp(x) = exp2(x * log2(e)), with the
-  // factor folded into the softmax scale.
-  const float scale_log2e = scale * kLog2e;
-
-  const bf16* qb = q + b * sq.b + h * sq.h;
-  const bf16* kb = k + b * sk.b + h * sk.h;
-  const bf16* vb = v + b * sv.b + h * sv.h;
-  const bf16 zero = __float2bfloat16(0.0f);
-
-  uint32_t qa[kSteps][4];
+// One step of the online softmax over a tile of 8 * kNT keys starting at
+// key0, for the two rows a lane holds: s is in the mma.sync C layout
+// (s[4 * nt + e]: row e >> 1, key key0 + 8 nt + 2 t + (e & 1)), raw Q K^T.
+// Keys >= n are masked; m (log2 domain) and l (this lane's part of the sum
+// of the undropped p) are updated; s becomes p = exp2(s * scale_log2e - m);
+// alpha is the factor the accumulator's rows take.
+template <int kNT>
+__device__ __forceinline__ void online_softmax(float (&s)[4 * kNT],
+                                               float (&m)[2], float (&l)[2],
+                                               float (&alpha)[2], int key0,
+                                               int t, int n,
+                                               float scale_log2e) {
+  const bool tail = key0 + 8 * kNT > n;  // some keys of the tile are past N
+  float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
-  for (int st = 0; st < kSteps; ++st) {
-    const int c = st * 16 + 2 * t;
-    const bf16* lo = qb + row_lo * sq.n + c;
-    const bf16* hi = qb + row_hi * sq.n + c;
-    const bool vlo = row_lo < n, vhi = row_hi < n;
-    qa[st][0] = vlo ? pack2(lo[0], lo[1]) : pack2(zero, zero);
-    qa[st][1] = vhi ? pack2(hi[0], hi[1]) : pack2(zero, zero);
-    qa[st][2] = vlo ? pack2(lo[8], lo[9]) : pack2(zero, zero);
-    qa[st][3] = vhi ? pack2(hi[8], hi[9]) : pack2(zero, zero);
+  for (int i = 0; i < 4 * kNT; ++i) {
+    if (tail && key0 + (i >> 2) * 8 + 2 * t + (i & 1) >= n) s[i] = kNegInf;
+    mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
   }
-
-  float acc[kOutTiles][4];
 #pragma unroll
-  for (int ot = 0; ot < kOutTiles; ++ot)
-    acc[ot][0] = acc[ot][1] = acc[ot][2] = acc[ot][3] = 0.0f;
-  float m[2] = {kNegInf, kNegInf};
-  float l[2] = {0.0f, 0.0f};
-
-  // K/V tiles move as 16-byte vectors (the wrapper guarantees 16-byte
-  // aligned rows), loaded into registers one tile ahead so the global
-  // loads of tile i + 1 are in flight while tile i computes.
-  constexpr int kVecs = kBlockK * D / kVec;
-  constexpr int kLoads = (kVecs + kMmaThreads - 1) / kMmaThreads;
-  uint4 k_next[kLoads], v_next[kLoads];
-  auto fetch = [&](int key0) {
-#pragma unroll
-    for (int r = 0; r < kLoads; ++r) {
-      const int idx = threadIdx.x + r * kMmaThreads;
-      const int key = key0 + idx / (D / kVec);
-      const int c = (idx % (D / kVec)) * kVec;
-      k_next[r] = v_next[r] = make_uint4(0u, 0u, 0u, 0u);
-      if (idx < kVecs && key < n) {
-        k_next[r] = *reinterpret_cast<const uint4*>(kb + key * sk.n + c);
-        v_next[r] = *reinterpret_cast<const uint4*>(vb + key * sv.n + c);
-      }
-    }
-  };
-
-  const int num_tiles = (n + kBlockK - 1) / kBlockK;
-  fetch(0);
-  for (int tile = 0; tile < num_tiles; ++tile) {
-    const int key0 = tile * kBlockK;
-    __syncthreads();  // every warp is done with the previous tile
-#pragma unroll
-    for (int r = 0; r < kLoads; ++r) {
-      const int idx = threadIdx.x + r * kMmaThreads;
-      if (idx < kVecs) {
-        const int j = idx / (D / kVec);
-        const int c = (idx % (D / kVec)) * kVec;
-        *reinterpret_cast<uint4*>(&k_s[j][c]) = k_next[r];
-        const bf16* ve = reinterpret_cast<const bf16*>(&v_next[r]);
-#pragma unroll
-        for (int e = 0; e < kVec; ++e) vt_s[c + e][j] = ve[e];
-      }
-    }
-    __syncthreads();
-    if (tile + 1 < num_tiles) fetch(key0 + kBlockK);
-    // A warp whose 16 rows all lie past N only helps stage the tiles.
-    if (!warp_active) continue;
-
-    float s[kKeyTiles][4];
-#pragma unroll
-    for (int nt = 0; nt < kKeyTiles; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.0f;
-#pragma unroll
-      for (int st = 0; st < kSteps; ++st) {
-        const bf16* kr = &k_s[nt * 8 + g][st * 16 + 2 * t];
-        mma16816(s[nt], qa[st], *reinterpret_cast<const uint32_t*>(kr),
-                 *reinterpret_cast<const uint32_t*>(kr + 8));
-      }
-    }
-
-    float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-    for (int nt = 0; nt < kKeyTiles; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = key0 + nt * 8 + 2 * t + (e & 1);
-        s[nt][e] = key < n ? s[nt][e] * scale_log2e : kNegInf;
-        mx[e >> 1] = fmaxf(mx[e >> 1], s[nt][e]);
-      }
-    }
-    float alpha[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m[r], mx[r]);
-      alpha[r] = exp2f(m[r] - m_new);
-      m[r] = m_new;
-      l[r] *= alpha[r];
-    }
-#pragma unroll
-    for (int nt = 0; nt < kKeyTiles; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[nt][e] = exp2f(s[nt][e] - m[e >> 1]);
-        l[e >> 1] += s[nt][e];
-      }
-    }
-    if constexpr (kTrain) {
-      // l above summed the undropped p; only P V drops.
-      if (train.keep_threshold < (1u << 24)) {
-        const uint32_t seed = static_cast<uint32_t>(*train.seed);
-#pragma unroll
-        for (int nt = 0; nt < kKeyTiles; ++nt) {
-          // One Philox call per lane for its four probabilities.
-          const uint32_t keep = dropout_keep_frag<false>(
-              seed, blockIdx.y, row_lo, key0 + nt * 8 + 2 * t,
-              train.keep_threshold, lane);
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            s[nt][e] = (keep >> e) & 1u ? s[nt][e] * train.inv_keep : 0.0f;
-        }
-      }
-    }
-#pragma unroll
-    for (int ot = 0; ot < kOutTiles; ++ot) {
-      acc[ot][0] *= alpha[0];
-      acc[ot][1] *= alpha[0];
-      acc[ot][2] *= alpha[1];
-      acc[ot][3] *= alpha[1];
-    }
-
-#pragma unroll
-    for (int ks = 0; ks < kBlockK / 16; ++ks) {
-      const uint32_t pa[4] = {
-          pack2f(s[2 * ks][0], s[2 * ks][1]), pack2f(s[2 * ks][2], s[2 * ks][3]),
-          pack2f(s[2 * ks + 1][0], s[2 * ks + 1][1]),
-          pack2f(s[2 * ks + 1][2], s[2 * ks + 1][3])};
-#pragma unroll
-      for (int ot = 0; ot < kOutTiles; ++ot) {
-        const bf16* vr = &vt_s[ot * 8 + g][ks * 16 + 2 * t];
-        mma16816(acc[ot], pa, *reinterpret_cast<const uint32_t*>(vr),
-                 *reinterpret_cast<const uint32_t*>(vr + 8));
-      }
-    }
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    // The scale is positive, so the max commutes with it.
+    const float m_new = fmaxf(m[r], mx[r] * scale_log2e);
+    alpha[r] = fast_exp2(m[r] - m_new);
+    m[r] = m_new;
+    l[r] *= alpha[r];
   }
+#pragma unroll
+  for (int i = 0; i < 4 * kNT; ++i) {
+    const int r = (i >> 1) & 1;
+    s[i] = fast_exp2(fmaf(s[i], scale_log2e, -m[r]));
+    l[r] += s[i];
+  }
+}
 
+// p * mask / keep for the fragment of online_softmax; rows r_lo, r_lo + 8.
+template <int kNT>
+__device__ __forceinline__ void apply_dropout(float (&s)[4 * kNT],
+                                              const Dropout& drop, int r_lo,
+                                              int key0, int t, int lane) {
+#pragma unroll
+  for (int nt = 0; nt < kNT; ++nt) {
+    const uint32_t keep = dropout_keep_frag<false>(
+        drop.seed, drop.bh, r_lo, key0 + nt * 8 + 2 * t, drop.threshold, lane);
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      s[4 * nt + e] = (keep >> e) & 1u ? s[4 * nt + e] * drop.inv_keep : 0.0f;
+  }
+}
+
+// Sum of l over the quad that shares a row, and its reciprocal.
+__device__ __forceinline__ void finish_rows(float (&l)[2], float (&inv)[2]) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-  }
-  const float inv_lo = 1.0f / fmaxf(l[0], 1.0e-30f);
-  const float inv_hi = 1.0f / fmaxf(l[1], 1.0e-30f);
-  bf16* ob = o + b * so.b + h * so.h;
-#pragma unroll
-  for (int ot = 0; ot < kOutTiles; ++ot) {
-    const int c = ot * 8 + 2 * t;
-    if (row_lo < n) {
-      ob[row_lo * so.n + c] = __float2bfloat16(acc[ot][0] * inv_lo);
-      ob[row_lo * so.n + c + 1] = __float2bfloat16(acc[ot][1] * inv_lo);
-    }
-    if (row_hi < n) {
-      ob[row_hi * so.n + c] = __float2bfloat16(acc[ot][2] * inv_hi);
-      ob[row_hi * so.n + c + 1] = __float2bfloat16(acc[ot][3] * inv_hi);
-    }
-  }
-  if constexpr (kTrain) {
-    // lse in natural-log units: m lives in the log2 domain.
-    float* lse = train.lse + static_cast<long long>(blockIdx.y) * n;
-    if (t == 0 && row_lo < n)
-      lse[row_lo] = m[0] * kLn2 + logf(fmaxf(l[0], 1.0e-30f));
-    if (t == 0 && row_hi < n)
-      lse[row_hi] = m[1] * kLn2 + logf(fmaxf(l[1], 1.0e-30f));
+    l[r] = fmaxf(l[r], 1.0e-30f);
+    inv[r] = 1.0f / l[r];
   }
 }
 
+// -------------------------------------------- bf16, other head dims, mma.sync
+constexpr int kStreamWarps = 4;
+constexpr int kStreamThreads = 32 * kStreamWarps;  // 128
+constexpr int kKeyTile = 64;                       // keys per shared tile
+constexpr int kRing = 3;                           // tiles in the ring
+
+template <int D, int kChains, bool kTrain>
+__global__ void __launch_bounds__(kStreamThreads)
+fwd_stream_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                  const bf16* __restrict__ v, bf16* __restrict__ o,
+                  Strides sq, Strides sk, Strides sv, Strides so, int heads,
+                  int n, float scale, TrainArgs train) {
+  static_assert(D % 16 == 0, "head dim must be a multiple of 16");
+  constexpr int kSteps = D / 16;           // k-steps of Q K^T
+  constexpr int kOutTiles = D / 8;         // n-tiles of O
+  constexpr int kKeyTiles = kKeyTile / 8;  // n-tiles of S
+  constexpr int kStride = D + kPad;        // bf16 per shared-memory row
+  constexpr int kTileElems = kKeyTile * kStride;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* smem = reinterpret_cast<bf16*>(smem_raw);  // per tile: K, then V
+
+  const int bh = blockIdx.y;
+  const int b = bh / heads, h = bh % heads;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  // Slabs are dealt to the warps of a head's blocks round-robin, so a
+  // ragged last block idles at most one warp-slab less than the others.
+  const int row0 = (warp * gridDim.x + blockIdx.x) * 16 * kChains;
+  const bool warp_active = row0 < n;
+  const float scale_log2e = scale * kLog2e;
+
+  const bf16* kb = k + b * sk.b + h * sk.h;
+  const bf16* vb = v + b * sv.b + h * sv.h;
+  const int num_tiles = (n + kKeyTile - 1) / kKeyTile;
+  auto stage = [&](int tile, int slot) {
+    bf16* ks = smem + 2 * slot * kTileElems;
+    stage_rows<D>(ks, kb, sk.n, tile * kKeyTile, kKeyTile, n, threadIdx.x,
+                  kStreamThreads);
+    stage_rows<D>(ks + kTileElems, vb, sv.n, tile * kKeyTile, kKeyTile, n,
+                  threadIdx.x, kStreamThreads);
+  };
+#pragma unroll
+  for (int tile = 0; tile < kRing - 1; ++tile) {
+    if (tile < num_tiles) stage(tile, tile);
+    cp_async_commit();  // an empty group keeps the count
+  }
+
+  // Q fragments of this warp's rows, loaded while the first tiles land.
+  uint32_t qa[kChains][kSteps][4];
+#pragma unroll
+  for (int c = 0; c < kChains; ++c)
+#pragma unroll
+    for (int st = 0; st < kSteps; ++st)
+      load_a_frag(qa[c][st], q + b * sq.b + h * sq.h, sq.n, row0 + c * 16 + g,
+                  n, st * 16, t);
+
+  float acc[kChains][kOutTiles][4];
+  float m[kChains][2], l[kChains][2];
+#pragma unroll
+  for (int c = 0; c < kChains; ++c) {
+    m[c][0] = m[c][1] = kNegInf;
+    l[c][0] = l[c][1] = 0.0f;
+#pragma unroll
+    for (int ot = 0; ot < kOutTiles; ++ot)
+      acc[c][ot][0] = acc[c][ot][1] = acc[c][ot][2] = acc[c][ot][3] = 0.0f;
+  }
+
+  // The dropout state (dead code in the inference instantiation).
+  const Dropout drop(train, bh);
+  for (int tile = 0; tile < num_tiles; ++tile) {
+    cp_async_wait<kRing - 2>();  // this thread's copies of `tile` landed
+    __syncthreads();             // everyone's did; tile - 1 is consumed
+    const int next = tile + kRing - 1;
+    if (next < num_tiles) stage(next, next % kRing);
+    cp_async_commit();
+    if (!warp_active) continue;  // the warp only helps stage
+    const bf16* ks = smem + 2 * (tile % kRing) * kTileElems;
+    const bf16* vs = ks + kTileElems;
+    const int key0 = tile * kKeyTile;
+
+    // S = Q K^T; each K fragment feeds every chain.
+    float s[kChains][4 * kKeyTiles];
+#pragma unroll
+    for (int c = 0; c < kChains; ++c)
+#pragma unroll
+      for (int i = 0; i < 4 * kKeyTiles; ++i) s[c][i] = 0.0f;
+#pragma unroll
+    for (int nt = 0; nt < kKeyTiles; nt += 2) {
+#pragma unroll
+      for (int st = 0; st < kSteps; ++st) {
+        uint32_t kf[4];
+        ldmatrix_x4(kf, b_frag_addr(ks, kStride, nt, st, lane));
+#pragma unroll
+        for (int c = 0; c < kChains; ++c) {
+          float(&s0)[4] = *reinterpret_cast<float(*)[4]>(&s[c][4 * nt]);
+          float(&s1)[4] = *reinterpret_cast<float(*)[4]>(&s[c][4 * nt + 4]);
+          mma16816(s0, qa[c][st], kf[0], kf[1]);
+          mma16816(s1, qa[c][st], kf[2], kf[3]);
+        }
+      }
+    }
+
+#pragma unroll
+    for (int c = 0; c < kChains; ++c) {
+      float alpha[2];
+      online_softmax<kKeyTiles>(s[c], m[c], l[c], alpha, key0, t, n,
+                                scale_log2e);
+      if constexpr (kTrain) {
+        if (drop.on)
+          apply_dropout<kKeyTiles>(s[c], drop, row0 + c * 16 + g, key0, t,
+                                   lane);
+      }
+#pragma unroll
+      for (int ot = 0; ot < kOutTiles; ++ot) {
+        acc[c][ot][0] *= alpha[0];
+        acc[c][ot][1] *= alpha[0];
+        acc[c][ot][2] *= alpha[1];
+        acc[c][ot][3] *= alpha[1];
+      }
+    }
+
+    // O += P V, V through ldmatrix.trans from the same row-major tile.
+#pragma unroll
+    for (int kk = 0; kk < kKeyTile / 16; ++kk) {
+      uint32_t pa[kChains][4];
+#pragma unroll
+      for (int c = 0; c < kChains; ++c)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          pa[c][i] = pack2f(s[c][8 * kk + 2 * i], s[c][8 * kk + 2 * i + 1]);
+#pragma unroll
+      for (int ot = 0; ot < kOutTiles; ot += 2) {
+        uint32_t vf[4];
+        ldmatrix_x4_trans(vf, bt_frag_addr(vs, kStride, kk * 16, ot, lane));
+#pragma unroll
+        for (int c = 0; c < kChains; ++c) {
+          mma16816(acc[c][ot], pa[c], vf[0], vf[1]);
+          mma16816(acc[c][ot + 1], pa[c], vf[2], vf[3]);
+        }
+      }
+    }
+  }
+
+  // O through this warp's part of the freed ring, out as 16-byte stores.
+  __syncthreads();
+  if (!warp_active) return;
+  bf16* o_s = smem + warp * kChains * 16 * kStride;
+#pragma unroll
+  for (int c = 0; c < kChains; ++c) {
+    float inv[2];
+    finish_rows(l[c], inv);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row_in = c * 16 + g + 8 * r;
+#pragma unroll
+      for (int ot = 0; ot < kOutTiles; ++ot)
+        *reinterpret_cast<uint32_t*>(o_s + row_in * kStride + ot * 8 + 2 * t) =
+            pack2f(acc[c][ot][2 * r] * inv[r], acc[c][ot][2 * r + 1] * inv[r]);
+      if constexpr (kTrain) {
+        // lse in natural-log units: m lives in the log2 domain.
+        const int row = row0 + row_in;
+        if (t == 0 && row < n)
+          train.lse[static_cast<long long>(bh) * n + row] =
+              m[c][r] * kLn2 + logf(l[c][r]);
+      }
+    }
+  }
+  __syncwarp();
+  bf16* ob = o + b * so.b + h * so.h;
+  constexpr int kRowVecs = D / kVec;
+#pragma unroll
+  for (int idx = lane; idx < kChains * 16 * kRowVecs; idx += 32) {
+    const int r = idx / kRowVecs, c8 = (idx % kRowVecs) * kVec;
+    if (row0 + r < n)
+      *reinterpret_cast<uint4*>(ob + (row0 + r) * so.n + c8) =
+          *reinterpret_cast<const uint4*>(o_s + r * kStride + c8);
+  }
+}
+
+template <int D, bool kTrain>
+cudaError_t launch_stream(const void* q, const void* k, const void* v,
+                          void* o, Strides sq, Strides sk, Strides sv,
+                          Strides so, int bh, int heads, int n, float scale,
+                          TrainArgs train, cudaStream_t stream) {
+  constexpr int kChains = D <= 32 ? 2 : 1;
+  auto kernel = fwd_stream_kernel<D, kChains, kTrain>;
+  // The ring: K and V of kRing tiles. Above 48 KB a kernel must opt in,
+  // once per instantiation.
+  constexpr int kBytes =
+      kRing * 2 * kKeyTile * (D + kPad) * static_cast<int>(sizeof(bf16));
+  static const cudaError_t opt_in = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
+  if (opt_in != cudaSuccess) return opt_in;
+  const int slabs = (n + 16 * kChains - 1) / (16 * kChains);
+  const dim3 grid((slabs + kStreamWarps - 1) / kStreamWarps, bh);
+  kernel<<<grid, kStreamThreads, kBytes, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), sq, sk, sv, so,
+      heads, n, scale, train);
+  return cudaGetLastError();
+}
+
+// ------------------------------------------------- bf16, d = 64, wgmma
+constexpr int kRingStages = 4;  // K/V tiles in the d = 64 ring
+
+// Dynamic shared memory of a block: its Q tiles, the ring, and room to
+// align the tiles to 1024 bytes. Two warpgroups (82 KB) leave room for two
+// blocks an SM, one (74 KB) for three.
+template <int kWarpgroups>
+constexpr int wgmma_smem_bytes() {
+  return (kWarpgroups + 2 * kRingStages) * wg::kTileBytes + 1024;
+}
+
+// kWarpgroups warpgroups of 64 query rows a block. The register cap lets
+// an SM hold as many blocks as its shared memory does (at two warpgroups,
+// 128 registers a thread; the training variant spills nothing there).
+template <int kWarpgroups, bool kTrain>
+__global__ void __launch_bounds__(kWarpgroups * wg::kThreads,
+                                  kWarpgroups == 1 ? 3 : 2)
+fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, bf16* __restrict__ o,
+                 Strides sq, Strides sk, Strides sv, Strides so, int heads,
+                 int n, float scale, TrainArgs train) {
+  using namespace wg;
+  constexpr int kBlockThreads = kWarpgroups * wg::kThreads;
+  extern __shared__ unsigned char wg_smem_raw[];
+  unsigned char* q_blk = align1024(wg_smem_raw);  // a Q tile per warpgroup
+  unsigned char* ring = q_blk + kWarpgroups * kTileBytes;  // K, V per stage
+
+  const int bh = blockIdx.y;
+  const int b = bh / heads, h = bh % heads;
+  const int wgi = threadIdx.x / wg::kThreads;
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int wg_row0 = (blockIdx.x * kWarpgroups + wgi) * wg::kTile;
+  const bool wg_active = wg_row0 < n;  // else the warpgroup only stages
+  const int row_lo = wg_row0 + warp * 16 + g;
+  const float scale_log2e = scale * kLog2e;
+  const bf16* qb = q + b * sq.b + h * sq.h;
+  const bf16* kb = k + b * sk.b + h * sk.h;
+  const bf16* vb = v + b * sv.b + h * sv.h;
+  const int num_tiles = (n + wg::kTile - 1) / wg::kTile;
+  auto slot = [&](int tile) {
+    return ring + (tile % kRingStages) * 2 * kTileBytes;
+  };
+  auto stage = [&](int tile) {
+    stage_sw128<kBlockThreads>(slot(tile), kb, sk.n, tile * wg::kTile, n);
+    stage_sw128<kBlockThreads>(slot(tile) + kTileBytes, vb, sv.n,
+                               tile * wg::kTile, n);
+  };
+  // Every warpgroup's Q goes with the first K/V tile. While tile j's S is
+  // computed, tile j - 1's slot still holds the V that P V of tile j - 1
+  // reads, so the ring runs kRingStages - 2 tiles ahead.
+#pragma unroll
+  for (int w = 0; w < kWarpgroups; ++w)
+    stage_sw128<kBlockThreads>(q_blk + w * kTileBytes, qb, sq.n,
+                               (blockIdx.x * kWarpgroups + w) * wg::kTile, n);
+#pragma unroll
+  for (int tile = 0; tile < kRingStages - 2; ++tile) {
+    if (tile < num_tiles) stage(tile);
+    cp_async_commit();  // an empty group keeps the count
+  }
+  const uint64_t qdesc = make_desc(q_blk + wgi * kTileBytes);
+
+  float acc[32], s[32], m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};
+  uint32_t pa[4][4];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.0f;
+  const Dropout drop(train, bh);  // dead code in the inference instantiation
+
+  // Iteration j issues S of tile j and P V of tile j - 1, waits for both,
+  // and runs tile j's softmax; the last iteration only adds P V. Running
+  // the softmax while P V is still in flight was timed no faster; one
+  // commit group and one wait for both products, with the rescale of acc
+  // and the packing of P left unfenced, 4-13 % slower (PERF.md).
+  for (int j = 0; j <= num_tiles; ++j) {
+    const bool has_s = j < num_tiles;
+    if (has_s) {
+      cp_async_wait<kRingStages - 3>();  // this thread's copies of j landed
+      // The copies become visible to the asynchronous proxy through which
+      // wgmma reads shared memory.
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      __syncthreads();  // everyone's did, and P V of tile j - 2 is done
+      if (j + kRingStages - 2 < num_tiles) stage(j + kRingStages - 2);
+      cp_async_commit();
+    }
+    if (!wg_active) continue;
+    fence_regs(s);
+    fence_regs(acc);
+    fence_regs(pa);
+    wg_fence();
+    if (has_s) {
+      const uint64_t kd = make_desc(slot(j));
+#pragma unroll
+      for (int st = 0; st < 4; ++st)
+        wgmma_ss(s, qdesc + 2 * st, kd + 2 * st, st > 0);
+      wg_commit();
+    }
+    if (j > 0) {
+      const uint64_t vd = make_desc(slot(j - 1) + kTileBytes);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs<1>(acc, pa[kk], vd + 128 * kk, 1);
+      wg_commit();
+    }
+    float alpha[2];
+    if (has_s) {
+      wg_wait();
+      fence_regs(s);
+      const int key0 = j * wg::kTile;
+      online_softmax<8>(s, m, l, alpha, key0, t, n, scale_log2e);
+      // l above summed the undropped p; only P V drops.
+      if constexpr (kTrain)
+        if (drop.on) apply_dropout<8>(s, drop, row_lo, key0, t, lane);
+    }
+    wg_wait();  // both products are done: acc and pa are free
+    fence_regs(acc);
+    fence_regs(pa);
+    if (has_s) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[i] *= alpha[(i >> 1) & 1];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          pa[kk][i] = pack2f(s[8 * kk + 2 * i], s[8 * kk + 2 * i + 1]);
+    }
+  }
+
+  // O through this warpgroup's Q tile (swizzled as it was), out as 16-byte
+  // stores; each warp writes and reads its own 16 rows.
+  __syncthreads();  // every product of the block is done with its Q tile
+  if (!wg_active) return;
+  float inv[2];
+  finish_rows(l, inv);
+  unsigned char* o_s = q_blk + wgi * kTileBytes;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row_in = warp * 16 + g + 8 * r;  // row_in & 7 == g
+#pragma unroll
+    for (int ot = 0; ot < 8; ++ot)
+      *reinterpret_cast<uint32_t*>(o_s + row_in * 128 + ((ot ^ g) << 4) +
+                                   4 * t) =
+          pack2f(acc[4 * ot + 2 * r] * inv[r], acc[4 * ot + 2 * r + 1] * inv[r]);
+    if constexpr (kTrain) {
+      // lse in natural-log units: m lives in the log2 domain.
+      const int row = wg_row0 + row_in;
+      if (t == 0 && row < n)
+        train.lse[static_cast<long long>(bh) * n + row] =
+            m[r] * kLn2 + logf(l[r]);
+    }
+  }
+  __syncwarp();
+  bf16* ob = o + b * so.b + h * so.h;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int idx = lane + 32 * i;
+    const int row_in = warp * 16 + (idx >> 3), c = idx & 7;
+    const int row = wg_row0 + row_in;
+    if (row < n)
+      *reinterpret_cast<uint4*>(ob + row * so.n + c * 8) =
+          *reinterpret_cast<const uint4*>(o_s + row_in * 128 +
+                                          ((c ^ (row_in & 7)) << 4));
+  }
+}
+
+// Block slots of the card for an instantiation (blocks an SM holds, times
+// SMs), asked once; 0 and *err set if the runtime refuses.
+template <int kWarpgroups, bool kTrain>
+long long wgmma_slots(cudaError_t* err) {
+  static cudaError_t status = cudaSuccess;
+  static const long long slots = [] {
+    auto kernel = fwd_wgmma_kernel<kWarpgroups, kTrain>;
+    constexpr int kBytes = wgmma_smem_bytes<kWarpgroups>();
+    int dev = 0, sms = 0, per_sm = 0;
+    // Above 48 KB a kernel must opt in, once per instantiation.
+    status = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
+    if (status == cudaSuccess) status = cudaGetDevice(&dev);
+    if (status == cudaSuccess)
+      status = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                      dev);
+    if (status == cudaSuccess)
+      status = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, kernel, kWarpgroups * wg::kThreads, kBytes);
+    return static_cast<long long>(per_sm) * sms;
+  }();
+  *err = slots > 0 ? cudaSuccess
+                   : (status != cudaSuccess ? status : cudaErrorInvalidValue);
+  return slots;
+}
+
+template <int kWarpgroups, bool kTrain>
+cudaError_t launch_wgmma_blocks(const void* q, const void* k, const void* v,
+                                void* o, Strides sq, Strides sk, Strides sv,
+                                Strides so, int bh, int heads, int n,
+                                float scale, TrainArgs train,
+                                cudaStream_t stream) {
+  constexpr int kRows = kWarpgroups * wg::kTile;
+  const dim3 grid((n + kRows - 1) / kRows, bh);
+  fwd_wgmma_kernel<kWarpgroups, kTrain>
+      <<<grid, kWarpgroups * wg::kThreads, wgmma_smem_bytes<kWarpgroups>(),
+         stream>>>(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                   static_cast<const bf16*>(v), static_cast<bf16*>(o), sq, sk,
+                   sv, so, heads, n, scale, train);
+  return cudaGetLastError();
+}
+
+// 64-row blocks (one warpgroup, three an SM) or 128-row blocks (two, two an
+// SM, sharing each K/V tile). Both compute the same bh * ceil(N / 64)
+// warpgroups of rows; a wave of blocks that fills the card's slots only in
+// part wastes the rest. Timed on the H100 (PERF.md), 128-row blocks
+// are ahead where both fill the card alike, 64-row blocks where they fill
+// it more than 10 % better: (48, 197), (48, 321), (48, 785) against
+// (384, 197), (48, 1025), (192, 1025), (24, 3137).
+template <bool kTrain>
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
+                         void* o, Strides sq, Strides sk, Strides sv,
+                         Strides so, int bh, int heads, int n, float scale,
+                         TrainArgs train, cudaStream_t stream) {
+  cudaError_t err1, err2;
+  const long long slots1 = wgmma_slots<1, kTrain>(&err1);
+  const long long slots2 = wgmma_slots<2, kTrain>(&err2);
+  if (err1 != cudaSuccess) return err1;
+  if (err2 != cudaSuccess) return err2;
+  const long long blocks1 = static_cast<long long>(bh) * ((n + 63) / 64);
+  const long long blocks2 = static_cast<long long>(bh) * ((n + 127) / 128);
+  const long long waves1 = (blocks1 + slots1 - 1) / slots1;
+  const long long waves2 = (blocks2 + slots2 - 1) / slots2;
+  // Fill: blocks1 / (waves1 * slots1) against blocks1 / (2 * waves2 * slots2).
+  if (20 * waves2 * slots2 > 11 * waves1 * slots1)
+    return launch_wgmma_blocks<1, kTrain>(q, k, v, o, sq, sk, sv, so, bh,
+                                          heads, n, scale, train, stream);
+  return launch_wgmma_blocks<2, kTrain>(q, k, v, o, sq, sk, sv, so, bh, heads,
+                                        n, scale, train, stream);
+}
+
+// fp32: the scalar kernel; bf16: wgmma at d = 64, the mma.sync ring at the
+// other head dims.
 template <int D, bool kTrain>
 cudaError_t launch(int dtype, const void* q, const void* k, const void* v,
                    void* o, Strides sq, Strides sk, Strides sv, Strides so,
@@ -392,16 +721,16 @@ cudaError_t launch(int dtype, const void* q, const void* k, const void* v,
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<float*>(o), sq, sk, sv, so,
         heads, n, scale, train);
-  } else if (dtype == 1) {
-    const dim3 grid((n + kMmaBlockQ - 1) / kMmaBlockQ, batch * heads);
-    flash_fwd_bf16_kernel<D, kTrain><<<grid, kMmaThreads, 0, stream>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<bf16*>(o), sq, sk, sv, so,
-        heads, n, scale, train);
-  } else {
-    return cudaErrorInvalidValue;
+    return cudaGetLastError();
   }
-  return cudaGetLastError();
+  if (dtype != 1) return cudaErrorInvalidValue;
+  if constexpr (D == 64) {
+    return launch_wgmma<kTrain>(q, k, v, o, sq, sk, sv, so, batch * heads,
+                                heads, n, scale, train, stream);
+  } else {
+    return launch_stream<D, kTrain>(q, k, v, o, sq, sk, sv, so, batch * heads,
+                                    heads, n, scale, train, stream);
+  }
 }
 
 template <bool kTrain>
@@ -426,7 +755,8 @@ int dispatch(int dtype, const void* q, const void* k, const void* v, void* o,
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. Strides are in elements; the last
-// dimension of every tensor is contiguous. Returns a cudaError_t.
+// dimension of every tensor is contiguous, and in bfloat16 every row starts
+// on a 16-byte boundary. Returns a cudaError_t.
 int vt_flash_attention_fwd(int dtype, const void* q, const void* k,
                            const void* v, void* o, long long q_sb,
                            long long q_sh, long long q_sn, long long k_sb,

@@ -1,5 +1,5 @@
-// Warpgroup-product (wgmma) pieces of the flash-attention backward
-// kernels at d = 64 (flash_attention_bwd_dq.cu,
+// Warpgroup-product (wgmma) pieces of the flash-attention kernels at
+// d = 64 (flash_attention_fwd.cu, flash_attention_bwd_dq.cu,
 // flash_attention_bwd_dkv.cu): 64 x 64 bf16 tiles in 128-byte swizzled shared
 // memory filled by cp.async, their matrix descriptors, and the
 // wgmma.mma_async forms the kernels use. A tile is 64 rows of 128 bytes;
@@ -21,9 +21,11 @@ constexpr int kTileBytes = kTile * 64 * 2; // 8192
 // Start the copies of rows row0 .. row0 + 63 of a matrix with row stride
 // `stride` into a 128-byte swizzled tile (1024-byte aligned): the 16-byte
 // chunk c of row r lives at chunk c ^ (r & 7); rows >= n are zero-filled.
+// Called by every thread of a block of kBlockThreads.
+template <int kBlockThreads = kThreads>
 __device__ __forceinline__ void stage_sw128(unsigned char* dst, const bf16* src,
                                             long long stride, int row0, int n) {
-  for (int idx = threadIdx.x; idx < kTile * 8; idx += kThreads) {
+  for (int idx = threadIdx.x; idx < kTile * 8; idx += kBlockThreads) {
     const int r = idx >> 3, c = idx & 7;
     const int row = row0 + r;
     const int from = row < n ? row : n - 1;
@@ -55,6 +57,13 @@ __device__ __forceinline__ void wg_wait() {
 __device__ __forceinline__ void fence_regs(float (&d)[32]) {
 #pragma unroll
   for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+// The same for A fragments: they stay in place until this point.
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
 }
 
 #define VT_WG_D32(d)                                                            \

@@ -21,12 +21,15 @@ is computed by the dQ kernel's prologue from the saved output
 (``flash_attention_bwd_dq_delta``) and handed to the dK/dV kernel; the
 standalone wrappers also take a given Δ, as the TPU kernels do.
 
-The bf16 backward kernels walk a ring of 64-row tiles, on warpgroup products
-at d = 64 ("wgmma", every ViT configuration here) and on ``mma.sync`` at the
-other head dims ("stream"); fp32 runs the scalar kernels ("scalar").
-``backward_path`` names the instantiation of a shape; the sequence length
-does not enter: an instantiation that staged a short head whole was
-measured no faster at N = 197 (PERF.md) and was not kept.
+The bf16 kernels, forward and backward, walk a ring of 64-row tiles, on
+warpgroup products at d = 64 ("wgmma", every ViT configuration here) and on
+``mma.sync`` at the other head dims ("stream"); fp32 runs the scalar kernels
+("scalar"). ``forward_path`` and ``backward_path`` name the instantiation a
+shape takes; each kernel chooses it by its own template, and the sequence
+length does not enter (within "wgmma" the forward picks one or two
+warpgroups a block from N and the card's size): an instantiation of the
+backward that staged a short head whole was measured no faster at N = 197
+(PERF.md) and was not kept.
 
 Dropout keeps probability (row i, column j) of head b·H + h when the top 24
 bits of a word of Philox4x32-10, read as u in [0, 1), fall below keep. One
@@ -296,7 +299,8 @@ def flash_attention_train(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           rate: float = 0.0, seed: Optional[Seed] = None
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Training forward (kernel 2): (out, lse) as
-    ``flash_attention_train_plain``, lse (B, H, N) fp32."""
+    ``flash_attention_train_plain``, lse (B, H, N) fp32. On the card the
+    kernel runs the instantiation ``forward_path`` names."""
     if q.device.type == "cpu":
         if rate > 0.0 and seed is None:
             raise ValueError("dropout_rate > 0 requires dropout_seed")
@@ -326,18 +330,29 @@ def _backward_inputs(do: torch.Tensor) -> torch.Tensor:
     return do if _kernel_layout(do) else do.contiguous()
 
 
-WGMMA_HEAD_DIM = 64  # the head dim the wgmma instantiation is written for
+WGMMA_HEAD_DIM = 64  # the head dim the wgmma instantiations are written for
 
 
-def backward_path(n: int, d: int, dtype: torch.dtype) -> str:
-    """Which instantiation of the backward kernels a (N, d, dtype) takes on
-    the card: "scalar" for float32; for bfloat16 "wgmma" at d = 64 and
-    "stream" (the ``mma.sync`` ring) at the other head dims, at every N."""
+def _path(name: str, d: int, dtype: torch.dtype) -> str:
     if dtype == torch.float32:
         return "scalar"
     if dtype != torch.bfloat16:
-        raise TypeError(f"backward_path: unsupported dtype {dtype}")
+        raise TypeError(f"{name}: unsupported dtype {dtype}")
     return "wgmma" if d == WGMMA_HEAD_DIM else "stream"
+
+
+def forward_path(n: int, d: int, dtype: torch.dtype) -> str:
+    """Which instantiation of the forward kernels (1 and 2) a (N, d, dtype)
+    takes on the card: "scalar" for float32; for bfloat16 "wgmma" at d = 64
+    and "stream" (the ``mma.sync`` ring) at the other head dims, at every
+    N."""
+    return _path("forward_path", d, dtype)
+
+
+def backward_path(n: int, d: int, dtype: torch.dtype) -> str:
+    """Which instantiation of the backward kernels (3 and 4) a (N, d,
+    dtype) takes on the card; the same rule as ``forward_path``."""
+    return _path("backward_path", d, dtype)
 
 
 def attention_delta_plain(do: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
@@ -472,7 +487,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     with dropout kernel 2 alone. dropout_rate > 0 needs dropout_seed (an
     int, or an int64 scalar tensor, which may live on the device). CUDA:
     float32 or bfloat16, d in HEAD_DIMS, strided views with a contiguous
-    last dimension. CPU: the plain versions. Anything else raises."""
+    last dimension; the forward kernels run the instantiation
+    ``forward_path`` names. CPU: the plain versions. Anything else
+    raises."""
     if dropout_rate > 0.0 and dropout_seed is None:
         raise ValueError("dropout_rate > 0 requires dropout_seed")
     needs_grad = torch.is_grad_enabled() and any(
