@@ -31,17 +31,28 @@ failure:
              (24, 3137, 64), strided views of a fused QKV; one
              configuration per kernel timed at the first two against its
              plain version, kernel 1 and SDPA;
-3. upsample  fused upsample+argmax kernel vs argmax(resize_bilinear_mm),
-             (32, 14, 14, 17) -> 512^2 and 224^2, plus the tie case;
+3. upsample  fused upsample+argmax kernel (kernel 5), fp32 and bf16
+             logits into int32 and uint8 masks, on every instantiation
+             (epilogue_path) at the timed shapes and the edges of its row
+             tiles, runs and class chunks: bit for bit against the
+             tap-form plain version, and against argmax(resize_bilinear_mm)
+             (agreement, flips only on ties); ties to class 0 across a
+             class chunk; a launch refused where one row's H-stage
+             exceeds a block's shared memory; device time at B = 32, C = 17, grids 14, 28, 32,
+             56 -> 512^2 and 14 -> 224^2 for both output types, beside
+             F.interpolate + argmax + cast (two library calls, a yardstick
+             the port never calls);
 4. model     ViT-B/16 (17 classes, full width and depth, seeded random
              weights) on the bench workload: batch 32, 512^2 fp32 in,
-             resize to 224^2, ImageNet normalize, vitseg_predict at 512^2;
-             kernels vs plain paths in fp32 and bf16, launch counts per
-             forward, masks/s;
+             resize to 224^2, ImageNet normalize, vitseg_predict at 512^2
+             into uint8 masks written by kernel 5; kernels vs plain paths
+             in fp32 and bf16, and vs the int32 kernel route then a cast;
+             launch counts per forward, masks/s;
 5. serving   the port's HTTP server + InferenceWorker on cuda with the
              default P16H768A12 model; 8 PNG jobs through register/login/
              CSRF/POST/?wait= polling; every mask equals ModelRunner.predict
-             of the same decoded image; jobs/s.
+             of the same decoded image; ModelRunner.dispatch launches no
+             kernel after kernel 5 (the uint8 masks are its output); jobs/s.
 6. flash_train  the training kernels (forward with lse and dropout, dQ,
              dK/dV) vs their plain versions, bf16 and fp32, dropout 0 and
              0.1 under one seed, at the training micro-batch
@@ -84,7 +95,7 @@ Times: "ms" and "library_ms" are device time (device_ms: CUDA events
 around calls queued behind a spin kernel, so back to back on the device
 without the host's pace); "call_ms" and "plain_ms" are CUDA events around
 calls issued back to back (time_ms), the host's pace included where it
-sets it; kernel 5's "ms" is time_ms too.
+sets it.
 """
 
 from __future__ import annotations
@@ -581,46 +592,142 @@ def _time_variants(peaks, q, k, v, cases):
     return timing
 
 
-def phase_upsample(peaks, gen):
+# ((B, h, w, C), (H, W)) of the epilogue checks: the timed shapes below,
+# then the edges of the kernel's instantiations (epilogue_path): unaligned
+# and narrow widths (scalar stores, a row's tail), downsampling (100 -> 37),
+# class counts 1, 3, 40 (chunks of 8), ragged row tiles of 8 and 4 rows,
+# and an H-stage row above the default 48 KB of shared memory (700 x 40).
+# Every case runs fp32 and bf16 logits into int32 and uint8 masks.
+UPSAMPLE_CASES = [
+    ((1, 5, 7, 17), (4, 1)), ((1, 5, 7, 17), (4, 3)), ((1, 5, 7, 17), (4, 17)),
+    ((1, 5, 7, 17), (4, 33)), ((1, 5, 7, 17), (4, 513)),
+    ((2, 100, 100, 17), (37, 37)), ((3, 14, 14, 17), (33, 40)),
+    ((8, 16, 16, 17), (250, 256)),
+    ((2, 9, 11, 1), (19, 32)), ((2, 9, 11, 3), (19, 37)),
+    ((2, 9, 11, 40), (19, 48)), ((4, 6, 700, 40), (9, 64)),
+    ((32, 56, 56, 17), (100, 512)), ((32, 14, 14, 40), (512, 512)),
+]
+# (grid, output side) of the timed shapes, B = 32, C = 17: P16, P8,
+# native-512^2 P16 and P4 grids to 512^2, and P16 to 224^2.
+UPSAMPLE_TIMED = ((14, 512), (28, 512), (32, 512), (56, 512), (14, 224))
+
+
+def _upsample_agrees(x, size, out_dtype):
+    """Kernel 5 on x against the tap-form plain version (bit for bit) and
+    the matrix-form one (agreement, flips only on ties)."""
     from visiontransformer_tpu_torch.ops.resize import resize_bilinear_mm
     from visiontransformer_tpu_torch.ops.upsample_argmax import (
         upsample_argmax,
         upsample_argmax_plain,
+        upsample_argmax_tap_plain,
     )
 
-    main_row = None
-    for size in (512, 224):
-        x = torch.randn(32, 14, 14, 17, generator=gen, device="cuda")
-        got = upsample_argmax(x, (size, size))
-        want = upsample_argmax_plain(x, (size, size))
-        flips, worst = ties_explained(resize_bilinear_mm(x, (size, size)),
-                                      got, want, UPSAMPLE_TIE_TOL)
-        agreement = 1.0 - flips / got.numel()
-        b, h, w, c = x.shape
-        n_bytes = x.numel() * 4 + got.numel() * 4 + 2 * size * 16
-        # Operations the function needs: the H-stage (2 mul, 1 add) once per
-        # (b, Y, input column, class), the W-stage (2 mul, 1 add) and the
-        # argmax compare once per output pixel and class.
-        n_ops = 3 * b * size * w * c + 4 * b * size * size * c
-        row = {"shape": list(x.shape), "out": [size, size], "flips": flips,
-               "agreement": agreement, "max_abs_err": worst,
-               "ms": time_ms(lambda: upsample_argmax(x, (size, size))),
-               "plain_ms": time_ms(
-                   lambda: upsample_argmax_plain(x, (size, size))),
-               "library_ms": None}
-        row["bound_ms"], row["bound_by"] = bound_ms(
-            peaks, n_bytes, n_ops, "fp32")
-        emit("upsample", **row)
-        if agreement < MIN_AGREEMENT:
-            raise AssertionError(f"upsample_argmax agreement {agreement}")
-        if size == 512:
-            main_row = row
+    got = upsample_argmax(x, size, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    if got.dtype != out_dtype or not torch.equal(
+            got, upsample_argmax_tap_plain(x, size, out_dtype)):
+        raise AssertionError(f"upsample_argmax {tuple(x.shape)} {x.dtype} -> "
+                             f"{size} {out_dtype}: not equal to the tap-form "
+                             f"plain version")
+    want = upsample_argmax_plain(x, size, out_dtype)
+    flips, worst = ties_explained(resize_bilinear_mm(x, size), got, want,
+                                  UPSAMPLE_TIE_TOL)
+    agreement = 1.0 - flips / got.numel()
+    if agreement < MIN_AGREEMENT:
+        raise AssertionError(f"upsample_argmax {tuple(x.shape)} -> {size}: "
+                             f"agreement {agreement}")
+    return {"flips": flips, "agreement": agreement, "max_abs_err": worst}
+
+
+def phase_upsample(peaks, gen):
+    """Kernel 5: every instantiation against both plain versions, the tie
+    case, then device time at the timed shapes for both output types."""
+    from visiontransformer_tpu_torch.ops.upsample_argmax import (
+        epilogue_path,
+        upsample_argmax,
+        upsample_argmax_plain,
+    )
+
+    out_dtypes = {"int32": torch.int32, "uint8": torch.uint8}
+    in_dtypes = {"fp32": torch.float32, "bf16": torch.bfloat16}
+    cases = [((32, g, g, 17), (s, s)) for g, s in UPSAMPLE_TIMED]
+    paths, rows = set(), {}
+    for shape, size in cases + UPSAMPLE_CASES:
+        x = torch.randn(*shape, generator=gen, device="cuda")
+        for in_name, in_dtype in in_dtypes.items():
+            for out_name, out_dtype in out_dtypes.items():
+                paths.add(epilogue_path(*shape, *size, out_dtype))
+                rows[(shape, size, in_name, out_name)] = _upsample_agrees(
+                    x.to(in_dtype), size, out_dtype)
+    checked = {"cases": len(rows), "instantiations": sorted(paths),
+               "flips": sum(r["flips"] for r in rows.values()),
+               "min_agreement": min(r["agreement"] for r in rows.values())}
+    emit("upsample_checks", **checked)
+
     plane = torch.randn(1, 6, 6, 1, generator=gen, device="cuda")
-    ties = upsample_argmax(torch.cat([plane, plane - 1.0, plane], -1), (24, 24))
-    if bool((ties != 0).any()):
-        raise AssertionError("upsample_argmax: a tie did not go to class 0")
+    for classes in (3, 17, 40):  # class 0 ties class 8 (2 at C = 3)
+        x = torch.cat([plane - 1.0 - 0.1 * k for k in range(classes)], -1)
+        twin = 8 if classes > 8 else classes - 1
+        x[..., 0] = x[..., twin] = plane[..., 0]
+        for out_dtype in out_dtypes.values():
+            if bool((upsample_argmax(x, (24, 20), out_dtype=out_dtype) != 0)
+                    .any()):
+                raise AssertionError(f"upsample_argmax: a tie at C = "
+                                     f"{classes} did not go to class 0")
     emit("upsample_ties", ok=True)
-    return main_row
+    # One output row's H-stage, 3500 columns x 20 floats, exceeds what a
+    # block may opt in to: the launch must be refused, and raise.
+    try:
+        upsample_argmax(torch.zeros(1, 4, 3500, 17, device="cuda"), (8, 8))
+    except RuntimeError:
+        pass
+    else:
+        raise AssertionError("upsample_argmax: an H-stage row above a "
+                             "block's shared memory was not refused")
+
+    timed = {}
+    for g, side in UPSAMPLE_TIMED:
+        size = (side, side)
+        x32 = torch.randn(32, g, g, 17, generator=gen, device="cuda")
+        xs = {"fp32": x32, "bf16": x32.bfloat16()}
+        for out_name, out_dtype in out_dtypes.items():
+            row = {"shape": [32, g, g, 17], "out": [side, side],
+                   "out_dtype": out_name,
+                   "path": epilogue_path(32, g, g, 17, side, side, out_dtype)}
+            for in_name, x in xs.items():
+                def kernel(x=x):
+                    return upsample_argmax(x, size, out_dtype=out_dtype)
+
+                def pair(x=x):  # two library calls: a yardstick only
+                    return F.interpolate(
+                        x.permute(0, 3, 1, 2), size=size, mode="bilinear",
+                        align_corners=False).argmax(1).to(out_dtype)
+
+                n_bytes = (x.numel() * x.element_size()
+                           + 32 * side * side * kernel().element_size()
+                           + 2 * side * 16)
+                # Operations the function needs: the H-stage (2 mul, 1 add)
+                # once per (b, Y, input column, class), the W-stage (2 mul,
+                # 1 add) and the argmax compare once per pixel and class.
+                n_ops = 3 * 32 * side * g * 17 + 4 * 32 * side * side * 17
+                bound = bound_ms(peaks, n_bytes, n_ops, "fp32")
+                row[in_name] = {
+                    "ms": device_ms(kernel), "call_ms": time_ms(kernel),
+                    "plain_ms": time_ms(lambda x=x: upsample_argmax_plain(
+                        x, size, out_dtype)),
+                    "library_ms": None, "library_pair_ms": device_ms(pair),
+                    "bound_ms": bound[0], "bound_by": bound[1],
+                    **rows[((32, g, g, 17), size, in_name, out_name)]}
+                row[in_name]["ratio"] = row[in_name]["ms"] / bound[0]
+            timed[(g, side, out_name)] = row
+            emit("upsample", **row)
+    # The serving path's shape: bf16 head logits, 14^2 -> 512^2, uint8.
+    main = timed[(14, 512, "uint8")]
+    return {**main["bf16"], "shape": main["shape"], "out": main["out"],
+            "in_dtype": "bf16", "out_dtype": "uint8", "path": main["path"],
+            "instantiations": checked["instantiations"],
+            "int32_fp32": {k: timed[(14, 512, "int32")]["fp32"][k] for k in (
+                "ms", "call_ms", "plain_ms", "bound_ms", "bound_by")}}
 
 
 def phase_model(gen):
@@ -646,11 +753,11 @@ def phase_model(gen):
         return (x - mean) / std
 
     def serve_step(kernels: bool):
-        masks = vitseg_predict(
+        return vitseg_predict(
             model, preprocess(raw), out_size=(size, size),
             attn_impl="flash" if kernels else "eager",
-            epilogue="kernel" if kernels else "plain")
-        return masks.to(torch.uint8)
+            epilogue="kernel" if kernels else "plain",
+            mask_dtype=torch.uint8)
 
     result = {"config": "P16H768A12", "classes": 17, "batch": batch,
               "in": size, "compute": compute}
@@ -666,6 +773,12 @@ def phase_model(gen):
             if launches != (cfg.vit.num_hidden_layers, 1):
                 raise AssertionError(f"{dtype}: launches per forward "
                                      f"{launches}, expected (12, 1)")
+            parent = vitseg_predict(model, x, out_size=(size, size),
+                                    attn_impl="flash", epilogue="kernel")
+            if got.dtype != torch.uint8 or not torch.equal(
+                    got, parent.to(torch.uint8)):
+                raise AssertionError(f"{dtype}: uint8 masks differ from the "
+                                     f"int32 kernel route cast to uint8")
             want = serve_step(False)
             grid_k = vitseg_head_logits(model, x, attn_impl="flash").float()
             grid_p = vitseg_head_logits(model, x, attn_impl="eager").float()
@@ -1247,6 +1360,30 @@ def _multipart(fields, files):
     return b"".join(parts), f"multipart/form-data; boundary={boundary}"
 
 
+def _kernels_after_epilogue(runner, images):
+    """Names of the device kernels that one ModelRunner.predict launches
+    after kernel 5 (torch.profiler): none when the masks it copies to the
+    host are kernel 5's own output, with no cast between."""
+    from torch.profiler import ProfilerActivity, profile
+
+    runner.predict(images)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        runner.predict(images)
+        torch.cuda.synchronize()
+    names = [e.name for e in sorted(
+        (e for e in prof.events()
+         if e.device_type == torch.autograd.DeviceType.CUDA
+         and not e.name.startswith(("Memcpy", "Memset"))),
+        key=lambda e: e.time_range.start)]
+    last = [i for i, n in enumerate(names) if "upsample_argmax_kernel" in n]
+    if not last:
+        raise AssertionError(f"the profiler saw no epilogue kernel in "
+                             f"ModelRunner.predict: {names}")
+    return names[last[-1] + 1:]
+
+
 def phase_serving(n_jobs: int = 8):
     from PIL import Image
 
@@ -1333,6 +1470,11 @@ def phase_serving(n_jobs: int = 8):
             if equal != n_jobs:
                 raise AssertionError(f"{n_jobs - equal} job masks differ from "
                                      f"ModelRunner.predict")
+            after = _kernels_after_epilogue(
+                runner, np.asarray(img, np.uint8)[None])
+            if after:
+                raise AssertionError(f"ModelRunner.dispatch launched {after} "
+                                     f"after the epilogue kernel")
         finally:
             worker.stop()
             server.shutdown()
@@ -1340,6 +1482,7 @@ def phase_serving(n_jobs: int = 8):
     result = {"jobs": n_jobs, "jobs_per_s": n_jobs / elapsed,
               "seconds": elapsed, "startup_s": startup_s,
               "masks_equal_runner": equal, "launches": launches,
+              "kernels_after_epilogue": len(after),
               "detections_job0": len(done[jobs[0]]["detections"])}
     emit("serving", **result)
     return result
@@ -1421,9 +1564,11 @@ def main() -> int:
          "source": src + "upsample_argmax.cu",
          "replaces": "visiontransformer_tpu/ops/upsample_argmax.py:54",
          "launches": serving["launches"]["upsample_argmax"],
-         **{k: upsample[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                     "bound_ms", "bound_by", "library_ms")},
-         "shape": upsample["shape"], "out": upsample["out"]},
+         **{k: upsample[k] for k in (
+             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+             "library_ms", "call_ms", "library_pair_ms", "path",
+             "instantiations", "shape", "out", "in_dtype", "out_dtype",
+             "int32_fp32")}},
     ]
     main_row = flash_train[(48, 197, 0.1)]
     for name, key, line in (("flash_attention_fwd_train", "fwd_train", 92),

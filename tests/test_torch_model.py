@@ -138,6 +138,22 @@ def test_predict_masks_match(rng, jax_params, epilogue, out_size):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+@pytest.mark.parametrize("epilogue", ["auto", "plain", "kernel"])
+def test_predict_uint8_masks_match(rng, jax_params, epilogue):
+    """The serving path's mask type, asked of the epilogue: the JAX
+    forward's int32 masks cast as the JAX serving program casts them."""
+    j, _ = _configs()
+    x = _images(rng)
+    model = _port(jax_params)
+    with torch.no_grad():
+        got = vitseg_predict(model, torch.from_numpy(x), epilogue=epilogue,
+                             mask_dtype=torch.uint8)
+    want = jax_predict(jax_params, jnp.asarray(x), j, attn_impl="xla")
+    assert got.dtype == torch.uint8
+    np.testing.assert_array_equal(got.numpy(),
+                                  np.asarray(want.astype(jnp.uint8)))
+
+
 def test_bf16_masks_agree(rng, jax_params):
     j, _ = _configs("bfloat16")
     x = _images(rng, b=4)

@@ -64,6 +64,31 @@ def tiny_registry(monkeypatch):
                         lambda name: _TinyEntry(tcfg.ViTConfig))
 
 
+@pytest.mark.parametrize("num_classes,mask_dtype",
+                         [(5, torch.uint8), (300, torch.int32)])
+def test_dispatch_masks_come_from_the_epilogue(monkeypatch, tiny_registry,
+                                               num_classes, mask_dtype):
+    """dispatch asks vitseg_predict for its mask type and hands on what it
+    returns, with no cast of its own."""
+    import visiontransformer_tpu_torch.serve.worker as worker
+
+    runner = ModelRunner({**ROW, "num_classes": num_classes},
+                         compute_dtype="float32", buckets=(2,), device="cpu")
+    seen = []
+
+    def predict(model, images, **kwargs):
+        seen.append(kwargs)
+        out = torch.zeros(images.shape[:3], dtype=kwargs["mask_dtype"])
+        seen.append(out)
+        return out
+
+    monkeypatch.setattr(worker, "vitseg_predict", predict)
+    pending = runner.dispatch(np.zeros((1, 32, 32, 3), np.uint8))
+    assert seen[0]["mask_dtype"] == mask_dtype == runner.mask_dtype
+    assert pending._host is seen[1]
+    assert pending.resolve().shape == (1, 32, 32)
+
+
 def test_runner_masks_match_jax(rng, tiny_registry):
     jax_runner = JaxModelRunner(ROW, compute_dtype="float32", buckets=(1, 4))
     runner = ModelRunner(ROW, compute_dtype="float32", buckets=(1, 4),

@@ -71,21 +71,25 @@ def vitseg_apply(model: ViTSeg, images: torch.Tensor, *,
 
 def vitseg_predict(model: ViTSeg, images: torch.Tensor, *,
                    out_size: Optional[Tuple[int, int]] = None,
-                   epilogue: str = "auto",
-                   attn_impl: str = "auto") -> torch.Tensor:
-    """(B, H, W, 3) images -> (B, out_H, out_W) int32 argmax class map, with
-    ONE bilinear upsample straight from the token grid to ``out_size``.
+                   epilogue: str = "auto", attn_impl: str = "auto",
+                   mask_dtype: torch.dtype = torch.int32) -> torch.Tensor:
+    """(B, H, W, 3) images -> (B, out_H, out_W) argmax class map in
+    ``mask_dtype`` (int32, as the TPU package returns, or uint8, the
+    serving path's type), with ONE bilinear upsample straight from the
+    token grid to ``out_size``.
 
     epilogue: "kernel" runs the fused upsample+argmax kernel
-    (``ops/upsample_argmax.py``; its plain version on a CPU tensor),
-    "plain" the interpolation products then argmax, "auto" the kernel on a
-    CUDA tensor and the plain form on the CPU. Both compute the same
-    function."""
+    (``ops/upsample_argmax.py``; its plain version on a CPU tensor), which
+    reads the grid logits in the compute dtype and writes ``mask_dtype``
+    itself; "plain" the interpolation products in fp32 then argmax; "auto"
+    the kernel on a CUDA tensor and the plain form on the CPU. Both compute
+    the same function."""
     if out_size is None:
         out_size = (images.shape[1], images.shape[2])
     if epilogue not in EPILOGUES:
         raise ValueError(f"unknown epilogue {epilogue!r}; known: {EPILOGUES}")
-    grid = vitseg_head_logits(model, images, attn_impl=attn_impl).float()
+    grid = vitseg_head_logits(model, images, attn_impl=attn_impl)
     if epilogue == "kernel" or (epilogue == "auto" and grid.is_cuda):
-        return upsample_argmax(grid.contiguous(), tuple(out_size))
-    return upsample_argmax_plain(grid, tuple(out_size))
+        return upsample_argmax(grid.contiguous(), tuple(out_size),
+                               out_dtype=mask_dtype)
+    return upsample_argmax_plain(grid, tuple(out_size), mask_dtype)

@@ -70,7 +70,8 @@ class ModelRunner:
         self.color_table = class_color_table(None, self.cfg.num_classes)
         # uint8 in / uint8 out: the /255 runs on the device (uint8 -> fp32
         # then /255, as the TPU runner does); masks fit uint8 whenever
-        # num_classes <= 256 (PNG palettes cap there anyway).
+        # num_classes <= 256 (PNG palettes cap there anyway), and the
+        # epilogue kernel writes them in that type.
         self.mask_dtype = (torch.uint8 if self.cfg.num_classes <= 256
                            else torch.int32)
 
@@ -93,8 +94,9 @@ class ModelRunner:
         x = torch.from_numpy(np.array(images, copy=True)).to(self.device)
         x = x.float() / 255.0
         masks = vitseg_predict(self.model, x,
-                               out_size=(self.input_size, self.input_size))
-        return _PendingMasks(masks.to(self.mask_dtype), b)
+                               out_size=(self.input_size, self.input_size),
+                               mask_dtype=self.mask_dtype)
+        return _PendingMasks(masks, b)
 
     def predict(self, images: np.ndarray) -> np.ndarray:
         return self.dispatch(images).resolve()
