@@ -83,6 +83,23 @@ failure:
              card (same weights, batch and seeds): loss and every gradient
              agree, so forward, dQ and dK/dV draw one mask on the path that
              trains.
+10. checkpoint  train -> save -> resume -> register -> serve -> .ckpt ->
+             export on ViT-B/16 (17 classes, bf16, 224^2, the CE defaults,
+             the synthetic set of phase 7, two steps an epoch): one epoch
+             of Trainer.fit with checkpoints, then a fresh Trainer resumes
+             from them (params, Adam moments, step and learning rate equal
+             the saved ones bit for bit, the moments non-zero); a resumed
+             second epoch against two uninterrupted epochs (12 x 4
+             launches of kernels 2-4 a step); the checkpoint registered in
+             a store and served over HTTP (8 jobs, masks equal
+             vitseg_predict of the trained model, 12 + 1 launches a
+             forward); the reference .ckpt round trip through
+             resolve_model (equal masks); export_serving/load_serving at
+             batch 8 and 32 (12 + 1 custom-op nodes and launches a call,
+             masks equal the eager forward), timed beside the eager
+             forward by device_ms and host_ms; save and restore seconds,
+             checkpoint bytes; the host seconds of each step. Every
+             kernel of the path launched at least once.
 
 Then it prints the card's name and power limit as nvidia-smi gives them,
 one JSON line describing every kernel (launches of the serving kernels
@@ -100,8 +117,10 @@ sets it.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import io
+import os
 import json
 import subprocess
 import sys
@@ -1384,26 +1403,98 @@ def _kernels_after_epilogue(runner, images):
     return names[last[-1] + 1:]
 
 
-def phase_serving(n_jobs: int = 8):
+def _job_pngs(n_jobs: int, seed: int):
     from PIL import Image
 
-    from visiontransformer_tpu_torch.ops.flash_attention import flash_attention
-    from visiontransformer_tpu_torch.ops.upsample_argmax import upsample_argmax
-    from visiontransformer_tpu_torch.serve.server import create_server
-    from visiontransformer_tpu_torch.serve.store import JobStore
-    from visiontransformer_tpu_torch.serve.worker import (
-        InferenceWorker,
-        ModelRunner,
-    )
-
-    rng = np.random.default_rng(0)
+    rng = np.random.default_rng(seed)
     pngs = []
     for _ in range(n_jobs):
         buf = io.BytesIO()
         Image.fromarray(rng.integers(0, 256, (256, 256, 3), np.uint8)).save(
             buf, format="PNG")
         pngs.append(buf.getvalue())
+    return pngs
 
+
+def _decoded(png: bytes, size: int = 224) -> np.ndarray:
+    """A job's image as the worker feeds it to the model (uint8)."""
+    from PIL import Image
+
+    img = Image.open(io.BytesIO(png)).convert("RGB").resize(
+        (size, size), Image.BILINEAR)
+    return np.asarray(img, np.uint8)
+
+
+@contextlib.contextmanager
+def _http_server(store, buckets):
+    """The port's HTTP server with an InferenceWorker on cuda, a user
+    registered and logged in: yields (client, CSRF header, startup s)."""
+    from visiontransformer_tpu_torch.serve.server import create_server
+    from visiontransformer_tpu_torch.serve.worker import InferenceWorker
+
+    t0 = time.perf_counter()
+    worker = InferenceWorker(store, device="cuda", buckets=buckets)
+    worker.start()
+    server, _ = create_server(store, worker=worker)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    startup_s = time.perf_counter() - t0
+    try:
+        client = _Client(f"http://127.0.0.1:{server.server_address[1]}")
+        assert client.post_json("/api/users/register/", {
+            "username": "smoke", "password": "smoke-pass"})[0] == 201
+        assert client.post_json("/api/users/login/", {
+            "username": "smoke", "password": "smoke-pass"})[0] == 200
+        client.request("GET", "/api/csrf/")
+        yield client, {"X-CSRFToken": client.cookies["csrftoken"]}, startup_s
+    finally:
+        worker.stop()
+        server.shutdown()
+        server.server_close()
+
+
+def _run_jobs(client, csrf, model_id, pngs):
+    """POST one job per PNG and poll until all are DONE or FAILED: (job
+    ids, details by id, seconds)."""
+    t0 = time.perf_counter()
+    jobs = []
+    for i, png in enumerate(pngs):
+        body, ctype = _multipart({"vision_model": str(model_id)},
+                                 {"input_image": (f"{i}.png", png)})
+        status, job = client.request("POST", "/api/inference-jobs/",
+                                     body, ctype, headers=csrf)
+        assert status == 201, job
+        jobs.append(job["id"])
+    done = {}
+    deadline = time.time() + 300
+    while len(done) < len(pngs) and time.time() < deadline:
+        for job_id in jobs:
+            if job_id not in done:
+                _, detail = client.request(
+                    "GET", f"/api/inference-jobs/{job_id}/?wait=5")
+                if detail["status"] in ("DONE", "FAILED"):
+                    done[job_id] = detail
+    elapsed = time.perf_counter() - t0
+    failed = [d for d in done.values() if d["status"] != "DONE"]
+    if len(done) < len(pngs) or failed:
+        raise AssertionError(f"jobs not DONE: {failed or done}")
+    return jobs, done, elapsed
+
+
+def _served_masks(client, jobs, done):
+    from PIL import Image
+
+    return [np.asarray(Image.open(io.BytesIO(client.request(
+        "GET", done[job_id]["mask_image"])[1]))) for job_id in jobs]
+
+
+def phase_serving(n_jobs: int = 8):
+    from visiontransformer_tpu_torch.ops.flash_attention import flash_attention
+    from visiontransformer_tpu_torch.ops.upsample_argmax import upsample_argmax
+    from visiontransformer_tpu_torch.serve.store import JobStore
+    from visiontransformer_tpu_torch.serve.worker import ModelRunner
+
+    pngs = _job_pngs(n_jobs, seed=0)
     # One bucket: every forward has batch 8, so the check below repeats
     # each job's forward at the same shape (per-row results of a fixed
     # shape do not depend on the other rows).
@@ -1412,47 +1503,11 @@ def phase_serving(n_jobs: int = 8):
         store = JobStore(":memory:", media_root=media)
         model_id = store.register_model("vit-b16-damage", num_classes=17,
                                         config_name="P16H768A12")
-        t0 = time.perf_counter()
-        worker = InferenceWorker(store, device="cuda", buckets=buckets)
-        worker.start()
-        server, _ = create_server(store, worker=worker)
-        thread = threading.Thread(target=server.serve_forever, daemon=True)
-        thread.start()
-        startup_s = time.perf_counter() - t0
-        try:
-            client = _Client(f"http://127.0.0.1:{server.server_address[1]}")
-            assert client.post_json("/api/users/register/", {
-                "username": "smoke", "password": "smoke-pass"})[0] == 201
-            assert client.post_json("/api/users/login/", {
-                "username": "smoke", "password": "smoke-pass"})[0] == 200
-            client.request("GET", "/api/csrf/")
-            csrf = {"X-CSRFToken": client.cookies["csrftoken"]}
-
+        with _http_server(store, buckets) as (client, csrf, startup_s):
             flash_attention.launches = upsample_argmax.launches = 0
-            t0 = time.perf_counter()
-            jobs = []
-            for i, png in enumerate(pngs):
-                body, ctype = _multipart({"vision_model": str(model_id)},
-                                         {"input_image": (f"{i}.png", png)})
-                status, job = client.request("POST", "/api/inference-jobs/",
-                                             body, ctype, headers=csrf)
-                assert status == 201, job
-                jobs.append(job["id"])
-            done = {}
-            deadline = time.time() + 300
-            while len(done) < n_jobs and time.time() < deadline:
-                for job_id in jobs:
-                    if job_id not in done:
-                        _, detail = client.request(
-                            "GET", f"/api/inference-jobs/{job_id}/?wait=5")
-                        if detail["status"] in ("DONE", "FAILED"):
-                            done[job_id] = detail
-            elapsed = time.perf_counter() - t0
+            jobs, done, elapsed = _run_jobs(client, csrf, model_id, pngs)
             launches = {"flash_attention": flash_attention.launches,
                         "upsample_argmax": upsample_argmax.launches}
-            failed = [d for d in done.values() if d["status"] != "DONE"]
-            if len(done) < n_jobs or failed:
-                raise AssertionError(f"jobs not DONE: {failed or done}")
             if (launches["upsample_argmax"] < 1 or launches["flash_attention"]
                     != 12 * launches["upsample_argmax"]):
                 raise AssertionError(f"serving launches {launches}")
@@ -1460,31 +1515,318 @@ def phase_serving(n_jobs: int = 8):
             runner = ModelRunner(store.get_model(model_id), device="cuda",
                                  buckets=buckets)
             equal = 0
-            for job_id, png in zip(jobs, pngs):
-                _, mask_png = client.request("GET", done[job_id]["mask_image"])
-                mask = np.asarray(Image.open(io.BytesIO(mask_png)))
-                img = Image.open(io.BytesIO(png)).convert("RGB").resize(
-                    (224, 224), Image.BILINEAR)
-                want = runner.predict(np.asarray(img, np.uint8)[None])[0]
+            for mask, png in zip(_served_masks(client, jobs, done), pngs):
+                want = runner.predict(_decoded(png)[None])[0]
                 equal += int(np.array_equal(mask, want))
             if equal != n_jobs:
                 raise AssertionError(f"{n_jobs - equal} job masks differ from "
                                      f"ModelRunner.predict")
-            after = _kernels_after_epilogue(
-                runner, np.asarray(img, np.uint8)[None])
+            after = _kernels_after_epilogue(runner, _decoded(pngs[-1])[None])
             if after:
                 raise AssertionError(f"ModelRunner.dispatch launched {after} "
                                      f"after the epilogue kernel")
-        finally:
-            worker.stop()
-            server.shutdown()
-            server.server_close()
     result = {"jobs": n_jobs, "jobs_per_s": n_jobs / elapsed,
               "seconds": elapsed, "startup_s": startup_s,
               "masks_equal_runner": equal, "launches": launches,
               "kernels_after_epilogue": len(after),
               "detections_job0": len(done[jobs[0]]["detections"])}
     emit("serving", **result)
+    return result
+
+
+def _model_diffs(a, b) -> list:
+    """Names of the parameters, Adam state entries and hyperparameters
+    (learning rate included) in which two TrainStates differ, bit for bit,
+    and the step if it differs."""
+    diffs = [name for (name, x), (_, y) in zip(
+        a.model.state_dict().items(), b.model.state_dict().items())
+        if not torch.equal(x, y)]
+    sa, sb = a.optimizer.state_dict(), b.optimizer.state_dict()
+    if sa["param_groups"] != sb["param_groups"]:
+        diffs.append("param_groups")
+    if sorted(sa["state"]) != sorted(sb["state"]):
+        diffs.append("optimizer state keys")
+    for index, entries in sa["state"].items():
+        for key, value in entries.items():
+            other = sb["state"].get(index, {}).get(key)
+            if other is None or not torch.equal(value, other):
+                diffs.append(f"state {index} {key}")
+    if a.step != b.step:
+        diffs.append(f"step {a.step} vs {b.step}")
+    return diffs
+
+
+def _max_abs_diff(a, b) -> float:
+    """Largest difference over the parameters and Adam moments."""
+    worst = 0.0
+    for (_, x), (_, y) in zip(a.model.state_dict().items(),
+                              b.model.state_dict().items()):
+        worst = max(worst, float((x.float() - y.float()).abs().max()))
+    sb = b.optimizer.state_dict()["state"]
+    for index, entries in a.optimizer.state_dict()["state"].items():
+        for key in ("exp_avg", "exp_avg_sq"):
+            worst = max(worst, float(
+                (entries[key] - sb[index][key]).abs().max()))
+    return worst
+
+
+def host_ms(fn, iters: int = 10, rounds: int = 3) -> float:
+    """Host clock per call of fn(), over iters calls ending in a
+    synchronize, best of rounds (the host's pace, where it sets it)."""
+    fn()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(rounds):
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        best = min(best, (time.perf_counter() - t0) * 1e3 / iters)
+    return best
+
+
+def phase_checkpoint():
+    """Train -> save -> resume -> register -> serve -> .ckpt -> export, on
+    ViT-B/16 (17 classes, bf16, 224^2) with the CE defaults."""
+    from visiontransformer_tpu_torch.ckpt.export import (
+        export_serving,
+        load_serving,
+    )
+    from visiontransformer_tpu_torch.ckpt.io import (
+        get_latest_checkpoint,
+        restore_checkpoint,
+        save_checkpoint,
+    )
+    from visiontransformer_tpu_torch.ckpt.torch_convert import (
+        save_lightning_checkpoint,
+    )
+    from visiontransformer_tpu_torch.configs import CE_TRAIN_DEFAULTS
+    from visiontransformer_tpu_torch.models.registry import (
+        resolve_model,
+        vitseg_config,
+    )
+    from visiontransformer_tpu_torch.models.vitseg import vitseg_predict
+    from visiontransformer_tpu_torch.ops.upsample_argmax import upsample_argmax
+    from visiontransformer_tpu_torch.serve.store import JobStore
+    from visiontransformer_tpu_torch.train.trainer import Trainer
+
+    cfg = vitseg_config("P16H768A12", num_classes=17,
+                        compute_dtype="bfloat16")
+    tcfg = CE_TRAIN_DEFAULTS
+    layers, accum = cfg.vit.num_hidden_layers, tcfg.accumulate_grad_batches
+    reset, read = _train_launches()
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    failures = []
+    path_launches = {}
+    seconds, marks = {}, [time.perf_counter()]
+
+    def lap(step: str):
+        """Host seconds of a step of the phase, since the last lap."""
+        marks.append(time.perf_counter())
+        seconds[step] = marks[-1] - marks[-2]
+
+    def take(on_path: bool = True):
+        """Launches of kernels 1-5 since the last take(), added to the
+        path's unless they were timing runs; the counts start again from
+        0."""
+        got = {**read(), "upsample_argmax": upsample_argmax.launches}
+        reset()
+        upsample_argmax.launches = 0
+        for k, v in got.items():
+            path_launches[k] = path_launches.get(k, 0) + v * on_path
+        return got
+    result = {"config": "P16H768A12", "classes": 17, "dtype": "bfloat16",
+              "batch": tcfg.batch_size, "accumulate": accum,
+              "dropout": [cfg.vit.hidden_dropout_prob,
+                          cfg.vit.attention_probs_dropout_prob]}
+
+    def trainer():
+        return Trainer(cfg, tcfg, device="cuda")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        data = _synthetic_ce_set(f"{tmp}/data", 2 * tcfg.batch_size)
+        ckpt_dir = f"{tmp}/ckpts"
+        take()
+        path_launches.clear()
+        # 1. One epoch with checkpoints; a fresh Trainer resumes from them.
+        trained = trainer().fit(data, max_epochs=1, checkpoint_dir=ckpt_dir)
+        path = get_latest_checkpoint(ckpt_dir)
+        resumed = trainer().fit(data, resume_from=ckpt_dir, max_epochs=1)
+        diffs = _model_diffs(trained, resumed)
+        moments = [v for entries in trained.optimizer.state_dict()[
+            "state"].values() for k, v in entries.items()
+            if k.startswith("exp_avg")]
+        nonzero = sum(bool(v.abs().sum()) for v in moments)
+        result.update(checkpoint=os.path.basename(path), steps=trained.step,
+                      restored_diffs=diffs, moments=len(moments),
+                      moments_nonzero=nonzero,
+                      lr=trained.optimizer.param_groups[0]["lr"])
+        if diffs or nonzero != len(moments):
+            raise AssertionError(f"restored state differs from the saved "
+                                 f"one: {diffs}; {nonzero} of "
+                                 f"{len(moments)} moments non-zero")
+        del resumed
+        lap("train_resume")
+
+        # 2. A resumed second epoch against two uninterrupted epochs.
+        take()
+        continued = trainer().fit(data, resume_from=ckpt_dir, max_epochs=2)
+        resumed_launches = take()
+        whole = trainer().fit(data, max_epochs=2)
+        cont_diffs = _model_diffs(continued, whole)
+        result["continuity"] = {
+            "steps": [continued.step, whole.step],
+            "bitwise_equal": not cont_diffs, "differing": len(cont_diffs),
+            "first_differing": cont_diffs[:4],
+            "max_abs_diff": _max_abs_diff(continued, whole),
+            "resumed_epoch_launches": resumed_launches,
+            "per_step": layers * accum}
+        per_epoch = layers * accum * (continued.step - trained.step)
+        if any(resumed_launches[k] != per_epoch for k in (
+                "flash_attention_fwd_train", "flash_attention_bwd_dq",
+                "flash_attention_bwd_dkv")):
+            failures.append(f"resumed epoch launches {resumed_launches}, "
+                            f"expected {per_epoch} of kernels 2-4")
+        # Bit for bit: kernels 2-4 sum in a fixed order (no atomics), and
+        # cuBLAS and cuDNN repeat their order at one shape on one card
+        # (measured equal on an H100, PERF.md), so the restored step,
+        # moments, learning rate and the epoch-seeded shuffle leave
+        # nothing to differ.
+        if cont_diffs:
+            failures.append(f"resumed run differs from the uninterrupted "
+                            f"one: {result['continuity']}")
+        del continued, whole
+        lap("continuity")
+
+        # 3. The checkpoint registered and served over HTTP.
+        model = trained.model.eval()
+        pngs = _job_pngs(8, seed=1)
+        x8 = torch.from_numpy(np.stack([_decoded(p) for p in pngs])).to(
+            "cuda").float() / 255.0
+        with torch.inference_mode():
+            want = vitseg_predict(model, x8, mask_dtype=torch.uint8)
+        want_np = want.cpu().numpy()
+        store = JobStore(":memory:", media_root=f"{tmp}/media")
+        model_id = store.register_model("vit-b16-trained", num_classes=17,
+                                        config_name="P16H768A12",
+                                        checkpoint_path=path)
+        with _http_server(store, (8,)) as (client, csrf, startup_s):
+            take()
+            jobs, done, elapsed = _run_jobs(client, csrf, model_id, pngs)
+            got = take()
+            served_launches = (got["flash_attention_fwd"],
+                               got["upsample_argmax"])
+            served = _served_masks(client, jobs, done)
+        served_equal = sum(int(np.array_equal(a, b))
+                           for a, b in zip(served, want_np))
+        result["serving"] = {"jobs": len(pngs), "masks_equal": served_equal,
+                             "launches": served_launches,
+                             "startup_s": startup_s, "seconds": elapsed}
+        if served_equal != len(pngs):
+            failures.append(f"{len(pngs) - served_equal} served masks differ "
+                            f"from the trained model's")
+        if (served_launches[1] < 1
+                or served_launches[0] != layers * served_launches[1]):
+            failures.append(f"serving launches {served_launches}")
+        lap("serving")
+
+        # 4. The reference .ckpt round trip.
+        lightning = f"{tmp}/trained.ckpt"
+        save_lightning_checkpoint(lightning, model.state_dict(), cfg,
+                                  epoch=0, global_step=trained.step)
+        _, from_ckpt = resolve_model("vitseg", "P16H768A12", num_classes=17,
+                                     checkpoint_path=lightning, device="cuda")
+        with torch.inference_mode():
+            got = vitseg_predict(from_ckpt, x8, mask_dtype=torch.uint8)
+        result["lightning_masks_equal"] = bool(torch.equal(got, want))
+        if not result["lightning_masks_equal"]:
+            failures.append("masks of the .ckpt round trip differ")
+        del from_ckpt
+        lap("lightning")
+
+        # 5. The exported serving program at batch 8 and 32, beside the
+        # eager forward: one device_ms reading (one call: two forwards hold
+        # more launches than the device's queue, so the host could not
+        # queue them ahead) and one host_ms reading each.
+        x32 = torch.rand(32, 224, 224, 3, generator=gen, device="cuda")
+        result["export"], times = {}, {}
+        for batch, x in ((8, x8), (32, x32)):
+            art_path = f"{tmp}/serving_b{batch}.pt2"
+            t0 = time.perf_counter()
+            export_serving(model, cfg, out_path=art_path, batch_size=batch)
+            export_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            art = load_serving(art_path)
+            load_s = time.perf_counter() - t0
+            targets = [str(n.target) for n in art.program.graph.nodes
+                       if n.op == "call_function"]
+            nodes = (targets.count("vt.flash_attention_fwd.default"),
+                     targets.count("vt.upsample_argmax.default"))
+            # Neither kernel's plain version (softmax, argmax) is traced.
+            plain = [t for t in targets if t.startswith("aten.")
+                     and ("softmax" in t or "argmax" in t)]
+            take()
+            got = art.call(x)
+            torch.cuda.synchronize()
+            counts = take()
+            call_launches = (counts["flash_attention_fwd"],
+                             counts["upsample_argmax"])
+
+            def eager(x=x):
+                with torch.inference_mode():
+                    return vitseg_predict(model, x, mask_dtype=torch.uint8)
+
+            row = {"graph_op_nodes": nodes, "plain_nodes": plain,
+                   "launches_per_call": call_launches,
+                   "masks_equal_eager": bool(torch.equal(got, eager())),
+                   "bytes": os.path.getsize(art_path),
+                   "export_s": export_s, "load_s": load_s}
+            if (nodes != (layers, 1) or plain or call_launches != (layers, 1)
+                    or not row["masks_equal_eager"]):
+                failures.append(f"exported program at batch {batch}: {row}")
+            result["export"][batch] = row
+            take()
+            times[f"export_batch{batch}"] = {
+                "artifact_ms": device_ms(lambda: art.call(x), iters=1),
+                "eager_ms": device_ms(eager, iters=1),
+                "artifact_host_ms": host_ms(lambda: art.call(x)),
+                "eager_host_ms": host_ms(eager)}
+            take(on_path=False)
+            del art
+        lap("export")
+
+        # 6. Save and restore times, checkpoint bytes.
+        tree = {"params": model.state_dict(),
+                "opt_state": trained.optimizer.state_dict(),
+                "step": trained.step}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        timed = save_checkpoint(f"{tmp}/timed", tree, epoch=0,
+                                step=trained.step)
+        save_s = time.perf_counter() - t0
+        fresh = trainer().init_state()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        restore_checkpoint(timed, {"params": fresh.model.state_dict(),
+                                   "opt_state": fresh.optimizer, "step": 0})
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        if _model_diffs(trained, fresh) != [f"step {trained.step} vs 0"]:
+            failures.append("timed restore differs from the saved state")
+        times["save"] = {"seconds": save_s, "restore_seconds": restore_s,
+                         "bytes": os.path.getsize(os.path.join(
+                             timed, "checkpoint.pt"))}
+        del fresh, trained, model
+        lap("save")
+    result.update(path_launches=dict(path_launches), seconds=seconds)
+    emit("checkpoint", **result)
+    emit("checkpoint_times", **times)
+    missing = [k for k, v in path_launches.items() if not v]
+    if missing:
+        failures.append(f"kernels not launched on the path: {missing}")
+    result.update(times)
+    if failures:
+        raise AssertionError(f"checkpoint phase: {failures}")
     return result
 
 
@@ -1545,6 +1887,7 @@ def main() -> int:
     train = phase_train()
     phase_train_fp32_step()
     phase_train_bf16_dropout_step()
+    checkpoint = phase_checkpoint()
     emit("done", seconds=time.perf_counter() - t0,
          masks_per_s=model["bfloat16"]["masks_per_s"],
          jobs_per_s=serving["jobs_per_s"],
@@ -1602,6 +1945,8 @@ def main() -> int:
                  ratio=t["bwd_sum_ms"] / t["sdpa_bwd_ms"])
     for line in _forward_lines(peaks, flash_timed, flash_train):
         emit("flash_forward", **line)
+    for row in kernels:  # kernels 1-5: their launches on phase 10's path
+        row["checkpoint_launches"] = checkpoint["path_launches"][row["name"]]
     kernels += variants
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -1,7 +1,7 @@
 """Guards of the PyTorch port's rules.
 
-- No file of the port, nor chip_smoke.py, imports JAX or any module of the
-  JAX package (``visiontransformer_tpu`` and its submodules; the port's own
+- No file of the port, nor chip_smoke.py, imports JAX, Orbax (which
+  imports JAX) or any module of the JAX package (``visiontransformer_tpu`` and its submodules; the port's own
   name shares that prefix and is allowed).
 - The port's entry points default to CUDA and raise on a host without it
   instead of falling back to the CPU; chip_smoke.py exits non-zero there
@@ -31,7 +31,8 @@ FILES = sorted(
 
 def _forbidden(module: str) -> bool:
     top = module.split(".")[0]
-    return top in ("jax", "jaxlib", "flax", "optax", "visiontransformer_tpu")
+    return top in ("jax", "jaxlib", "flax", "optax", "orbax",
+                   "visiontransformer_tpu")
 
 
 def _imported_modules(tree):
@@ -52,6 +53,7 @@ def test_scan_finds_the_port():
     assert not _forbidden("visiontransformer_tpu_torch.ops.attention")
     assert _forbidden("visiontransformer_tpu.ops.attention")
     assert _forbidden("jax.numpy")
+    assert _forbidden("orbax.checkpoint")
 
 
 @pytest.mark.parametrize("path", FILES)

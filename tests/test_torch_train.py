@@ -391,9 +391,10 @@ def test_trainer_rejects_what_is_not_ported(tmp_path):
         Trainer(t, tcfg.TrainConfig(fsdp=True), device="cpu")
     with pytest.raises(ValueError, match="divisible"):
         Trainer(t, tcfg.TrainConfig(batch_size=6), device="cpu")
+    assert tcfg.TrainConfig(checkpoint_dir=str(tmp_path)).not_ported() == []
     trainer = Trainer(t, tcfg.TrainConfig(), device="cpu")
-    with pytest.raises(NotImplementedError, match="checkpoint_dir"):
-        trainer.fit([], checkpoint_dir=str(tmp_path))
+    with pytest.raises(NotImplementedError, match="profile_dir"):
+        trainer.fit([], profile_dir=str(tmp_path))
 
 
 def test_trainer_defaults_to_cuda():

@@ -1,6 +1,7 @@
-"""``python -m visiontransformer_tpu_torch {train,serve} [options]``: the
-training command and the REST server with the GPU inference worker
-(cli.py)."""
+"""``python -m visiontransformer_tpu_torch {train,serve,convert,export,
+export-serving,register-model} [options]``: the training command, the REST
+server with the GPU inference worker, the checkpoint converters, the
+serving-program export and the model registration (cli.py)."""
 
 import sys
 

@@ -2,12 +2,17 @@
 
   python -m visiontransformer_tpu_torch train --data data --task ce ...
   python -m visiontransformer_tpu_torch serve --port 8000
+  python -m visiontransformer_tpu_torch convert --ckpt ref.ckpt ...
+  python -m visiontransformer_tpu_torch export --ckpt ckpts/ ...
+  python -m visiontransformer_tpu_torch export-serving --ckpt ckpts/ ...
+  python -m visiontransformer_tpu_torch register-model --name ...
 
-``train`` mirrors the TPU package's ``cli.py`` train command (its flags
-for mesh, parallelism, multi-host, checkpoints, resume and profiling are
-left out until their slices) and runs on ``--device`` (default cuda; the
-CPU only when asked for). ``serve`` hands its arguments to
-``serve/server.py``.
+The TPU package's ``cli.py`` commands of the same names, with the flags
+the port implements (mesh, parallelism, multi-host and profiling wait for
+their slices). ``export-serving`` replaces ``export-hlo``: it writes a
+``torch.export`` program (``ckpt/export.py``) for the device it runs on.
+Commands that run a model take ``--device`` (default cuda; the CPU only
+when asked for). ``serve`` hands its arguments to ``serve/server.py``.
 """
 
 from __future__ import annotations
@@ -17,8 +22,10 @@ import dataclasses
 import os
 import sys
 
-USAGE = ("usage: python -m visiontransformer_tpu_torch {train,serve} "
-         "[options]")
+COMMANDS = ("train", "serve", "convert", "export", "export-serving",
+            "register-model")
+USAGE = ("usage: python -m visiontransformer_tpu_torch "
+         "{" + ",".join(COMMANDS) + "} [options]")
 
 
 def _train_parser() -> argparse.ArgumentParser:
@@ -38,6 +45,11 @@ def _train_parser() -> argparse.ArgumentParser:
     t.add_argument("--accumulate", type=int, default=4)
     t.add_argument("--dtype", default="bfloat16")
     t.add_argument("--logs", default="logs")
+    t.add_argument("--ckpt-dir", default=None,
+                   help="checkpoint directory (default: checkpoints/ in "
+                        "the run's log directory)")
+    t.add_argument("--resume", default=None,
+                   help="checkpoint path/dir to resume from")
     t.add_argument("--cache-data", action="store_true",
                    help="cache decoded+preprocessed samples in RAM "
                         "(~0.7 MB/sample at 224²)")
@@ -100,19 +112,174 @@ def cmd_train(argv) -> int:
         line = " ".join(f"{k}={v:.4f}" for k, v in sorted(metrics.items()))
         print(f"epoch {epoch}: {line}", flush=True)
 
-    trainer.fit(train_ds, val_dataset=val_ds, on_epoch_end=report)
-    print(f"logs: {logger.path}")
+    ckpt_dir = args.ckpt_dir or os.path.join(logger.log_dir, "checkpoints")
+    trainer.fit(train_ds, val_dataset=val_ds, checkpoint_dir=ckpt_dir,
+                resume_from=args.resume, on_epoch_end=report)
+    print(f"logs: {logger.path}\ncheckpoints: {ckpt_dir}")
+    return 0
+
+
+def _convert_parser(prog: str, description: str, out_help: str
+                    ) -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog=prog, description=description)
+    p.add_argument("--ckpt", required=True)
+    p.add_argument("--config", required=True,
+                   help="sweep config name, e.g. P8H1024A16")
+    p.add_argument("--num-classes", type=int, default=17)
+    p.add_argument("--out", required=True, help=out_help)
+    return p
+
+
+def cmd_convert(argv) -> int:
+    """Reference .ckpt -> a port checkpoint directory, so reference-trained
+    weights serve on the card."""
+    from visiontransformer_tpu_torch.ckpt.io import save_checkpoint
+    from visiontransformer_tpu_torch.ckpt.torch_convert import (
+        load_lightning_checkpoint,
+    )
+    from visiontransformer_tpu_torch.configs import sweep_by_name
+
+    p = _convert_parser("visiontransformer_tpu_torch convert",
+                        "convert a reference PyTorch-Lightning .ckpt into "
+                        "a checkpoint of the port", "output checkpoint "
+                        "directory")
+    p.add_argument("--epoch", type=int, default=0)
+    p.add_argument("--step", type=int, default=0)
+    args = p.parse_args(argv)
+    cfg = sweep_by_name(args.config).seg_config(num_classes=args.num_classes)
+    params = load_lightning_checkpoint(args.ckpt, cfg)
+    print(save_checkpoint(args.out, {"params": params, "step": args.step},
+                          epoch=args.epoch, step=args.step))
+    return 0
+
+
+def cmd_export(argv) -> int:
+    """A port checkpoint -> reference Lightning .ckpt (the inverse of
+    convert; port-trained weights load back into the reference stack and,
+    through the TPU package's convert, into the TPU package)."""
+    from visiontransformer_tpu_torch.ckpt.io import (
+        get_latest_checkpoint,
+        parse_epoch,
+        restore_checkpoint,
+    )
+    from visiontransformer_tpu_torch.ckpt.torch_convert import (
+        save_lightning_checkpoint,
+    )
+    from visiontransformer_tpu_torch.configs import sweep_by_name
+
+    args = _convert_parser(
+        "visiontransformer_tpu_torch export",
+        "export a checkpoint of the port as a reference-format "
+        "PyTorch-Lightning .ckpt (inverse of convert)",
+        "output .ckpt file path").parse_args(argv)
+    path = get_latest_checkpoint(args.ckpt) or args.ckpt
+    restored = restore_checkpoint(path)
+    params = restored.get("params", restored)
+    cfg = sweep_by_name(args.config).seg_config(num_classes=args.num_classes)
+    print(save_lightning_checkpoint(
+        args.out, params, cfg, epoch=parse_epoch(path) or 0,
+        global_step=int(restored.get("step", 0))))
+    return 0
+
+
+def cmd_export_serving(argv) -> int:
+    """Serving forward -> one saved torch.export program
+    (ckpt/export.py); it replaces the TPU package's export-hlo."""
+    from visiontransformer_tpu_torch.ckpt.export import export_serving
+    from visiontransformer_tpu_torch.ckpt.io import get_latest_checkpoint
+    from visiontransformer_tpu_torch.models.registry import resolve_model
+
+    p = argparse.ArgumentParser(
+        prog="visiontransformer_tpu_torch export-serving",
+        description="export the serving forward (weights inside) as one "
+                    "torch.export program for the device it runs on; "
+                    "deployment hosts run it with ckpt.export.load_serving "
+                    "(replaces the TPU package's export-hlo)")
+    p.add_argument("--ckpt", default="",
+                   help="port checkpoint (or a directory of them, latest "
+                        "picked) or reference .ckpt file (empty: random "
+                        "init, useful for smoke tests)")
+    p.add_argument("--config", required=True,
+                   help="sweep config name or ViT size preset")
+    p.add_argument("--num-classes", type=int, default=17)
+    p.add_argument("--input-size", type=int, default=224)
+    p.add_argument("--batch", type=int, default=8)
+    p.add_argument("--compute-dtype", default="bfloat16")
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.add_argument("--out", required=True, help="output artifact path")
+    args = p.parse_args(argv)
+    ckpt = get_latest_checkpoint(args.ckpt) or args.ckpt
+    cfg, model = resolve_model(
+        "vitseg", args.config, num_classes=args.num_classes,
+        input_size=args.input_size, compute_dtype=args.compute_dtype,
+        checkpoint_path=ckpt, device=args.device)
+    meta = export_serving(model, cfg, out_path=args.out,
+                          batch_size=args.batch)
+    print(f"{args.out}: {meta}")
+    return 0
+
+
+def cmd_register_model(argv) -> int:
+    """Register a vitseg model in the serving store (the reference does
+    this through the Django admin; the conv families are not ported)."""
+    from visiontransformer_tpu_torch.configs import vit_config_by_name
+    from visiontransformer_tpu_torch.serve.store import JobStore
+
+    p = argparse.ArgumentParser(
+        prog="visiontransformer_tpu_torch register-model",
+        description="register a model in the serving store")
+    p.add_argument("--db", default="serving.db")
+    p.add_argument("--media-root", default="media")
+    p.add_argument("--name", required=True)
+    p.add_argument("--config", required=True,
+                   help="sweep config name (e.g. P16H768A12) or ViT size "
+                        "preset (vit_b_16/vit_l_16/vit_h_14)")
+    p.add_argument("--num-classes", type=int, default=17)
+    p.add_argument("--input-size", type=int, default=224)
+    p.add_argument("--ckpt", default="",
+                   help="port checkpoint dir or reference .ckpt file "
+                        "(empty: random init, useful for smoke tests)")
+    p.add_argument("--description", default="")
+    p.add_argument("--token-merge-r", type=int, default=0,
+                   help="not ported yet")
+    p.add_argument("--quantize", default="", choices=("", "int8"),
+                   help="not ported yet")
+    args = p.parse_args(argv)
+    try:
+        vit_config_by_name(args.config)
+    except KeyError as exc:
+        print(f"error: {exc.args[0]}", file=sys.stderr)
+        return 1
+    if args.token_merge_r or args.quantize:
+        print("error: token merging and int8 quantization are not ported "
+              "yet", file=sys.stderr)
+        return 1
+    if args.ckpt and not os.path.exists(args.ckpt):
+        print(f"error: checkpoint {args.ckpt} does not exist",
+              file=sys.stderr)
+        return 1
+    store = JobStore(args.db, media_root=args.media_root)
+    model_id = store.register_model(
+        args.name, num_classes=args.num_classes, config_name=args.config,
+        description=args.description, input_size=args.input_size,
+        checkpoint_path=args.ckpt)
+    print(f"registered model id={model_id} name={args.name} "
+          f"family=vitseg config={args.config} "
+          f"ckpt={args.ckpt or '<random init>'}")
     return 0
 
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
-    if not argv or argv[0] not in ("train", "serve"):
+    if not argv or argv[0] not in COMMANDS:
         print(USAGE, file=sys.stderr)
         return 2
-    if argv[0] == "train":
-        return cmd_train(argv[1:])
-    from visiontransformer_tpu_torch.serve.server import main as serve_main
+    command, rest = argv[0], argv[1:]
+    if command == "serve":
+        from visiontransformer_tpu_torch.serve.server import main as serve_main
 
-    serve_main(argv[1:])
-    return 0
+        serve_main(rest)
+        return 0
+    return {"train": cmd_train, "convert": cmd_convert,
+            "export": cmd_export, "export-serving": cmd_export_serving,
+            "register-model": cmd_register_model}[command](rest)

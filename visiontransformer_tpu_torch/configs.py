@@ -207,12 +207,10 @@ class TrainConfig:
 
     def not_ported(self) -> List[str]:
         """Fields set away from their defaults that the port does not
-        implement yet: remat, checkpoints (ROADMAP §1 item 8) and
-        parallelism (item 12)."""
+        implement yet: remat and parallelism (ROADMAP queue 1)."""
         default = TrainConfig()
-        names = ("remat", "checkpoint_dir", "mesh_shape", "fsdp",
-                 "fsdp_min_size", "seq_parallel", "pipeline_stages",
-                 "pipeline_microbatches")
+        names = ("remat", "mesh_shape", "fsdp", "fsdp_min_size",
+                 "seq_parallel", "pipeline_stages", "pipeline_microbatches")
         return [n for n in names if getattr(self, n) != getattr(default, n)]
 
 

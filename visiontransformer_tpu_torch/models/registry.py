@@ -1,13 +1,19 @@
 """Named models: the vitseg part of the TPU package's
-``models/registry.py:resolve_model``. The conv families and checkpoint
-loading are not ported yet."""
+``models/registry.py:resolve_model``, with its checkpoint loading (a port
+checkpoint directory or a reference Lightning ``.ckpt``). The conv
+families are not ported yet."""
 
 from __future__ import annotations
 
+import os
 from typing import Optional, Tuple, Union
 
 import torch
 
+from visiontransformer_tpu_torch.ckpt.io import restore_checkpoint
+from visiontransformer_tpu_torch.ckpt.torch_convert import (
+    load_lightning_checkpoint,
+)
 from visiontransformer_tpu_torch.configs import (
     ViTSegConfig,
     sweep_by_name,
@@ -57,18 +63,43 @@ def resolve_model(family: str, config_name: str, *, num_classes: int,
                   checkpoint_path: str = "",
                   device: Optional[Union[str, torch.device]] = None
                   ) -> Tuple[ViTSegConfig, ViTSeg]:
-    """(cfg, model) for a named vitseg model with random weights from a
+    """(cfg, model) for a named vitseg model in eval mode on ``device``
+    (None means CUDA; raises without it).
+
+    checkpoint_path: a directory is a port checkpoint (``ckpt/io.py``); its
+    ``params``, or the whole tree if it has none, load strictly. A path
+    ending in ``.ckpt`` is a reference Lightning file
+    (``ckpt/torch_convert.py``). Empty means random weights from a
     generator seeded with 0 (the same weights on every call, like the TPU
-    package's PRNGKey(0)), in eval mode on ``device`` (None means CUDA;
-    raises without it)."""
+    package's PRNGKey(0)). Any other path raises: the TPU package falls
+    through to random weights there, which would serve random masks under
+    a trained model's name. The weights load on the CPU and the model
+    moves to the device once."""
     dev = resolve_device(device)
     if family != "vitseg":
         raise KeyError(f"model family {family!r} is not ported yet; "
                        f"known: ['vitseg']")
-    if checkpoint_path:
-        raise ValueError("checkpoint loading is not ported yet; load weights "
-                         "with ckpt.convert.load_jax_params")
     cfg = vitseg_config(config_name, num_classes=num_classes,
                         input_size=input_size, compute_dtype=compute_dtype)
-    model = init_vitseg_(ViTSeg(cfg), torch.Generator().manual_seed(0))
+    params = (_checkpoint_params(checkpoint_path, cfg) if checkpoint_path
+              else None)
+    model = ViTSeg(cfg)
+    if params is None:
+        init_vitseg_(model, torch.Generator().manual_seed(0))
+    else:
+        model.load_state_dict(params, strict=True)
     return cfg, model.to(dev).eval()
+
+
+def _checkpoint_params(path: str, cfg: ViTSegConfig):
+    if os.path.isdir(path):
+        tree = restore_checkpoint(path)
+        return tree["params"] if "params" in tree else tree
+    if path.endswith(".ckpt"):
+        if not os.path.isfile(path):
+            raise FileNotFoundError(f"checkpoint {path} does not exist")
+        return load_lightning_checkpoint(path, cfg)
+    if not os.path.exists(path):
+        raise FileNotFoundError(f"checkpoint {path} does not exist")
+    raise ValueError(f"checkpoint {path} is neither a checkpoint directory "
+                     f"nor a reference .ckpt file")

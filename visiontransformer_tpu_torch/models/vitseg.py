@@ -69,6 +69,13 @@ def vitseg_apply(model: ViTSeg, images: torch.Tensor, *,
     return resize_bilinear_mm(x.float(), (images.shape[1], images.shape[2]))
 
 
+def vitseg_logits_nchw(model: ViTSeg, images_nchw: torch.Tensor,
+                       **kwargs) -> torch.Tensor:
+    """Torch-layout wrapper: (B, 3, H, W) in -> (B, C, H, W) logits out."""
+    logits = vitseg_apply(model, images_nchw.permute(0, 2, 3, 1), **kwargs)
+    return logits.permute(0, 3, 1, 2)
+
+
 def vitseg_predict(model: ViTSeg, images: torch.Tensor, *,
                    out_size: Optional[Tuple[int, int]] = None,
                    epilogue: str = "auto", attn_impl: str = "auto",

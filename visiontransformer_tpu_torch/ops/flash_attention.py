@@ -6,7 +6,8 @@ Kernels (``csrc/``), each replacing a kernel of the TPU package's
 
 - ``flash_attention_fwd.cu``, inference: softmax(Q·Kᵀ·d^-½)·V online over
   key tiles (``_fwd_kernel`` with ``need_lse=False``), launched by
-  ``flash_attention`` when no gradient is needed;
+  ``flash_attention`` when no gradient is needed, through the custom op
+  ``vt::flash_attention_fwd``;
 - the same source, training (``flash_attention_train``): also writes the
   natural-log lse and applies attention dropout inside the kernel
   (``_fwd_kernel`` with ``need_lse=True``);
@@ -483,13 +484,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     When a gradient is needed (grad mode on and an input requires grad),
     ``FlashAttention``: kernel 2 forward, kernels 3 and 4 backward.
-    Otherwise without dropout the inference kernel (serving, evaluation),
-    with dropout kernel 2 alone. dropout_rate > 0 needs dropout_seed (an
-    int, or an int64 scalar tensor, which may live on the device). CUDA:
-    float32 or bfloat16, d in HEAD_DIMS, strided views with a contiguous
-    last dimension; the forward kernels run the instantiation
-    ``forward_path`` names. CPU: the plain versions. Anything else
-    raises."""
+    Otherwise without dropout the inference kernel (serving, evaluation)
+    through the custom op ``vt::flash_attention_fwd``, which an exported
+    program holds as one node; with dropout kernel 2 alone. dropout_rate
+    > 0 needs dropout_seed (an int, or an int64 scalar tensor, which may
+    live on the device). CUDA: float32 or bfloat16, d in HEAD_DIMS, strided
+    views with a contiguous last dimension; the forward kernels run the
+    instantiation ``forward_path`` names. CPU: the plain versions. Anything
+    else raises."""
     if dropout_rate > 0.0 and dropout_seed is None:
         raise ValueError("dropout_rate > 0 requires dropout_seed")
     needs_grad = torch.is_grad_enabled() and any(
@@ -500,8 +502,23 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return FlashAttention.apply(q, k, v, float(dropout_rate), seed)
     if dropout_rate > 0.0:
         return flash_attention_train(q, k, v, dropout_rate, dropout_seed)[0]
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v)
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    return torch.ops.vt.flash_attention_fwd(q, k, v)
+
+
+# ------------------------------------------------- vt::flash_attention_fwd
+# Kernel 1 as a PyTorch operator: the CUDA implementation is the kernel's
+# launch, the CPU one the plain version, the fake one gives the output's
+# shape, dtype and layout without touching data (torch.export traces with
+# it, so the launch never sees a FakeTensor). ``ops/upsample_argmax.py``
+# registers kernel 5 in the same namespace.
+_LIB = torch.library.Library("vt", "FRAGMENT")
+_LIB.define("flash_attention_fwd(Tensor q, Tensor k, Tensor v) -> Tensor")
+
+
+def _flash_attention_cuda(q: torch.Tensor, k: torch.Tensor,
+                          v: torch.Tensor) -> torch.Tensor:
     _check("flash_attention", q, k, v)
     b, h, n, d = q.shape
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
@@ -517,6 +534,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _build.check(lib, err, "flash_attention")
     flash_attention.launches += 1
     return out
+
+
+def _flash_attention_fake(q: torch.Tensor, k: torch.Tensor,
+                          v: torch.Tensor) -> torch.Tensor:
+    return torch.empty_like(q, memory_format=torch.contiguous_format)
+
+
+_LIB.impl("flash_attention_fwd", _flash_attention_cuda, "CUDA")
+_LIB.impl("flash_attention_fwd", flash_attention_plain, "CPU")
+torch.library.register_fake("vt::flash_attention_fwd", _flash_attention_fake,
+                            lib=_LIB)
 
 
 # Kernel launches since the last reset, one count per kernel (read by

@@ -41,12 +41,20 @@ def _matrix_on(out_size: int, in_size: int, device: str) -> torch.Tensor:
     return torch.from_numpy(bilinear_matrix(out_size, in_size)).to(device)
 
 
+def _matrix(out_size: int, in_size: int, device) -> torch.Tensor:
+    # torch.export traces with fake tensors: a matrix made while it traces
+    # is a constant of the program and must not enter the cache.
+    if torch.compiler.is_exporting():
+        return torch.from_numpy(bilinear_matrix(out_size, in_size)).to(device)
+    return _matrix_on(out_size, in_size, str(device))
+
+
 def resize_bilinear_mm(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
     """(B, h, w, C) -> (B, H, W, C) fp32 bilinear resize as two
     interpolation-matrix products (H stage, then W stage)."""
     out_h, out_w = size
-    wh = _matrix_on(out_h, x.shape[1], str(x.device))
-    ww = _matrix_on(out_w, x.shape[2], str(x.device))
+    wh = _matrix(out_h, x.shape[1], x.device)
+    ww = _matrix(out_w, x.shape[2], x.device)
     x = torch.einsum("Hh,bhwc->bHwc", wh, x.float())
     return torch.einsum("Ww,bHwc->bHWc", ww, x)
 

@@ -1,7 +1,8 @@
 """Fused bilinear upsample + argmax (the seg-head epilogue) on Hopper, and
 its plain versions.
 
-``upsample_argmax`` launches ``csrc/upsample_argmax.cu`` for a CUDA tensor:
+``upsample_argmax`` launches ``csrc/upsample_argmax.cu`` for a CUDA tensor
+through the custom op ``vt::upsample_argmax``:
 (B, h, w, C) fp32 or bf16 grid logits -> (B, H, W) class map, int32 (the
 TPU kernel's type, the default) or uint8 (the serving path's mask type),
 with both interpolation stages and the class argmax fused so the
@@ -49,6 +50,23 @@ def _check(b: int, h: int, w: int, c: int, out_h: int, out_w: int,
     if out_dtype == torch.uint8 and c > 256:
         raise ValueError(f"upsample_argmax: uint8 masks hold at most 256 "
                          f"classes, got {c}")
+
+
+def _check_input(x: torch.Tensor, out_h: int, out_w: int,
+                 out_dtype: torch.dtype) -> None:
+    """Raise unless x is the (B, h, w, C) contiguous fp32 or bf16 tensor
+    the kernel takes and the output fits ``out_dtype``. Every
+    implementation of ``vt::upsample_argmax`` runs it, so a direct call of
+    the op, or an exported program, holds to the wrapper's contract."""
+    if x.dtype not in IN_DTYPES:
+        raise TypeError(f"upsample_argmax: expects float32 or bfloat16, "
+                        f"got {x.dtype}")
+    if x.dim() != 4:
+        raise ValueError(f"upsample_argmax: expects (B, h, w, C), got "
+                         f"{tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError("upsample_argmax: x must be contiguous")
+    _check(*x.shape, out_h, out_w, out_dtype)
 
 
 def epilogue_path(b: int, h: int, w: int, c: int, out_h: int, out_w: int,
@@ -118,26 +136,36 @@ def _taps_on(out_size: int, in_size: int, device: str):
 def upsample_argmax(x: torch.Tensor, size: Tuple[int, int], *,
                     out_dtype: torch.dtype = torch.int32) -> torch.Tensor:
     """(B, h, w, C) fp32 or bf16 grid logits -> (B, H, W) argmax class map
-    in ``out_dtype`` (int32, or uint8 for C <= 256).
+    in ``out_dtype`` (int32, or uint8 for C <= 256), through the custom op
+    ``vt::upsample_argmax``, which an exported program holds as one node.
 
     CUDA: the hand-written fused kernel (x contiguous; raises where one
     output row's H-stage, w x C fp32, exceeds a block's shared memory).
-    CPU: the plain version. Anything else raises."""
-    if x.dtype not in IN_DTYPES:
-        raise TypeError(f"upsample_argmax: expects float32 or bfloat16, "
-                        f"got {x.dtype}")
-    if x.dim() != 4:
-        raise ValueError(f"upsample_argmax: expects (B, h, w, C), got "
-                         f"{tuple(x.shape)}")
-    if not x.is_contiguous():
-        raise ValueError("upsample_argmax: x must be contiguous")
-    out_h, out_w = (int(s) for s in size)
-    b, in_h, in_w, c = x.shape
-    _check(b, in_h, in_w, c, out_h, out_w, out_dtype)
-    if x.device.type == "cpu":
-        return upsample_argmax_plain(x, (out_h, out_w), out_dtype)
-    if x.device.type != "cuda":
+    CPU: the plain version. Anything else raises; so does every
+    implementation of the op for an input the kernel does not take
+    (``_check_input``)."""
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"upsample_argmax: unsupported device {x.device}")
+    out_h, out_w = (int(s) for s in size)
+    return torch.ops.vt.upsample_argmax(x, out_h, out_w, out_dtype)
+
+
+# ------------------------------------------------------ vt::upsample_argmax
+# Kernel 5 as a PyTorch operator (see ``ops/flash_attention.py``, which
+# registers kernel 1 in the same namespace): the CUDA implementation is the
+# kernel's launch, the CPU one the plain version, the fake one the output's
+# shape and type. The interpolation taps are made inside the CUDA
+# implementation at run time, so an exported program holds none of them as
+# constants.
+_LIB = torch.library.Library("vt", "FRAGMENT")
+_LIB.define("upsample_argmax(Tensor x, int out_h, int out_w, "
+            "ScalarType out_dtype) -> Tensor")
+
+
+def _upsample_argmax_cuda(x: torch.Tensor, out_h: int, out_w: int,
+                          out_dtype: torch.dtype) -> torch.Tensor:
+    _check_input(x, out_h, out_w, out_dtype)
+    b, in_h, in_w, c = x.shape
     h_idx, h_w = _taps_on(out_h, in_h, str(x.device))
     w_idx, w_w = _taps_on(out_w, in_w, str(x.device))
     out = torch.empty((b, out_h, out_w), dtype=out_dtype, device=x.device)
@@ -153,6 +181,23 @@ def upsample_argmax(x: torch.Tensor, size: Tuple[int, int], *,
     upsample_argmax.launches += 1
     return out
 
+
+def _upsample_argmax_cpu(x: torch.Tensor, out_h: int, out_w: int,
+                         out_dtype: torch.dtype) -> torch.Tensor:
+    _check_input(x, out_h, out_w, out_dtype)
+    return upsample_argmax_plain(x, (out_h, out_w), out_dtype)
+
+
+def _upsample_argmax_fake(x: torch.Tensor, out_h: int, out_w: int,
+                          out_dtype: torch.dtype) -> torch.Tensor:
+    _check_input(x, out_h, out_w, out_dtype)
+    return x.new_empty((x.shape[0], out_h, out_w), dtype=out_dtype)
+
+
+_LIB.impl("upsample_argmax", _upsample_argmax_cuda, "CUDA")
+_LIB.impl("upsample_argmax", _upsample_argmax_cpu, "CPU")
+torch.library.register_fake("vt::upsample_argmax", _upsample_argmax_fake,
+                            lib=_LIB)
 
 # Kernel launches since the last reset (read by chip_smoke.py to prove the
 # main path ran through the kernel).

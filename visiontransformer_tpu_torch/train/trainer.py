@@ -8,11 +8,19 @@ createViTmodel.py:74). Evaluation runs under ``torch.no_grad``, so its
 attention takes the inference kernel. ``fit`` mirrors the TPU package's:
 shuffled ``batch_iterator`` with ``prefetch``, per-step and per-epoch CSV
 logs with its column names, EarlyStopping and ReduceLROnPlateau on the
-host between epochs.
+host between epochs, an ``epoch=N-step=M`` checkpoint after every epoch
+(``ckpt/io.py``: the model's state dict, the optimizer's state dict, whose
+param groups carry the plateau-lowered learning rate, and the step), and
+resume from one with its Adam moments and step, so that the dropout seeds
+and the epoch-seeded shuffle go on where they stopped. The schedules' own
+state (the plateau's best value and bad-epoch count, EarlyStopping's) is
+not saved: a resumed run trains at the restored learning rate until its
+first monitored epoch, where a fresh ``PlateauScheduler`` sets
+``learning_rate`` again, as the TPU package's does.
 
 Not ported yet, and rejected when asked for: mesh, FSDP, sequence and
-pipeline parallelism, multi-host, remat (ROADMAP §1 item 12), checkpoints
-and resume (item 8), the profiler trace. No tfevents file is written.
+pipeline parallelism, multi-host, remat, the profiler trace (ROADMAP
+queue 1). No tfevents file is written.
 Metrics stay 0-dim device tensors until a log line or the epoch's mean
 needs them, so a step does not wait for the card.
 """
@@ -26,6 +34,12 @@ import numpy as np
 import torch
 
 from visiontransformer_tpu_torch.ckpt.convert import load_jax_params
+from visiontransformer_tpu_torch.ckpt.io import (
+    get_latest_checkpoint,
+    parse_epoch,
+    restore_checkpoint,
+    save_checkpoint,
+)
 from visiontransformer_tpu_torch.configs import TrainConfig, ViTSegConfig
 from visiontransformer_tpu_torch.data.pipeline import batch_iterator, prefetch
 from visiontransformer_tpu_torch.device import resolve_device
@@ -156,16 +170,31 @@ class Trainer:
             on_epoch_end: Optional[Callable[[int, Dict[str, float]], None]] = None
             ) -> TrainState:
         """Train for ``max_epochs`` (default ``TrainConfig.max_epochs``) or
-        until EarlyStopping stops it."""
-        for name, value in (("checkpoint_dir", checkpoint_dir),
-                            ("resume_from", resume_from),
-                            ("profile_dir", profile_dir)):
-            if value:
-                raise NotImplementedError(f"fit({name}=...) is not ported yet")
+        until EarlyStopping stops it. checkpoint_dir (default
+        ``TrainConfig.checkpoint_dir``): save after every epoch.
+        resume_from: a checkpoint, or a directory of them (the latest is
+        taken); training goes on from the epoch after the checkpoint's, the
+        replacement for Lightning's fit(ckpt_path=...) (reference
+        model/CE/trainCurrentViTmodel.py:67-73)."""
+        if profile_dir:
+            raise NotImplementedError("fit(profile_dir=...) is not ported yet")
         cfg = self.train_cfg
         max_epochs = max_epochs if max_epochs is not None else cfg.max_epochs
+        checkpoint_dir = checkpoint_dir or cfg.checkpoint_dir
         if state is None:
             state = self.init_state()
+        start_epoch = 0
+        if resume_from:
+            path = get_latest_checkpoint(resume_from) or resume_from
+            # Params-only checkpoints keep the fresh Adam moments (partial
+            # restore); the optimizer's state lands on the parameters'
+            # device.
+            restored = restore_checkpoint(
+                path, {"params": state.model.state_dict(),
+                       "opt_state": state.optimizer, "step": state.step})
+            state.step = int(restored["step"])
+            ckpt_epoch = parse_epoch(path)
+            start_epoch = ckpt_epoch + 1 if ckpt_epoch is not None else 0
 
         stopper = None
         if cfg.early_stopping_monitor:
@@ -178,7 +207,7 @@ class Trainer:
                                        factor=cfg.plateau_factor,
                                        patience=cfg.plateau_patience)
 
-        for epoch in range(max_epochs):
+        for epoch in range(start_epoch, max_epochs):
             # ---- train ----
             t0 = time.time()
             train_metrics = []
@@ -208,6 +237,12 @@ class Trainer:
                 self.logger.log(epoch_metrics, epoch=epoch, step=state.step)
             if on_epoch_end:
                 on_epoch_end(epoch, epoch_metrics)
+            if checkpoint_dir:
+                save_checkpoint(checkpoint_dir,
+                                {"params": state.model.state_dict(),
+                                 "opt_state": state.optimizer.state_dict(),
+                                 "step": state.step},
+                                epoch=epoch, step=state.step)
 
             # ---- schedules (host-side) ----
             if plateau is not None:
