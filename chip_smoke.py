@@ -100,11 +100,44 @@ failure:
              forward by device_ms and host_ms; save and restore seconds,
              checkpoint bytes; the host seconds of each step. Every
              kernel of the path launched at least once.
+11. paed     the binary crack task (paed_binary) on ViT-B/16 (1 class,
+             bf16, 224^2, PAED_TRAIN_DEFAULTS: AdamW 1e-4, batch 16 = 4
+             micro-batches of 4, dropout 0.1) over a 32-image
+             generate_binary set: compute_sdf_batch on the card against
+             scipy's EDT at (4, 224^2) and (4, 512^2) crack masks (an
+             empty and a full mask against the port's CPU result), its
+             device ms and peak memory; Trainer.fit, two epochs of two
+             steps with validation and checkpoints (finite losses, 12 x 4
+             launches of kernels 2-4 a step, kernel 1 only in validation,
+             val_loss / val_IoU epoch metrics that the plateau and
+             EarlyStopping monitors read); images/s and step seconds of a
+             paed_binary step beside a CE step, in turns, with a profile
+             of one step of each; one fp32 paed_binary step, dropout off,
+             kernels against eager attention; one bf16 step each of
+             paed_multiclass and paed_anchored on the CE set (17
+             classes). The host seconds of each step.
+12. eval_sweep  kernel 1 against its plain version (bf16) at the
+             sweep's 9 shapes (4, heads 8/12/16, N 197/785/3137, 64),
+             timed beside SDPA; the eval-sweep command
+             (evaluation/evaluate.py) over the 9 sweep configs (CE, seeded
+             weights, 224^2, batch 4, two batches): each CSV in the
+             reference schema with 8 rows, kernel 1 launched layers x 2
+             times and no other kernel, the confusion summing to the
+             pixel count, images/s per config; for one config per token
+             count (197, 785, 3137) the command's confusion .npy, and the
+             CSV's Accuracy and Pred_Classes, against the masks of
+             argmax(vitseg_apply) of the same seeded weights called
+             directly on the same 8 images. Then eval-sweep --task
+             paed_binary --ckpt-root on phase 11's checkpoint: its
+             confusion and CSV held the same way against sigmoid(
+             vitseg_apply) > 0.5 of the trained in-memory model, and the
+             restored model's logits equal the trained one's bit for bit.
 
 Then it prints the card's name and power limit as nvidia-smi gives them,
 one JSON line describing every kernel (launches of the serving kernels
 counted during the serving run, of the training kernels during the train
-run, of the sweep kernels during the two sweeps), and, last,
+run, of the sweep kernels during the two sweeps; kernels 1-5 also with
+their launches on the paths of phases 10, 11 and 12), and, last,
 {"ok": true, "device": {...}}.
 Without CUDA it exits with code 1 and prints no result.
 
@@ -1189,20 +1222,30 @@ def phase_train_fp32_step():
     the same weights and batch."""
     from visiontransformer_tpu_torch.configs import CE_TRAIN_DEFAULTS
     from visiontransformer_tpu_torch.models.registry import vitseg_config
-    from visiontransformer_tpu_torch.train.trainer import Trainer
 
     cfg = vitseg_config("P16H768A12", num_classes=17, compute_dtype="float32")
-    cfg = dataclasses.replace(cfg, vit=dataclasses.replace(
-        cfg.vit, hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0))
     tcfg = CE_TRAIN_DEFAULTS
     rng = np.random.default_rng(0)
     batch = {"image": rng.random((tcfg.batch_size, 224, 224, 3), np.float32),
              "mask": rng.integers(0, 17, (tcfg.batch_size, 256, 256),
                                   dtype=np.int32)}
+    return _fp32_step_vs_eager(cfg, tcfg, "ce", batch, "train_fp32_step")
+
+
+def _fp32_step_vs_eager(cfg, tcfg, task: str, batch, line: str):
+    """One fp32 optimizer step of ``task`` with dropout off, through the
+    kernels and through eager attention on the same weights and batch: the
+    loss within LOSS_RTOL, every gradient within GRAD_TOL[fp32], and
+    kernel 4 launched layers x micro-batches times. Prints ``line``."""
+    from visiontransformer_tpu_torch.train.trainer import Trainer
+
+    cfg = dataclasses.replace(cfg, vit=dataclasses.replace(
+        cfg.vit, hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0))
     reset, read = _train_launches()
     runs = {}
     for impl in ("flash", "eager"):
-        trainer = Trainer(cfg, tcfg, device="cuda", attn_impl=impl)
+        trainer = Trainer(cfg, tcfg, task=task, device="cuda",
+                          attn_impl=impl)
         state = trainer.init_state()
         reset()
         _, metrics = trainer.train_step(state, batch, seed=0)
@@ -1223,10 +1266,11 @@ def phase_train_fp32_step():
               "worst_grad": {"name": worst,
                              "max_abs_err": checks[worst][1]},
               "grad_tol": GRAD_TOL[torch.float32], "launches": launches}
-    emit("train_fp32_step", **result)
+    emit(line, **result)
     if (result["loss_rel_diff"] > LOSS_RTOL or bad
             or launches["flash_attention_bwd_dkv"] != per_step):
-        raise AssertionError(f"fp32 train step: kernels vs eager {result}")
+        raise AssertionError(f"fp32 {task} train step: kernels vs eager "
+                             f"{result}")
     return result
 
 
@@ -1830,6 +1874,451 @@ def phase_checkpoint():
     return result
 
 
+# EDT on the card (phase 11): against scipy at the TPU package's own
+# tolerances (tests/test_edt.py:19,39); a mask without foreground and one
+# without background, where the port saturates at _BIG as the TPU package
+# does and scipy does not, against the port's CPU result, which equals the
+# TPU package's bit for bit (tests/test_torch_paed.py), so within the same
+# 1e-6 on the card.
+EDT_ATOL = 1e-4
+SDF_ATOL = 1e-5
+EDT_CPU_ATOL = 1e-6
+EDT_SIZES = (224, 512)
+# Phase 12: configs whose sweep CSV and confusion are held against the
+# direct forward, one per token count (197, 785, 3137).
+SWEEP_MASK_CHECKS = ("P16H768A12", "P8H512A8", "P4H1024A16")
+
+
+def _crack_set(root: str, n_samples: int, size: int):
+    """The port's copy of generate_binary at size^2, as a PAED dataset."""
+    from visiontransformer_tpu_torch.data import PAEDBinaryDataset
+    from visiontransformer_tpu_torch.data.synthetic import generate_binary
+
+    generate_binary(root, n_samples=n_samples, image_size=size)
+    return PAEDBinaryDataset(f"{root}/image_png", f"{root}/mask_png",
+                             image_size=size, cache=True)
+
+
+def _edt_on_card(tmp: str):
+    """compute_sdf_batch on the card at (4, size, size) crack masks: the
+    EDTs and SDFs against scipy, the degenerate masks against the CPU,
+    device ms and the peak memory above what was allocated before."""
+    from scipy import ndimage
+
+    from visiontransformer_tpu_torch.losses.sdf import compute_sdf_batch
+    from visiontransformer_tpu_torch.ops.edt import edt
+
+    rows, failures = {}, []
+    for size in EDT_SIZES:
+        data = _crack_set(f"{tmp}/edt{size}", 4, size)
+        masks_np = np.stack([data[i][1] for i in range(4)]) > 0.5
+        masks = torch.from_numpy(masks_np).to("cuda")
+        edt_err = sdf_err = 0.0
+        sdfs = [t.cpu().numpy() for t in compute_sdf_batch(masks)]
+        for m, got, sdf in ((~masks, edt(~masks), sdfs[0]),
+                            (masks, edt(masks), sdfs[1])):
+            for i in range(4):
+                want = ndimage.distance_transform_edt(m[i].cpu().numpy())
+                edt_err = max(edt_err, float(np.abs(
+                    got[i].cpu().numpy() - want).max()))
+                want = want.astype(np.float32)
+                want = want / want.max() if want.max() > 0 else want
+                sdf_err = max(sdf_err, float(np.abs(sdf[i] - want).max()))
+        flat = torch.stack([torch.zeros(size, size, dtype=torch.bool),
+                            torch.ones(size, size, dtype=torch.bool)])
+        cpu_err = max(float((a.cpu() - b).abs().max()) for a, b in zip(
+            (*compute_sdf_batch(flat.to("cuda")), edt(flat.to("cuda"))),
+            (*compute_sdf_batch(flat), edt(flat))))
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        compute_sdf_batch(masks)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        rows[size] = {"shape": [4, size, size], "edt_max_abs_err": edt_err,
+                      "sdf_max_abs_err": sdf_err,
+                      "degenerate_vs_cpu_max_abs_err": cpu_err,
+                      "foreground_share": float(masks_np.mean()),
+                      "ms": device_ms(lambda: compute_sdf_batch(masks)),
+                      "peak_bytes": peak}
+        if edt_err > EDT_ATOL or sdf_err > SDF_ATOL or cpu_err > EDT_CPU_ATOL:
+            failures.append(f"EDT at {size}^2: {rows[size]}")
+    return rows, failures
+
+
+def phase_paed(tmp: str):
+    """Phase 11: the binary crack task (paed_binary) on ViT-B/16 with
+    PAED_TRAIN_DEFAULTS, bf16, 224^2. Returns (result, what phase 12
+    evaluates: the trained model, its checkpoint root and the data)."""
+    import csv
+
+    from visiontransformer_tpu_torch.configs import (
+        CE_TRAIN_DEFAULTS,
+        PAED_TRAIN_DEFAULTS,
+    )
+    from visiontransformer_tpu_torch.data.pipeline import batch_iterator
+    from visiontransformer_tpu_torch.models.registry import vitseg_config
+    from visiontransformer_tpu_torch.ops.upsample_argmax import upsample_argmax
+    from visiontransformer_tpu_torch.train.trainer import Trainer
+    from visiontransformer_tpu_torch.utils.csvlog import CSVLogger
+
+    cfg = vitseg_config("P16H768A12", num_classes=1, input_size=224,
+                        compute_dtype="bfloat16")
+    ce_cfg = vitseg_config("P16H768A12", num_classes=17, input_size=224,
+                           compute_dtype="bfloat16")
+    tcfg = dataclasses.replace(PAED_TRAIN_DEFAULTS, max_epochs=2,
+                               log_every_n_steps=1)
+    layers, accum = cfg.vit.num_hidden_layers, tcfg.accumulate_grad_batches
+    per_step = layers * accum
+    reset, read = _train_launches()
+    seconds, marks = {}, [time.perf_counter()]
+
+    def lap(step: str):
+        marks.append(time.perf_counter())
+        seconds[step] = marks[-1] - marks[-2]
+
+    result = {"config": "P16H768A12", "classes": 1, "dtype": "bfloat16",
+              "batch": tcfg.batch_size, "accumulate": accum,
+              "optimizer": tcfg.optimizer, "lr": tcfg.learning_rate,
+              "dropout": [cfg.vit.hidden_dropout_prob,
+                          cfg.vit.attention_probs_dropout_prob]}
+    result["edt"], failures = _edt_on_card(tmp)
+    lap("edt")
+
+    # 1. Trainer.fit: two epochs of two steps, validation, checkpoints.
+    data = _crack_set(f"{tmp}/cracks", 2 * tcfg.batch_size, 224)
+    ckpt_root = f"{tmp}/paed_ckpts"
+    trainer = Trainer(cfg, tcfg, task="paed_binary", device="cuda",
+                      logger=CSVLogger(f"{tmp}/paed_logs"))
+    epochs = []
+    reset()
+    upsample_argmax.launches = 0
+    state = trainer.fit(data, val_dataset=data,
+                        checkpoint_dir=f"{ckpt_root}/P16H768A12",
+                        on_epoch_end=lambda epoch, m: epochs.append(m))
+    torch.cuda.synchronize()
+    path_launches = {**read(), "upsample_argmax": upsample_argmax.launches}
+    with open(trainer.logger.path) as f:
+        losses = [float(r["train_loss_step"]) for r in csv.DictReader(f)
+                  if r["train_loss_step"]]
+    val_batches = len(data) // tcfg.batch_size
+    want = {"flash_attention_fwd": layers * val_batches * len(epochs),
+            "flash_attention_fwd_train": per_step * state.step,
+            "flash_attention_bwd_dq": per_step * state.step,
+            "flash_attention_bwd_dkv": per_step * state.step,
+            "upsample_argmax": 0}
+    monitors = (tcfg.plateau_monitor, tcfg.early_stopping_monitor)
+    result["fit"] = {
+        "steps": state.step, "losses": losses, "launches": path_launches,
+        "expected_launches": want, "monitors": monitors,
+        "epochs": [{k: v for k, v in m.items()
+                    if k.startswith(("val_", "valid_")) or k == "train_loss"}
+                   for m in epochs],
+        "checkpoints": sorted(os.listdir(f"{ckpt_root}/P16H768A12"))}
+    if (state.step != 4 or path_launches != want or len(losses) != 4
+            or not all(np.isfinite(x) for x in losses)
+            or len(result["fit"]["checkpoints"]) != 2
+            or any(not all(k in m for k in monitors)
+                   or any(k.startswith("valid_") for k in m)
+                   for m in epochs)):
+        failures.append(f"paed_binary fit: {result['fit']}")
+    lap("fit")
+
+    # 2. images/s and step seconds of a paed_binary step beside a CE step,
+    # in turns in this process, on batches already on the card (fresh
+    # states: the trained one is phase 12's reference).
+    rng = np.random.default_rng(2)
+    ce_trainer = Trainer(ce_cfg, CE_TRAIN_DEFAULTS, device="cuda")
+    ce_state = ce_trainer.init_state()
+    on_card = lambda b: {k: torch.from_numpy(v).to("cuda")
+                         for k, v in b.items()}
+    paed_batches = [on_card(b) for b in batch_iterator(
+        data, tcfg.batch_size, shuffle=True, seed=1)]
+    ce_batches = [on_card({
+        "image": rng.random((tcfg.batch_size, 224, 224, 3), np.float32),
+        "mask": rng.integers(0, 17, (tcfg.batch_size, 256, 256),
+                             dtype=np.int32)}) for _ in range(2)]
+    steps = {"paed_binary": _train_step_fn(trainer, trainer.init_state(),
+                                           paed_batches),
+             "ce": _train_step_fn(ce_trainer, ce_state, ce_batches)}
+    timing = {name: {"batch": tcfg.batch_size, "accumulate": accum,
+                     "steps_per_s": 0.0} for name in steps}
+    for name, step in steps.items():
+        step()
+        torch.cuda.synchronize()
+        reset()
+        torch.cuda.reset_peak_memory_stats()
+        step()
+        torch.cuda.synchronize()
+        timing[name].update(launches_per_step=read(), peak_mem_gb=(
+            torch.cuda.max_memory_allocated() / 1e9))
+    for _ in range(3):
+        for name, step in steps.items():
+            t0 = time.perf_counter()
+            for _ in range(3):
+                step()
+            torch.cuda.synchronize()
+            timing[name]["steps_per_s"] = max(
+                timing[name]["steps_per_s"], 3 / (time.perf_counter() - t0))
+    for name, step in steps.items():
+        row = timing[name]
+        row.update(images_per_s=row["steps_per_s"] * tcfg.batch_size,
+                   step_s=1.0 / row["steps_per_s"],
+                   profile=profile_steps(step, tcfg.batch_size, steps=1))
+        if row["launches_per_step"] != {
+                "flash_attention_fwd": 0, "flash_attention_fwd_train":
+                per_step, "flash_attention_bwd_dq": per_step,
+                "flash_attention_bwd_dkv": per_step}:
+            failures.append(f"{name} step launches {row}")
+    result["throughput"] = timing
+    del ce_trainer, ce_state, steps, paed_batches, ce_batches
+    lap("throughput")
+
+    # 3. One fp32 paed_binary step, dropout off, kernels vs eager attention.
+    batch = next(batch_iterator(data, tcfg.batch_size))
+    fp32 = vitseg_config("P16H768A12", num_classes=1, input_size=224,
+                         compute_dtype="float32")
+    result["fp32_step"] = _fp32_step_vs_eager(fp32, PAED_TRAIN_DEFAULTS,
+                                              "paed_binary", batch,
+                                              "paed_fp32_step")
+    lap("fp32_step")
+
+    # 4. One bf16 step of each multiclass PAED task on the CE set.
+    ce_data = _synthetic_ce_set(f"{tmp}/paed_ce", tcfg.batch_size)
+    batch = next(batch_iterator(ce_data, tcfg.batch_size))
+    result["multiclass_steps"] = {}
+    for task in ("paed_multiclass", "paed_anchored"):
+        task_trainer = Trainer(ce_cfg, dataclasses.replace(
+            CE_TRAIN_DEFAULTS, learning_rate=1e-4), task=task, device="cuda")
+        task_state = task_trainer.init_state()
+        reset()
+        _, metrics = task_trainer.train_step(task_state, batch, seed=0)
+        row = {"metrics": {k: float(v) for k, v in metrics.items()},
+               "launches": read()}
+        result["multiclass_steps"][task] = row
+        if (not all(np.isfinite(v) for v in row["metrics"].values())
+                or row["launches"]["flash_attention_fwd"]
+                or any(row["launches"][k] != per_step for k in (
+                    "flash_attention_fwd_train", "flash_attention_bwd_dq",
+                    "flash_attention_bwd_dkv"))):
+            failures.append(f"{task} step: {row}")
+        del task_trainer, task_state
+    lap("multiclass_steps")
+    result.update(path_launches=path_launches, seconds=seconds)
+    emit("paed", **result)
+    missing = [k for k in ("flash_attention_fwd_train",
+                           "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+               if not path_launches[k]]
+    if missing:
+        failures.append(f"kernels not launched on the path: {missing}")
+    if failures:
+        raise AssertionError(f"paed phase: {failures}")
+    return result, {"model": state.model, "ckpt_root": ckpt_root,
+                    "data": f"{tmp}/cracks"}
+
+
+def phase_eval_sweep(tmp: str, trained):
+    """Phase 12: the eval-sweep command over the 9 sweep configs (CE, 17
+    classes, seeded weights) and over phase 11's checkpoint (paed_binary),
+    at 224^2, batch 4, 2 batches."""
+    import csv
+
+    from visiontransformer_tpu_torch.cli import main as cli_main
+    from visiontransformer_tpu_torch.configs import SWEEP_CONFIGS, sweep_by_name
+    from visiontransformer_tpu_torch.data import PAEDBinaryDataset
+    from visiontransformer_tpu_torch.data.pipeline import batch_iterator
+    from visiontransformer_tpu_torch.evaluation.evaluate import (
+        CSV_HEADER,
+        sweep_model,
+    )
+    from visiontransformer_tpu_torch.models.vitseg import vitseg_apply
+    from visiontransformer_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        flash_attention_plain,
+        forward_path,
+    )
+    from visiontransformer_tpu_torch.ops.resize import resize_nearest_pil
+    from visiontransformer_tpu_torch.ops.upsample_argmax import upsample_argmax
+
+    reset, read = _train_launches()
+    batch, batches = 4, 2
+    n_images = batch * batches
+    failures, path_launches, configs = [], {}, {}
+    seconds, marks = {}, [time.perf_counter()]
+
+    def lap(step: str):
+        marks.append(time.perf_counter())
+        seconds[step] = marks[-1] - marks[-2]
+
+    # Kernel 1 against its plain version at the shapes the sweep gives it,
+    # (batch, heads, N, 64) bf16 strided views of a fused QKV, as the model
+    # passes them; device ms beside SDPA's. Outside the counted sweeps.
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    kernel1 = {}
+    for heads, n in sorted({(e.attention_heads,
+                             (224 // e.patch_size) ** 2 + 1)
+                            for e in SWEEP_CONFIGS}):
+        qkv = torch.randn(batch, n, 3, heads, 64, generator=gen,
+                          device="cuda").to(torch.bfloat16)
+        q, k, v = qkv.permute(2, 0, 3, 1, 4)
+        ok, fields = flash_agrees(flash_attention(q, k, v),
+                                  flash_attention_plain(q, k, v))
+        fields.update(ok=ok, path=forward_path(n, 64, torch.bfloat16),
+                      ms=device_ms(lambda: flash_attention(q, k, v)),
+                      sdpa_ms=device_ms(
+                          lambda: F.scaled_dot_product_attention(q, k, v)))
+        kernel1[f"{batch}x{heads}x{n}x64"] = fields
+        if not ok:
+            failures.append(f"kernel 1 at {[batch, heads, n, 64]}: {fields}")
+    lap("kernel1_checks")
+
+    def sweep(args):
+        """One eval-sweep command; (CSV rows, confusion, launches, s)."""
+        reset()
+        upsample_argmax.launches = 0
+        t0 = time.perf_counter()
+        if cli_main(["eval-sweep", "--batch-size", str(batch),
+                     "--num-batches", str(batches), "--no-split",
+                     "--image-size", "224", "--device", "cuda", *args]) != 0:
+            raise AssertionError(f"eval-sweep {args} returned non-zero")
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        launches = {**read(), "upsample_argmax": upsample_argmax.launches}
+        for k, v in launches.items():
+            path_launches[k] = path_launches.get(k, 0) + v
+        name = args[args.index("--configs") + 1]
+        out = args[args.index("--out") + 1]
+        with open(f"{out}/{name}/{name}_metrics.csv", newline="") as f:
+            rows = list(csv.reader(f))
+        confusion = np.load(f"{out}/{name}/{name}_pixel_confusion.npy")
+        return rows, confusion, launches, elapsed
+
+    def expected(layers: int):
+        """A sweep's launches: kernel 1 once a layer a batch, no other."""
+        return {"flash_attention_fwd": layers * batches,
+                "flash_attention_fwd_train": 0, "flash_attention_bwd_dq": 0,
+                "flash_attention_bwd_dkv": 0, "upsample_argmax": 0}
+
+    def direct(model, data, binary: bool):
+        """The command's 8 images, in its batches, through ``model``
+        called directly: per image the accuracy (%) and the predicted
+        classes as the CSV writes them, and the pixel confusion, counted
+        with numpy from the masks."""
+        k = 2 if binary else data.num_classes
+        accuracy, classes, confusion = [], [], np.zeros((k, k), np.int64)
+        for _, b in zip(range(batches), batch_iterator(data, batch,
+                                                       drop_last=False)):
+            with torch.no_grad():
+                logits = vitseg_apply(model, torch.from_numpy(
+                    b["image"]).to("cuda"))
+            pred = (torch.sigmoid(logits[..., 0]) > 0.5 if binary
+                    else torch.argmax(logits, dim=-1)).int().cpu().numpy()
+            gt = resize_nearest_pil(torch.from_numpy(b["mask"]),
+                                    (224, 224)).int().numpy()
+            accuracy += (100.0 * (gt == pred).mean(axis=(1, 2))).tolist()
+            classes += ["|".join(map(str, np.unique(m).tolist()))
+                        for m in pred]
+            confusion += np.bincount((gt * k + pred).ravel(),
+                                     minlength=k * k).reshape(k, k)
+        return accuracy, classes, confusion
+
+    def against_direct(rows, confusion, want):
+        """The command's CSV and confusion .npy against ``direct``'s."""
+        accuracy, classes, want_confusion = want
+        col_acc = CSV_HEADER.index("Accuracy")
+        col_pred = CSV_HEADER.index("Pred_Classes")
+        return {"confusion_equal_direct": bool(np.array_equal(
+                    confusion, want_confusion)),
+                "accuracy_max_abs_err": max(
+                    abs(float(r[col_acc]) - a)
+                    for r, a in zip(rows[1:], accuracy)),
+                "pred_classes_equal_direct": [
+                    r[col_pred] for r in rows[1:]] == classes}
+
+    def agrees(row) -> bool:
+        return (row["confusion_equal_direct"]
+                and row["accuracy_max_abs_err"] < 1e-3
+                and row["pred_classes_equal_direct"])
+
+    # 16 images, so that their masks hold all 17 classes most likely (the
+    # command counts the classes the data holds); 8 of them are evaluated.
+    ce_root = f"{tmp}/sweep_ce"
+    ce_data = _synthetic_ce_set(ce_root, 16)
+    time_col = CSV_HEADER.index("Inference_Time")
+    for entry in SWEEP_CONFIGS:
+        rows, confusion, launches, elapsed = sweep(
+            ["--data", ce_root, "--configs", entry.name,
+             "--out", f"{tmp}/sweep_out"])
+        times = [float(r[time_col]) for r in rows[1:]]
+        row = {"tokens": (224 // entry.patch_size) ** 2 + 1,
+               "layers": entry.hidden_layers, "heads": entry.attention_heads,
+               "rows": len(rows) - 1, "launches": launches,
+               "command_s": elapsed,
+               "images_per_s": n_images / sum(times),
+               "images_per_s_batch2": batch / sum(times[batch:]),
+               "confusion_sum": int(confusion.sum())}
+        if (rows[0] != CSV_HEADER or len(rows) != 1 + n_images
+                or launches != expected(entry.hidden_layers)
+                or confusion.sum() != n_images * 224 * 224):
+            failures.append(f"sweep {entry.name}: {row}")
+        if entry.name in SWEEP_MASK_CHECKS:
+            # The same seeded weights, built outside the command.
+            _, model = sweep_model(entry, num_classes=ce_data.num_classes,
+                                   image_size=224, device="cuda")
+            row.update(against_direct(rows, confusion,
+                                      direct(model, ce_data, False)))
+            if not agrees(row):
+                failures.append(f"sweep {entry.name} masks: {row}")
+            del model
+        configs[entry.name] = row
+    lap("ce_sweep")
+
+    # The crack model of phase 11, restored from its checkpoint.
+    out = f"{tmp}/sweep_binary"
+    rows, confusion, launches, elapsed = sweep(
+        ["--task", "paed_binary", "--data", trained["data"], "--ckpt-root",
+         trained["ckpt_root"], "--configs", "P16H768A12", "--out", out])
+    # The command's CSV and confusion against the trained in-memory
+    # model's sigmoid > 0.5 masks over the same 8 images.
+    crack_data = PAEDBinaryDataset(f"{trained['data']}/image_png",
+                                   f"{trained['data']}/mask_png",
+                                   image_size=224)
+    binary = {"rows": len(rows) - 1, "launches": launches,
+              "command_s": elapsed, "confusion": confusion.tolist(),
+              **against_direct(rows, confusion,
+                               direct(trained["model"], crack_data, True))}
+    # Four steps leave the crack model predicting little or no crack, so
+    # the masks alone could agree by being empty: the model the command
+    # restores must also give the trained one's logits bit for bit.
+    cfg, model = sweep_model(sweep_by_name("P16H768A12"), num_classes=1,
+                             checkpoint_root=trained["ckpt_root"],
+                             image_size=224, device="cuda")
+    images = torch.from_numpy(next(batch_iterator(
+        crack_data, batch))["image"]).to("cuda")
+    with torch.no_grad():
+        binary["logits_equal_trained"] = bool(torch.equal(
+            vitseg_apply(model, images),
+            vitseg_apply(trained["model"], images)))
+    if (rows[0] != CSV_HEADER or len(rows) != 1 + n_images
+            or launches != expected(cfg.vit.num_hidden_layers)
+            or not agrees(binary) or not binary["logits_equal_trained"]
+            or confusion.sum() != n_images * 224 * 224):
+        failures.append(f"binary sweep: {binary}")
+    del model
+    lap("binary_sweep")
+    result = {"batch": batch, "batches": batches,
+              "classes": ce_data.num_classes, "kernel1": kernel1,
+              "configs": configs,
+              "binary": binary, "path_launches": path_launches,
+              "seconds": seconds}
+    emit("eval_sweep", **result)
+    if not path_launches["flash_attention_fwd"]:
+        failures.append("kernel 1 not launched on the sweep")
+    if failures:
+        raise AssertionError(f"eval_sweep phase: {failures}")
+    return result
+
+
 def _forward_lines(peaks, flash_timed, flash_train):
     """One line per timed bf16 d = 64 shape: kernel 1, kernel 2 at dropout
     0 and 0.1 and SDPA's forward at both rates (device time), the bounds and
@@ -1888,6 +2377,10 @@ def main() -> int:
     phase_train_fp32_step()
     phase_train_bf16_dropout_step()
     checkpoint = phase_checkpoint()
+    with tempfile.TemporaryDirectory() as tmp:
+        paed, trained = phase_paed(tmp)
+        sweep = phase_eval_sweep(tmp, trained)
+        del trained
     emit("done", seconds=time.perf_counter() - t0,
          masks_per_s=model["bfloat16"]["masks_per_s"],
          jobs_per_s=serving["jobs_per_s"],
@@ -1945,8 +2438,10 @@ def main() -> int:
                  ratio=t["bwd_sum_ms"] / t["sdpa_bwd_ms"])
     for line in _forward_lines(peaks, flash_timed, flash_train):
         emit("flash_forward", **line)
-    for row in kernels:  # kernels 1-5: their launches on phase 10's path
+    for row in kernels:  # kernels 1-5: their launches on phases 10-12
         row["checkpoint_launches"] = checkpoint["path_launches"][row["name"]]
+        row["paed_launches"] = paed["path_launches"][row["name"]]
+        row["eval_sweep_launches"] = sweep["path_launches"][row["name"]]
     kernels += variants
     print(smi)
     print(json.dumps({"kernels": kernels}))

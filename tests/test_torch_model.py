@@ -42,6 +42,10 @@ CLASSES = 5
 # bf16: argmax agreement of the port's masks with JAX's, both in bf16 on
 # the CPU (they round at different places); measured 0.9978 on this input.
 BF16_AGREEMENT_FLOOR = 0.99
+# The exact mask comparisons draw their images from a generator of their
+# own, so that their inputs do not depend on which tests ran before them
+# in a worker (the session ``rng`` advances with every draw).
+PREDICT_SEED = 42
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -125,9 +129,9 @@ def test_seg_logits_and_masks_match(rng, jax_params, attn_impl):
 
 @pytest.mark.parametrize("epilogue", ["auto", "plain", "kernel"])
 @pytest.mark.parametrize("out_size", [None, (64, 64)])
-def test_predict_masks_match(rng, jax_params, epilogue, out_size):
+def test_predict_masks_match(jax_params, epilogue, out_size):
     j, _ = _configs()
-    x = _images(rng)
+    x = _images(np.random.default_rng(PREDICT_SEED))
     model = _port(jax_params)
     with torch.no_grad():
         got = vitseg_predict(model, torch.from_numpy(x), out_size=out_size,
@@ -139,11 +143,11 @@ def test_predict_masks_match(rng, jax_params, epilogue, out_size):
 
 
 @pytest.mark.parametrize("epilogue", ["auto", "plain", "kernel"])
-def test_predict_uint8_masks_match(rng, jax_params, epilogue):
+def test_predict_uint8_masks_match(jax_params, epilogue):
     """The serving path's mask type, asked of the epilogue: the JAX
     forward's int32 masks cast as the JAX serving program casts them."""
     j, _ = _configs()
-    x = _images(rng)
+    x = _images(np.random.default_rng(PREDICT_SEED))
     model = _port(jax_params)
     with torch.no_grad():
         got = vitseg_predict(model, torch.from_numpy(x), epilogue=epilogue,

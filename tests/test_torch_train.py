@@ -1,11 +1,12 @@
-"""PyTorch port vs the JAX package: the CE training slice.
+"""PyTorch port vs the JAX package: the training slice.
 
-Losses, the nearest target resize, the smp multiclass metrics, the ce and
-smp_multiclass tasks, the optimizers and one accumulated ``train_step`` are
-held against the JAX package on the tiny config of
-tests/test_torch_model.py, with weights from the weight bridge; ``fit``,
-its CSV log and schedules, and the ``train`` command run on the CPU because
-the tests ask for it (``device="cpu"``).
+Losses, the nearest target resize, the smp multiclass metrics, the five
+tasks (ce, smp_multiclass and the three PAED tasks), the optimizers and one
+accumulated ``train_step`` (ce and paed_binary) are held against the JAX
+package on the tiny config of tests/test_torch_model.py, with weights from
+the weight bridge; ``fit``, its CSV log and schedules (the PAED defaults'
+``val_`` monitors included), and the ``train`` command run on the CPU
+because the tests ask for it (``device="cpu"``).
 """
 
 import csv
@@ -33,8 +34,14 @@ from visiontransformer_tpu_torch.ckpt.convert import (
     vitseg_params_from_jax,
 )
 from visiontransformer_tpu_torch.cli import main as cli_main
-from visiontransformer_tpu_torch.data import CESegmentationDataset
-from visiontransformer_tpu_torch.data.synthetic import generate_multiclass
+from visiontransformer_tpu_torch.data import (
+    CESegmentationDataset,
+    PAEDBinaryDataset,
+)
+from visiontransformer_tpu_torch.data.synthetic import (
+    generate_binary,
+    generate_multiclass,
+)
 from visiontransformer_tpu_torch.losses import basic as tlosses
 from visiontransformer_tpu_torch.metrics import segmentation as tmetrics
 from visiontransformer_tpu_torch.models.vitseg import ViTSeg, vitseg_apply
@@ -68,16 +75,31 @@ def _configs(classes=CLASSES, **vit):
     return j, t
 
 
+def _init(classes):
+    return jax.tree_util.tree_map(
+        np.asarray, vitseg_init(jax.random.PRNGKey(0), _configs(classes)[0]))
+
+
 @pytest.fixture(scope="module")
 def jax_params():
-    return jax.tree_util.tree_map(
-        np.asarray, vitseg_init(jax.random.PRNGKey(0), _configs()[0]))
+    return _init(CLASSES)
 
 
-def _batch(rng, b=4, mask_size=40):
-    return {"image": rng.random((b, 32, 32, 3), np.float32),
-            "mask": rng.integers(0, CLASSES, (b, mask_size, mask_size),
-                                 dtype=np.int32)}
+@pytest.fixture(scope="module")
+def jax_params_binary():
+    """One output class: the paed_binary task's model."""
+    return _init(1)
+
+
+def _batch(rng, b=4, mask_size=40, binary=False):
+    if binary:  # crack masks as PAEDBinaryDataset gives them: {0, 1} fp32
+        mask = (rng.random((b, mask_size, mask_size)) > 0.8).astype(
+            np.float32)
+        mask[0] = 0.0  # an image without a crack: the saturated SDF
+    else:
+        mask = rng.integers(0, CLASSES, (b, mask_size, mask_size),
+                            dtype=np.int32)
+    return {"image": rng.random((b, 32, 32, 3), np.float32), "mask": mask}
 
 
 def _torch_batch(batch):
@@ -141,10 +163,14 @@ def test_multiclass_metrics_match(rng, case):
 
 
 # -------------------------------------------------------------------- tasks
-@pytest.mark.parametrize("task", ["ce", "smp_multiclass"])
-def test_task_losses_and_metrics_match(rng, jax_params, task):
-    j, t = _configs()
-    batch = _batch(rng)
+@pytest.mark.parametrize("task", ["ce", "smp_multiclass", "paed_multiclass",
+                                  "paed_anchored", "paed_binary"])
+def test_task_losses_and_metrics_match(rng, request, task):
+    binary = task == "paed_binary"
+    jax_params = request.getfixturevalue(
+        "jax_params_binary" if binary else "jax_params")
+    j, t = _configs(1 if binary else CLASSES)
+    batch = _batch(rng, binary=binary)
     model = load_jax_params(ViTSeg(t), jax_params)
     with torch.no_grad():
         loss, metrics = ttasks.get_task(task)(
@@ -160,11 +186,9 @@ def test_task_losses_and_metrics_match(rng, jax_params, task):
                                    rtol=1e-5, atol=1e-5, err_msg=key)
 
 
-def test_paed_tasks_are_not_ported():
-    for name in ttasks.PAED_TASKS:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ttasks.get_task(name)
-    with pytest.raises(KeyError):
+def test_unknown_task_raises():
+    assert set(ttasks.TASKS) == set(jtasks.TASKS)
+    with pytest.raises(KeyError, match="paed_binary"):
         ttasks.get_task("nope")
 
 
@@ -209,37 +233,59 @@ def test_schedulers_are_copies():
 
 
 # --------------------------------------------------------------- train step
+# The step's optimizer: the CE defaults' Adam, the PAED defaults' AdamW.
+STEP_OPTIMIZER = {"ce": "adam", "paed_binary": "adamw"}
+
+
 @pytest.fixture(scope="module")
-def jax_step(jax_params):
-    """One JAX Trainer step (batch 4 = 2 micro-batches of 2, dropout off)
-    and the mean gradient of its two micro-batches."""
-    j, _ = _configs(**NO_DROPOUT)
-    batch = _batch(np.random.default_rng(7))
-    trainer = JaxTrainer(j, jcfg.TrainConfig(
-        batch_size=4, accumulate_grad_batches=2, learning_rate=LR),
-        task="ce", use_mesh=False)
-    state = trainer.state_from_params(jax_params)
-    new_state, metrics = trainer.train_step(state, batch,
-                                            jax.random.PRNGKey(0))
-    grad_fn = jax.jit(jax.grad(lambda p, b: jtasks.ce_loss_fn(
-        p, b, j, rng=jax.random.PRNGKey(0), deterministic=False)[0]))
-    grads = [grad_fn(jax_params, {k: jnp.asarray(v[i:i + 2])
-                                  for k, v in batch.items()})
-             for i in (0, 2)]
-    mean = jax.tree_util.tree_map(lambda a, b: np.asarray((a + b) / 2),
-                                  *grads)
-    return (batch, float(metrics["loss"]), vitseg_params_from_jax(mean),
-            vitseg_params_from_jax(jax.tree_util.tree_map(
-                np.asarray, new_state.params)))
+def jax_steps():
+    """task -> one JAX Trainer step (batch 4 = 2 micro-batches of 2,
+    dropout off) and the mean gradient of its two micro-batches, made at
+    first use."""
+    steps = {}
+
+    def get(task, params):
+        if task not in steps:
+            binary = task == "paed_binary"
+            j, _ = _configs(1 if binary else CLASSES, **NO_DROPOUT)
+            batch = _batch(np.random.default_rng(7), binary=binary)
+            trainer = JaxTrainer(j, jcfg.TrainConfig(
+                batch_size=4, accumulate_grad_batches=2, learning_rate=LR,
+                optimizer=STEP_OPTIMIZER[task]), task=task, use_mesh=False)
+            state = trainer.state_from_params(params)
+            new_state, metrics = trainer.train_step(state, batch,
+                                                    jax.random.PRNGKey(0))
+            grad_fn = jax.jit(jax.grad(lambda p, b: jtasks.TASKS[task](
+                p, b, j, rng=jax.random.PRNGKey(0), deterministic=False)[0]))
+            grads = [grad_fn(params, {k: jnp.asarray(v[i:i + 2])
+                                      for k, v in batch.items()})
+                     for i in (0, 2)]
+            mean = jax.tree_util.tree_map(
+                lambda a, b: np.asarray((a + b) / 2), *grads)
+            steps[task] = (batch, float(metrics["loss"]),
+                           vitseg_params_from_jax(mean),
+                           vitseg_params_from_jax(jax.tree_util.tree_map(
+                               np.asarray, new_state.params)))
+        return steps[task]
+
+    return get
 
 
-@pytest.mark.parametrize("attn_impl", ["eager", "flash"])
-def test_train_step_matches_jax_trainer(jax_params, jax_step, attn_impl):
-    batch, jloss, jgrads, jnew = jax_step
-    _, t = _configs(**NO_DROPOUT)
+@pytest.mark.parametrize(
+    "task,attn_impl",
+    [("ce", "eager"), ("ce", "flash"), ("paed_binary", "eager"),
+     ("paed_binary", "flash")],
+    ids=["eager", "flash", "paed_binary-eager", "paed_binary-flash"])
+def test_train_step_matches_jax_trainer(request, jax_steps, task, attn_impl):
+    binary = task == "paed_binary"
+    jax_params = request.getfixturevalue(
+        "jax_params_binary" if binary else "jax_params")
+    batch, jloss, jgrads, jnew = jax_steps(task, jax_params)
+    _, t = _configs(1 if binary else CLASSES, **NO_DROPOUT)
     trainer = Trainer(t, tcfg.TrainConfig(
-        batch_size=4, accumulate_grad_batches=2, learning_rate=LR),
-        device="cpu", attn_impl=attn_impl)
+        batch_size=4, accumulate_grad_batches=2, learning_rate=LR,
+        optimizer=STEP_OPTIMIZER[task]), task=task, device="cpu",
+        attn_impl=attn_impl)
     state = trainer.init_state(jax_params)
     state, metrics = trainer.train_step(state, batch, seed=0)
     assert state.step == 1
@@ -369,6 +415,62 @@ def test_fit_schedules_follow_optim_semantics(tmp_path, dataset, schedule):
         assert len(values) == 3
         assert state.optimizer.param_groups[0]["lr"] == lr
         assert lr == pytest.approx(1e-4)
+
+
+@pytest.fixture(scope="module")
+def crack_dataset(tmp_path_factory):
+    root = str(tmp_path_factory.mktemp("cracks"))
+    generate_binary(root, n_samples=8, image_size=32)
+    return PAEDBinaryDataset(f"{root}/image_png", f"{root}/mask_png",
+                             image_size=32, cache=True)
+
+
+def test_paed_binary_fit_monitors_val_metrics_as_jax(crack_dataset,
+                                                     jax_params_binary):
+    # PAED_TRAIN_DEFAULTS watch val_IoU (plateau) and val_loss
+    # (EarlyStopping). A learning rate of 1e-12 moves no fp32 weight, so
+    # both stay flat: the plateau (patience 1) lowers the rate after epoch
+    # 2, and EarlyStopping (patience 3) ends the run after epoch 3, in both
+    # packages. Under valid_ names neither would act and all 5 epochs
+    # would run at 1e-12.
+    paed = dict(batch_size=4, accumulate_grad_batches=2, max_epochs=5,
+                learning_rate=1e-12, plateau_patience=1,
+                early_stopping_patience=3)
+    j, t = _configs(1, **NO_DROPOUT)
+    jepochs = []
+    jtrainer = JaxTrainer(j, dataclasses.replace(jcfg.PAED_TRAIN_DEFAULTS,
+                                                 **paed),
+                          task="paed_binary", use_mesh=False)
+    jtrainer.fit(crack_dataset, val_dataset=crack_dataset,
+                 state=jtrainer.state_from_params(jax_params_binary),
+                 on_epoch_end=lambda e, m: jepochs.append(m))
+    trainer = Trainer(t, dataclasses.replace(tcfg.PAED_TRAIN_DEFAULTS,
+                                             **paed),
+                      task="paed_binary", device="cpu")
+    state = trainer.init_state(jax_params_binary)
+    epochs, rates = [], []
+
+    def on_epoch_end(epoch, metrics):
+        epochs.append(metrics)
+        rates.append(state.optimizer.param_groups[0]["lr"])
+
+    trainer.fit(crack_dataset, val_dataset=crack_dataset, state=state,
+                on_epoch_end=on_epoch_end)
+    assert len(epochs) == len(jepochs) == 4
+    for metrics, jmetrics_ in zip(epochs, jepochs):
+        assert set(metrics) == set(jmetrics_)
+        assert {"val_loss", "val_IoU", "val_dice"} <= set(metrics)
+        assert not any(k.startswith("valid_") for k in metrics)
+        for key in ("val_loss", "val_IoU", "train_loss"):
+            np.testing.assert_allclose(metrics[key], jmetrics_[key],
+                                       rtol=1e-5, err_msg=key)
+    # The rate each epoch trained at, and the JAX trainer's, replayed
+    # from its val_IoU through its own scheduler.
+    plateau = joptim.PlateauScheduler(1e-12, mode="max", patience=1)
+    jrates = [1e-12] + [plateau.step(m["val_IoU"]) for m in jepochs][:-1]
+    np.testing.assert_allclose(rates, jrates, rtol=1e-12)
+    np.testing.assert_allclose(rates, [1e-12, 1e-12, 1e-12, 1e-13],
+                               rtol=1e-12)
 
 
 def test_train_command_on_cpu(tmp_path):

@@ -1,6 +1,9 @@
 """Command-line entry points of the port:
 
   python -m visiontransformer_tpu_torch train --data data --task ce ...
+  python -m visiontransformer_tpu_torch train --data data --task paed_binary ...
+  python -m visiontransformer_tpu_torch eval-sweep --data data --out test ...
+  python -m visiontransformer_tpu_torch synth --kind binary --out data
   python -m visiontransformer_tpu_torch serve --port 8000
   python -m visiontransformer_tpu_torch convert --ckpt ref.ckpt ...
   python -m visiontransformer_tpu_torch export --ckpt ckpts/ ...
@@ -22,18 +25,28 @@ import dataclasses
 import os
 import sys
 
-COMMANDS = ("train", "serve", "convert", "export", "export-serving",
-            "register-model")
+COMMANDS = ("train", "eval-sweep", "serve", "convert", "export",
+            "export-serving", "register-model", "synth")
 USAGE = ("usage: python -m visiontransformer_tpu_torch "
          "{" + ",".join(COMMANDS) + "} [options]")
+
+
+def _add_data_args(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--data", required=True,
+                   help="dataset root containing image_png/ and mask_png/")
+    p.add_argument("--image-size", type=int, default=224)
+    p.add_argument("--no-split", action="store_true",
+                   help="reference-compatible mode: use the full directory "
+                        "instead of the 70/15/15 split (which needs "
+                        "scikit-learn)")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default) or cpu")
 
 
 def _train_parser() -> argparse.ArgumentParser:
     t = argparse.ArgumentParser(prog="visiontransformer_tpu_torch train",
                                 description="train a vitseg model")
-    t.add_argument("--data", required=True,
-                   help="dataset root containing image_png/ and mask_png/")
-    t.add_argument("--image-size", type=int, default=224)
+    _add_data_args(t)
     t.add_argument("--task", default="ce",
                    choices=["ce", "smp_multiclass", "paed_multiclass",
                             "paed_anchored", "paed_binary"])
@@ -53,11 +66,6 @@ def _train_parser() -> argparse.ArgumentParser:
     t.add_argument("--cache-data", action="store_true",
                    help="cache decoded+preprocessed samples in RAM "
                         "(~0.7 MB/sample at 224²)")
-    t.add_argument("--no-split", action="store_true",
-                   help="reference-compatible mode: train on the full "
-                        "directory instead of the 70/15/15 split")
-    t.add_argument("--device", default="cuda",
-                   help="cuda (default) or cpu")
     return t
 
 
@@ -72,12 +80,10 @@ def cmd_train(argv) -> int:
         PAEDBinaryDataset,
         train_val_test_split,
     )
-    from visiontransformer_tpu_torch.train.tasks import get_task
     from visiontransformer_tpu_torch.train.trainer import Trainer
     from visiontransformer_tpu_torch.utils.csvlog import CSVLogger
 
     args = _train_parser().parse_args(argv)
-    get_task(args.task)  # an unported task fails before any data is read
     image_dir = os.path.join(args.data, "image_png")
     mask_dir = os.path.join(args.data, "mask_png")
     binary = args.task == "paed_binary"
@@ -116,6 +122,87 @@ def cmd_train(argv) -> int:
     trainer.fit(train_ds, val_dataset=val_ds, checkpoint_dir=ckpt_dir,
                 resume_from=args.resume, on_epoch_end=report)
     print(f"logs: {logger.path}\ncheckpoints: {ckpt_dir}")
+    return 0
+
+
+def cmd_eval_sweep(argv) -> int:
+    """The 9-config evaluation sweep (or --configs) over the test split,
+    one metrics CSV and one pixel confusion .npy per config under --out."""
+    from visiontransformer_tpu_torch.configs import SWEEP_CONFIGS, sweep_by_name
+    from visiontransformer_tpu_torch.data import (
+        CESegmentationDataset,
+        PAEDBinaryDataset,
+        train_val_test_split,
+    )
+    from visiontransformer_tpu_torch.evaluation import run_sweep
+
+    p = argparse.ArgumentParser(prog="visiontransformer_tpu_torch eval-sweep",
+                                description="run the 9-config evaluation "
+                                            "sweep")
+    _add_data_args(p)
+    p.add_argument("--task", default="ce", choices=["ce", "paed_binary"],
+                   help="ce: multiclass sweep (reference "
+                        "datasetTestViTmodel.py); paed_binary: binary crack "
+                        "sweep (reference ViTscriptTest.py, with the "
+                        "per-loop config actually instantiated)")
+    p.add_argument("--out", default="test")
+    p.add_argument("--ckpt-root", default=None,
+                   help="directory of <config name>/epoch=N-step=M "
+                        "checkpoints of the port (default: seeded random "
+                        "weights)")
+    p.add_argument("--batch-size", type=int, default=4)
+    p.add_argument("--num-batches", type=int, default=125)
+    p.add_argument("--configs", default=None,
+                   help="comma-separated subset, e.g. P16H512A8,P8H768A12")
+    p.add_argument("--visualize", action="store_true",
+                   help="evaluation panels (not ported yet: raises)")
+    args = p.parse_args(argv)
+
+    image_dir = os.path.join(args.data, "image_png")
+    mask_dir = os.path.join(args.data, "mask_png")
+    binary = args.task == "paed_binary"
+    ds_cls = PAEDBinaryDataset if binary else CESegmentationDataset
+    probe = ds_cls(image_dir, mask_dir, image_size=args.image_size)
+    test_files = (list(probe.images) if args.no_split
+                  else train_val_test_split(probe.images)[2])
+    test_ds = ds_cls(image_dir, mask_dir, image_size=args.image_size,
+                     subset=test_files)
+
+    entries = SWEEP_CONFIGS
+    if args.configs:
+        entries = [sweep_by_name(n) for n in args.configs.split(",")]
+    paths = run_sweep(test_ds, output_dir=args.out,
+                      num_classes=1 if binary else probe.num_classes,
+                      checkpoint_root=args.ckpt_root, entries=entries,
+                      batch_size=args.batch_size,
+                      num_batches=args.num_batches,
+                      image_size=args.image_size, device=args.device,
+                      save_visualizations=args.visualize)
+    for path in paths:
+        print(path)
+    return 0
+
+
+def cmd_synth(argv) -> int:
+    """A synthetic dataset (image_png/, mask_png/) from the port's copy of
+    the TPU package's generators."""
+    from visiontransformer_tpu_torch.data.synthetic import (
+        generate_binary,
+        generate_multiclass,
+    )
+
+    p = argparse.ArgumentParser(prog="visiontransformer_tpu_torch synth",
+                                description="generate a synthetic dataset")
+    p.add_argument("--kind", choices=["multiclass", "binary"],
+                   default="multiclass")
+    p.add_argument("--out", required=True)
+    p.add_argument("--n", type=int, default=64)
+    p.add_argument("--size", type=int, default=512)
+    args = p.parse_args(argv)
+    generate = (generate_multiclass if args.kind == "multiclass"
+                else generate_binary)
+    generate(args.out, n_samples=args.n, image_size=args.size)
+    print(args.out)
     return 0
 
 
@@ -280,6 +367,8 @@ def main(argv=None) -> int:
 
         serve_main(rest)
         return 0
-    return {"train": cmd_train, "convert": cmd_convert,
-            "export": cmd_export, "export-serving": cmd_export_serving,
-            "register-model": cmd_register_model}[command](rest)
+    return {"train": cmd_train, "eval-sweep": cmd_eval_sweep,
+            "convert": cmd_convert, "export": cmd_export,
+            "export-serving": cmd_export_serving,
+            "register-model": cmd_register_model,
+            "synth": cmd_synth}[command](rest)

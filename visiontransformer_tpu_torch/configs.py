@@ -197,7 +197,7 @@ class TrainConfig:
     log_every_n_steps: int = 50
     checkpoint_dir: Optional[str] = None
     # Mesh, FSDP, sequence and pipeline parallelism: fields of the TPU
-    # package kept for parity; not ported yet (ROADMAP §1 item 12).
+    # package kept for parity; not ported yet (ROADMAP §1 item 8).
     mesh_shape: Optional[Tuple[int, ...]] = None
     fsdp: bool = False
     fsdp_min_size: Optional[int] = None

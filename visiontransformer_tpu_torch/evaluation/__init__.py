@@ -1,0 +1,7 @@
+from visiontransformer_tpu_torch.evaluation.evaluate import (
+    CSV_HEADER,
+    evaluate_model,
+    run_sweep,
+)
+
+__all__ = ["CSV_HEADER", "evaluate_model", "run_sweep"]

@@ -2,7 +2,8 @@
 
 ``ctypes`` bindings to ``vn_detections`` (connected-component detections
 for the serving worker), ``vn_remap_u8`` and ``vn_resize_nearest_pil_u8``
-(mask LUT remap and PIL-exact nearest resize for the datasets) of
+(mask LUT remap and PIL-exact nearest resize for the datasets) and
+``vn_skeletonize`` (Zhang-Suen thinning for ``paed_loss_hard``) of
 ``native/vitseg_native.cpp``, built with ``make -C native`` at first use,
 each with a pure-Python/numpy/PIL fallback when the library cannot be built
 or ``VITSEG_NATIVE=0``. All are host code; a fallback is not a device
@@ -50,6 +51,9 @@ def _load() -> Optional[ctypes.CDLL]:
             lib = ctypes.CDLL(_SO_PATH)
         except OSError:
             return None
+        lib.vn_skeletonize.argtypes = [_u8, ctypes.c_int, ctypes.c_int,
+                                       ctypes.c_int]
+        lib.vn_skeletonize.restype = ctypes.c_int
         lib.vn_detections.argtypes = [_i32, _i32, ctypes.c_int, ctypes.c_int,
                                       _i32, ctypes.c_int]
         lib.vn_detections.restype = ctypes.c_int
@@ -64,6 +68,50 @@ def _load() -> Optional[ctypes.CDLL]:
 
 def available() -> bool:
     return _load() is not None
+
+
+def _neighbours(padded: np.ndarray):
+    """P2..P9 clockwise from north, for the interior view of a padded image."""
+    return (padded[0:-2, 1:-1], padded[0:-2, 2:], padded[1:-1, 2:],
+            padded[2:, 2:], padded[2:, 1:-1], padded[2:, 0:-2],
+            padded[1:-1, 0:-2], padded[0:-2, 0:-2])
+
+
+def skeletonize_np(mask: np.ndarray, max_iters: int = 10000) -> np.ndarray:
+    """Zhang-Suen thinning of a binary (H, W) mask to a 1-px skeleton,
+    first-party numpy (replaces the reference's skimage skeletonize,
+    reference model/PAED/segmentation.py:89-111)."""
+    img = (np.asarray(mask) > 0).astype(np.uint8)
+    for _ in range(max_iters):
+        changed = False
+        for step in (0, 1):
+            p2, p3, p4, p5, p6, p7, p8, p9 = _neighbours(np.pad(img, 1))
+            ring = np.stack([p2, p3, p4, p5, p6, p7, p8, p9, p2], axis=0)
+            # A: 0 -> 1 transitions around the ring; B: nonzero neighbours.
+            a = np.sum((ring[:-1] == 0) & (ring[1:] == 1), axis=0)
+            b = np.sum(ring[:-1], axis=0)
+            if step == 0:
+                cond = (p2 * p4 * p6 == 0) & (p4 * p6 * p8 == 0)
+            else:
+                cond = (p2 * p4 * p8 == 0) & (p2 * p6 * p8 == 0)
+            delete = (img == 1) & (a == 1) & (b >= 2) & (b <= 6) & cond
+            if delete.any():
+                img[delete] = 0
+                changed = True
+        if not changed:
+            break
+    return img.astype(bool)
+
+
+def skeletonize(mask: np.ndarray, max_iters: int = 10000) -> np.ndarray:
+    """Zhang-Suen thinning of a binary (H, W) mask; bool skeleton."""
+    lib = _load()
+    img = np.ascontiguousarray((np.asarray(mask) > 0).astype(np.uint8))
+    if lib is None:
+        return skeletonize_np(img, max_iters)
+    h, w = img.shape
+    lib.vn_skeletonize(img, h, w, max_iters)
+    return img.astype(bool)
 
 
 def connected_components_np(mask: np.ndarray) -> Tuple[np.ndarray, int]:

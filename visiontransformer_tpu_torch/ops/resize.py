@@ -5,10 +5,23 @@
   package's: the source coordinates are computed in float64 on the host, so
   the matrix is bit-identical to the reference's; the resize is two fp32
   products with it.
+- ``resize_bilinear``: the same resize in gather form, top + w·(bot −
+  top) per axis, the TPU package's ``resize_bilinear``: its source
+  coordinates and weights are fp32, computed on the host with the TPU
+  package's fp32 arithmetic, so the result is bit-identical to it (and
+  differs from the matrix form by an ulp; the PAED loss resizes its SDFs
+  with it).
 - ``resize_nearest_torch``: torch ``F.interpolate(mode='nearest')``
   indices, src = floor(dst · in/out) computed in float64, as the TPU
   package's ``_nearest_indices_torch``; the training tasks bring integer
   targets to the input size with it.
+- ``resize_nearest_pil``: PIL ``Image.resize(NEAREST)`` indices, the
+  source coordinate advanced by repeated ``+= scale`` in float64, as the
+  TPU package's ``_nearest_indices_pil``; the evaluation sweep brings its
+  ground truth to the prediction grid with it.
+
+Index and weight tables are cached per device: a fresh copy from host
+memory would wait for the card at every call.
 """
 
 from __future__ import annotations
@@ -68,19 +81,84 @@ def nearest_indices_torch(out_size: int, in_size: int) -> np.ndarray:
     return np.clip(idx.astype(np.int64), 0, in_size - 1)
 
 
+def nearest_indices_pil(out_size: int, in_size: int) -> np.ndarray:
+    """int64 source indices of PIL's NEAREST resize: a coordinate that
+    starts at scale/2 and is advanced by ``+= scale`` in float64, then
+    truncated; the per-step rounding drift shows at exact-integer
+    boundaries, so the accumulation is replicated literally."""
+    scale = in_size / out_size
+    xo = scale * 0.5
+    idx = np.empty(out_size, dtype=np.int64)
+    for i in range(out_size):
+        idx[i] = int(xo)
+        xo += scale
+    return np.clip(idx, 0, in_size - 1)
+
+
+_NEAREST = {"torch": nearest_indices_torch, "pil": nearest_indices_pil}
+
+
 @functools.lru_cache(maxsize=64)
-def _nearest_on(out_size: int, in_size: int, device: str) -> torch.Tensor:
-    # Cached per device: a fresh copy from host memory would wait for the
-    # card at every call.
-    return torch.from_numpy(nearest_indices_torch(out_size, in_size)).to(device)
+def _nearest_on(kind: str, out_size: int, in_size: int,
+                device: str) -> torch.Tensor:
+    return torch.from_numpy(_NEAREST[kind](out_size, in_size)).to(device)
+
+
+def _resize_nearest(kind: str, x: torch.Tensor, size: Tuple[int, int],
+                    h_axis: int, w_axis: int) -> torch.Tensor:
+    h_axis, w_axis = h_axis % x.dim(), w_axis % x.dim()
+    rows = _nearest_on(kind, size[0], x.shape[h_axis], str(x.device))
+    cols = _nearest_on(kind, size[1], x.shape[w_axis], str(x.device))
+    return torch.index_select(torch.index_select(x, h_axis, rows), w_axis,
+                              cols)
 
 
 def resize_nearest_torch(x: torch.Tensor, size: Tuple[int, int],
                          h_axis: int = -2, w_axis: int = -1) -> torch.Tensor:
     """torch F.interpolate(mode='nearest') semantics along (h_axis,
     w_axis), for any dtype (integer targets included)."""
+    return _resize_nearest("torch", x, size, h_axis, w_axis)
+
+
+def resize_nearest_pil(x: torch.Tensor, size: Tuple[int, int],
+                       h_axis: int = -2, w_axis: int = -1) -> torch.Tensor:
+    """PIL Image.resize(NEAREST) semantics along (h_axis, w_axis), for any
+    dtype."""
+    return _resize_nearest("pil", x, size, h_axis, w_axis)
+
+
+def _linear_weights(out_size: int, in_size: int
+                   ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(lo, hi, w_hi) of the gather form: half-pixel (align_corners=False)
+    source coordinates (i + 0.5)·scale − 0.5 clipped to [0, in − 1], in
+    fp32 as the TPU package's ``_linear_weights`` computes them."""
+    f32 = np.float32
+    src = (np.arange(out_size, dtype=f32) + f32(0.5)) * f32(
+        in_size / out_size) - f32(0.5)
+    src = np.clip(src, f32(0.0), f32(in_size - 1))
+    lo = np.floor(src).astype(np.int64)
+    hi = np.minimum(lo + 1, in_size - 1)
+    return lo, hi, (src - lo.astype(f32)).astype(f32)
+
+
+@functools.lru_cache(maxsize=64)
+def _linear_on(out_size: int, in_size: int, device: str):
+    return tuple(torch.from_numpy(a).to(device)
+                 for a in _linear_weights(out_size, in_size))
+
+
+def resize_bilinear(x: torch.Tensor, size: Tuple[int, int],
+                    h_axis: int = -2, w_axis: int = -1) -> torch.Tensor:
+    """Bilinear resize (align_corners=False) along (h_axis, w_axis) in
+    gather form: two separable fp32 lerps, top + w·(bot − top), the H axis
+    first. Floating inputs come back in their dtype, others as fp32."""
     h_axis, w_axis = h_axis % x.dim(), w_axis % x.dim()
-    rows = _nearest_on(size[0], x.shape[h_axis], str(x.device))
-    cols = _nearest_on(size[1], x.shape[w_axis], str(x.device))
-    return torch.index_select(torch.index_select(x, h_axis, rows), w_axis,
-                              cols)
+    orig_dtype = x.dtype
+    x = x.float()
+    for axis, out in ((h_axis, size[0]), (w_axis, size[1])):
+        lo, hi, w = _linear_on(out, x.shape[axis], str(x.device))
+        shape = [1] * x.dim()
+        shape[axis] = out
+        a = torch.index_select(x, axis, lo)
+        x = a + w.reshape(shape) * (torch.index_select(x, axis, hi) - a)
+    return x.to(orig_dtype) if orig_dtype.is_floating_point else x

@@ -9,11 +9,18 @@ Lightning modules of the reference:
   (reference model/CE/classes.py:264-297)
 - ``smp_multiclass_loss_fn``  ↔ StructuralDamageModel
   (reference model/CE/classes.py:133-198)
+- ``paed_multiclass_loss_fn`` ↔ LightningViTModel (PAED flavor)
+  (reference model/PAED/classes.py:415-487)
+- ``paed_anchored_loss_fn``   CE + the multiclass PAED term (the TPU
+  package's own variant)
+- ``paed_binary_loss_fn``     ↔ PAEDTrainer._forward_step_paed
+  (reference model/PAED/classes.py:664-701)
 
-The three PAED tasks (``paed_multiclass``, ``paed_anchored``,
-``paed_binary``) need the PAED losses, the on-device EDT and the binary
-metrics, which are not ported yet (ROADMAP §1 item 7); asking for one
-raises. Batches are dicts of NHWC tensors on the model's device.
+Batches are dicts of NHWC tensors on the model's device. The binary task
+takes binary masks and makes its SDF targets on that device
+(``losses/sdf.py``); the reference computes them with scipy in its
+dataloader workers (model/PAED/classes.py:69). The metric dicts carry the
+TPU package's keys.
 """
 
 from __future__ import annotations
@@ -21,17 +28,27 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from visiontransformer_tpu_torch.losses.basic import cross_entropy_loss
+from visiontransformer_tpu_torch.losses.paed import (
+    paed_binary_total_loss,
+    paed_loss_multiclass_soft,
+)
+from visiontransformer_tpu_torch.losses.sdf import compute_sdf_batch
 from visiontransformer_tpu_torch.metrics.segmentation import (
+    dice_score_binary,
+    iou_binary,
     multiclass_confusion_stats,
+    pixel_accuracy_binary,
+    precision_binary,
+    recall_binary,
     smp_iou_micro,
     smp_iou_micro_imagewise,
+    soft_iou_score,
 )
 from visiontransformer_tpu_torch.models.vitseg import vitseg_apply
 from visiontransformer_tpu_torch.ops.resize import resize_nearest_torch
-
-PAED_TASKS = ("paed_multiclass", "paed_anchored", "paed_binary")
 
 
 def _resize_target(y: torch.Tensor, size: int) -> torch.Tensor:
@@ -89,19 +106,101 @@ def smp_multiclass_loss_fn(model, batch, cfg, *,
     }
 
 
+def _softmax_and_one_hot(model, batch, cfg, generator, deterministic,
+                         attn_impl):
+    images, masks = batch["image"], batch["mask"]
+    target = _resize_target(masks, images.shape[1])
+    logits = vitseg_apply(model, images, attn_impl=attn_impl,
+                          deterministic=deterministic, generator=generator)
+    probs = torch.softmax(logits, dim=-1)
+    one_hot = F.one_hot(target.long(), cfg.num_classes).float()
+    return logits, target, probs, torch.argmax(probs, dim=-1), one_hot
+
+
+def paed_multiclass_loss_fn(model, batch, cfg, *,
+                            generator: Optional[torch.Generator] = None,
+                            deterministic: bool = False,
+                            attn_impl: str = "auto"):
+    """Multiclass PAED flavor: softmax probabilities against the one-hot
+    target under the Gaussian-smoothed PAED loss, plus the monitoring IoU
+    (reference model/PAED/classes.py:448-467)."""
+    _, target, probs, preds, one_hot = _softmax_and_one_hot(
+        model, batch, cfg, generator, deterministic, attn_impl)
+    loss = paed_loss_multiclass_soft(one_hot, probs)
+    return loss, {"loss": loss,
+                  "iou": soft_iou_score(preds, target, cfg.num_classes)}
+
+
+def paed_anchored_loss_fn(model, batch, cfg, *,
+                          generator: Optional[torch.Generator] = None,
+                          deterministic: bool = False,
+                          attn_impl: str = "auto"):
+    """CE-anchored multiclass PAED: loss = CE + paed_multiclass_soft. The
+    reference's pure-PAED multiclass objective collapses (blurred-space
+    match at chance argmax accuracy), so the TPU package anchors it with
+    the CE flavor's loss and monitors the soft IoU beside a hard argmax
+    mean IoU."""
+    logits, target, probs, preds, one_hot = _softmax_and_one_hot(
+        model, batch, cfg, generator, deterministic, attn_impl)
+    ce = cross_entropy_loss(logits, target)
+    paed = paed_loss_multiclass_soft(one_hot, probs)
+    loss = ce + paed
+    tp, fp, fn, _ = multiclass_confusion_stats(preds, target,
+                                               cfg.num_classes)
+    union = tp + fp + fn
+    hard_iou = (torch.where(union > 0, tp / torch.clamp(union, min=1),
+                            0.0).sum()
+                / torch.clamp((union > 0).sum(), min=1))
+    return loss, {"loss": loss, "ce": ce, "paed": paed,
+                  "iou": soft_iou_score(preds, target, cfg.num_classes),
+                  "hard_iou": hard_iou}
+
+
+def paed_binary_loss_fn(model, batch, cfg, *,
+                        generator: Optional[torch.Generator] = None,
+                        deterministic: bool = False,
+                        attn_impl: str = "auto"):
+    """Binary crack task: BCE + 0.1·dice + 5·|paed| with SDF targets made
+    on the model's device. batch: images (B,H,W,3), masks (B,H,W) binary
+    float; the model has one output class."""
+    images, masks = batch["image"], batch["mask"]
+    masks = _resize_target(masks, images.shape[1])
+    # Targets: no graph (the reference detaches them too,
+    # model/PAED/classes.py:569-570).
+    sdf_ext, sdf_int = compute_sdf_batch(masks > 0.5)
+    logits = vitseg_apply(model, images, attn_impl=attn_impl,
+                          deterministic=deterministic, generator=generator)
+    preds = torch.sigmoid(logits)  # (B, H, W, 1)
+    loss, parts = paed_binary_total_loss(preds, masks[..., None].float(),
+                                         sdf_ext, sdf_int)
+    bin_preds = (preds > 0.5).int()[..., 0]
+    gt = masks.int()
+    return loss, {
+        "loss": loss,
+        "bce": parts["bce"],
+        "dice_loss": parts["dice"],
+        "paed": parts["paed"],
+        "acc": pixel_accuracy_binary(gt, bin_preds),
+        "IoU": iou_binary(gt, bin_preds),
+        "dice": dice_score_binary(gt, bin_preds),
+        "precision": precision_binary(gt, bin_preds),
+        "recall": recall_binary(gt, bin_preds),
+    }
+
+
 TASKS = {
     "ce": ce_loss_fn,
     "smp_multiclass": smp_multiclass_loss_fn,
+    "paed_multiclass": paed_multiclass_loss_fn,
+    "paed_anchored": paed_anchored_loss_fn,
+    "paed_binary": paed_binary_loss_fn,
 }
 
 
 def get_task(name: str):
-    if name in PAED_TASKS:
-        raise NotImplementedError(
-            f"task {name!r} is not ported yet: the PAED losses, EDT and "
-            f"binary metrics are ROADMAP §1 item 7")
     try:
         return TASKS[name]
     except KeyError:
         raise KeyError(f"unknown task {name!r}; known: "
-                       f"{sorted(TASKS) + list(PAED_TASKS)}") from None
+                       f"{sorted(TASKS)}") from None
+

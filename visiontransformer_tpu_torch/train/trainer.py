@@ -230,8 +230,13 @@ class Trainer:
                 val_metrics = [self.eval_step(state.model, batch)
                                for batch in batch_iterator(val_dataset,
                                                            cfg.batch_size)]
+                # val_ for the binary PAED task, whose monitors
+                # (PAED_TRAIN_DEFAULTS: val_IoU, val_loss) read it, as the
+                # TPU package's trainer names them.
+                prefix = ("val_" if self.task_name == "paed_binary"
+                          else "valid_")
                 epoch_metrics.update(_mean_metrics(val_metrics,
-                                                   prefix="valid_"))
+                                                   prefix=prefix))
 
             if self.logger:
                 self.logger.log(epoch_metrics, epoch=epoch, step=state.step)
