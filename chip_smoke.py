@@ -132,12 +132,36 @@ failure:
              confusion and CSV held the same way against sigmoid(
              vitseg_apply) > 0.5 of the trained in-memory model, and the
              restored model's logits equal the trained one's bit for bit.
+13. optin    the serving opt-ins and remat on ViT-B/16 (17 classes, bf16,
+             seeded weights; batch 32, 512^2 in -> 224^2 -> 512^2 masks):
+             kernel 1 against its plain version at every merged length
+             (B*H = 384, N = 197 - i*r, i = 0..11, r = 8 and 16, d = 64);
+             ToMe forwards at r = 8 and 16 (12 launches of kernel 1 at
+             those lengths and 1 of kernel 5 a forward, masks' agreement
+             with r = 0; r = 0 again after merging gives the plain masks
+             bit for bit); the W8A8 forward (layer 0's four int8 products
+             at the serving shape: the card's int32 accumulators equal the
+             CPU's plain int32 product; masks against the quantized model
+             on the CPU for one image); the fused preprocessing (fp32
+             compute, fp32 and uint8 inputs: masks agree with the unfused
+             forward on >= 0.999 of the pixels; bf16 recorded); a row
+             registered with token_merge_r=16, quantize="int8" served
+             over HTTP (8 jobs, every mask equals ModelRunner.predict);
+             one CE training step at r = 16 (12 x 4 launches of kernels
+             2-4), then one step without and with remat from the same
+             weights and seed under deterministic algorithms, two plain
+             steps first: loss, every gradient and a dropout generator's
+             final state (after one more forward and backward of the
+             batch) equal bit for bit; peak memory of the step and of that
+             forward and backward, and device ms, of both; masks/s, host ms, device ms and device kernels a
+             forward of the exact, r = 8, r = 16, int8 and fused forwards
+             in turns.
 
 Then it prints the card's name and power limit as nvidia-smi gives them,
 one JSON line describing every kernel (launches of the serving kernels
 counted during the serving run, of the training kernels during the train
 run, of the sweep kernels during the two sweeps; kernels 1-5 also with
-their launches on the paths of phases 10, 11 and 12), and, last,
+their launches on the paths of phases 10, 11, 12 and 13), and, last,
 {"ok": true, "device": {...}}.
 Without CUDA it exits with code 1 and prints no result.
 
@@ -151,6 +175,7 @@ sets it.
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import io
 import os
@@ -904,7 +929,11 @@ def profile_steps(step, batch: int, steps: int = 5, top: int = 12):
     mark = "(anonymous namespace)::"
     own = {k.split(mark)[1].split("(")[0]: us / 1e3 / steps
            for k, us in device_us.items() if mark in k}
+    kernels = sum(1 for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not e.name.startswith(("Memcpy", "Memset")))
     return {"steps": steps, "batch": batch, "own_kernels_ms_per_step": own,
+            "device_kernels_per_step": kernels / steps,
             "wall_ms_per_step": wall_ms / steps,
             "device_ms_per_step": busy_ms / steps,
             "device_busy_share": busy_ms / wall_ms,
@@ -922,9 +951,11 @@ TRAIN_EDGE_NS = (1, 63, 64, 65, 127, 129, 255, 256, 257)
 TRAIN_TIMED = ((48, 197), (48, 785), (48, 1025), (24, 3137))
 
 
-def phase_flash_train(peaks, gen):
-    """Kernels 2-4 vs their plain versions; returns the timed rows by
-    (B*H, N, rate), bf16, d = 64."""
+def check_train_kernels(gen, shape, dtype, rate: float):
+    """Kernels 2-4 (and dQ with Δ in its prologue) against their plain
+    versions on one random (B, H, N, d) case with strided Q, K, V and a
+    transposed dO, as the model hands them over. Returns (row, the inputs
+    of ``_time_train_kernels``); raises with the row where one disagrees."""
     from visiontransformer_tpu_torch.ops.flash_attention import (
         attention_delta_plain,
         backward_path,
@@ -938,6 +969,54 @@ def phase_flash_train(peaks, gen):
         forward_path,
     )
 
+    b, h, n, d = shape
+    qkv = torch.randn(b, n, 3, h, d, generator=gen, device="cuda")
+    qkv = qkv.to(dtype).permute(2, 0, 3, 1, 4)
+    q, k, v = qkv[0], qkv[1], qkv[2]
+    # dO as autograd hands it over: a transposed view.
+    do = torch.randn(b, n, h, d, generator=gen, device="cuda")
+    do = do.to(dtype).transpose(1, 2)
+    seed = torch.randint(0, 2 ** 31, (), generator=gen, device="cuda")
+    out, lse = flash_attention_train(q, k, v, rate, seed)
+    p_out, p_lse = flash_attention_train_plain(q, k, v, rate, seed)
+    delta = attention_delta_plain(do, p_out)
+    bwd = (q, k, v, do, p_lse, delta, rate, seed)
+    p_dq = flash_attention_bwd_dq_plain(*bwd)
+    p_dk, p_dv = flash_attention_bwd_dkv_plain(*bwd)
+    checks = {"out": flash_agrees(out, p_out)}
+    ok, err = close(lse, p_lse, LSE_ATOL, 0.0)
+    checks["lse"] = (ok, {"max_abs_err": err, "atol": LSE_ATOL})
+    dq = flash_attention_bwd_dq(*bwd)
+    dq_d, delta_k = flash_attention_bwd_dq_delta(
+        q, k, v, do, p_lse, p_out, rate, seed)
+    dk, dv = flash_attention_bwd_dkv(*bwd)
+    torch.cuda.synchronize()
+    for key, got, want in (("dq", dq, p_dq),
+                           ("dq_delta", dq_d, p_dq),
+                           ("dk", dk, p_dk), ("dv", dv, p_dv)):
+        ok, fields = grad_agrees(got, want)
+        if not ok and n == 1 and key != "dv":
+            # Zero by construction: hold both to zero.
+            worst = float(torch.maximum(got.float().abs().max(),
+                                        want.float().abs().max()))
+            ok, fields = worst <= ZERO_GRAD_ATOL, {
+                "max_abs_err": worst, "atol": ZERO_GRAD_ATOL}
+        checks[key] = (ok, fields)
+    ok, err = close(delta_k, delta, *DELTA_TOL)
+    checks["delta"] = (ok, {"max_abs_err": err, "atol": DELTA_TOL[0]})
+    row = {"shape": [b, h, n, d], "dtype": str(dtype)[6:], "rate": rate,
+           "path": backward_path(n, d, dtype),
+           "fwd_path": forward_path(n, d, dtype),
+           **{name: fields for name, (_, fields) in checks.items()}}
+    failed = [name for name, (ok, _) in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"training kernels {failed} disagree: {row}")
+    return row, (q, k, v, do, out, lse, rate, seed)
+
+
+def phase_flash_train(peaks, gen):
+    """Kernels 2-4 vs their plain versions; returns the timed rows by
+    (B*H, N, rate), bf16, d = 64."""
     # Tile edges: all of them on the d = 64 instantiation; 63 to 129 on the
     # other head dims' with two chains a warp (32) and one (128), at the
     # micro-batch's 48 heads: where one large dS rounds to the other bf16
@@ -952,58 +1031,13 @@ def phase_flash_train(peaks, gen):
     for dtype in (torch.bfloat16, torch.float32):
         for b, h, n, d in cases:
             for rate in (0.0, 0.1):
-                qkv = torch.randn(b, n, 3, h, d, generator=gen, device="cuda")
-                qkv = qkv.to(dtype).permute(2, 0, 3, 1, 4)
-                q, k, v = qkv[0], qkv[1], qkv[2]
-                # dO as autograd hands it over: a transposed view.
-                do = torch.randn(b, n, h, d, generator=gen, device="cuda")
-                do = do.to(dtype).transpose(1, 2)
-                seed = torch.randint(0, 2 ** 31, (), generator=gen,
-                                     device="cuda")
-                out, lse = flash_attention_train(q, k, v, rate, seed)
-                p_out, p_lse = flash_attention_train_plain(q, k, v, rate,
-                                                           seed)
-                delta = attention_delta_plain(do, p_out)
-                bwd = (q, k, v, do, p_lse, delta, rate, seed)
-                p_dq = flash_attention_bwd_dq_plain(*bwd)
-                p_dk, p_dv = flash_attention_bwd_dkv_plain(*bwd)
-                checks = {"out": flash_agrees(out, p_out)}
-                ok, err = close(lse, p_lse, LSE_ATOL, 0.0)
-                checks["lse"] = (ok, {"max_abs_err": err, "atol": LSE_ATOL})
-                dq = flash_attention_bwd_dq(*bwd)
-                dq_d, delta_k = flash_attention_bwd_dq_delta(
-                    q, k, v, do, p_lse, p_out, rate, seed)
-                dk, dv = flash_attention_bwd_dkv(*bwd)
-                torch.cuda.synchronize()
-                for key, got, want in (("dq", dq, p_dq),
-                                       ("dq_delta", dq_d, p_dq),
-                                       ("dk", dk, p_dk), ("dv", dv, p_dv)):
-                    ok, fields = grad_agrees(got, want)
-                    if not ok and n == 1 and key != "dv":
-                        # Zero by construction: hold both to zero.
-                        worst = float(torch.maximum(
-                            got.float().abs().max(),
-                            want.float().abs().max()))
-                        ok, fields = worst <= ZERO_GRAD_ATOL, {
-                            "max_abs_err": worst, "atol": ZERO_GRAD_ATOL}
-                    checks[key] = (ok, fields)
-                ok, err = close(delta_k, delta, *DELTA_TOL)
-                checks["delta"] = (ok, {"max_abs_err": err,
-                                        "atol": DELTA_TOL[0]})
-                row = {"shape": [b, h, n, d], "dtype": str(dtype)[6:],
-                       "rate": rate, "path": backward_path(n, d, dtype),
-                       "fwd_path": forward_path(n, d, dtype),
-                       **{name: fields for name, (_, fields) in checks.items()}}
-                failed = [name for name, (ok, _) in checks.items() if not ok]
+                row, inputs = check_train_kernels(gen, (b, h, n, d), dtype,
+                                                  rate)
                 if (dtype == torch.bfloat16 and d == 64
                         and (b * h, n) in TRAIN_TIMED):
-                    row["timing"] = _time_train_kernels(
-                        peaks, q, k, v, do, out, lse, rate, seed)
+                    row["timing"] = _time_train_kernels(peaks, *inputs)
                     timed[(b * h, n, rate)] = row
                 emit("flash_train", **row)
-                if failed:
-                    raise AssertionError(f"training kernels {failed} "
-                                         f"disagree: {row}")
     return timed
 
 
@@ -2319,6 +2353,521 @@ def phase_eval_sweep(tmp: str, trained):
     return result
 
 
+# ------------------------------------------------- phase 13: the opt-ins
+OPTIN_RS = (8, 16)
+# The fused forward against the unfused one on the same raw images, fp32:
+# the JAX package's bar (tests/test_fused_preproc.py:94-95).
+FUSED_MIN_AGREEMENT = 0.999
+
+
+def _merged_lengths(n: int, r: int, layers: int) -> list:
+    """The token count each encoder layer runs at under ToMe merging
+    (ops/token_merge.py: r_eff = min(r, sources - 1) after each layer)."""
+    out = []
+    for _ in range(layers):
+        out.append(n)
+        sources = n // 2  # (body + 1) // 2 with body = n - 1
+        n -= max(min(r, sources - 1), 0)
+    return out
+
+
+@contextlib.contextmanager
+def _kernel1_lengths():
+    """The sequence length of every kernel-1 call the model makes, through
+    a pass-through wrapper around ops/attention.py's flash_attention (the
+    launches are still counted by the kernel's own wrapper only)."""
+    from visiontransformer_tpu_torch.ops import attention
+
+    seen, original = [], attention.flash_attention
+
+    def spy(q, k, v, **kwargs):
+        seen.append(q.shape[2])
+        return original(q, k, v, **kwargs)
+
+    attention.flash_attention = spy
+    try:
+        yield seen
+    finally:
+        attention.flash_attention = original
+
+
+@contextlib.contextmanager
+def _merge_calls():
+    """Every merge_step call the model makes, as (tokens, state, r, the new
+    assign), through a pass-through wrapper around models/vit.py's name."""
+    from visiontransformer_tpu_torch.models import vit
+
+    calls, original = [], vit.merge_step
+
+    def spy(x, state, r):
+        x_new, new = original(x, state, r)
+        calls.append((x, state, r, new.assign))
+        return x_new, new
+
+    vit.merge_step = spy
+    try:
+        yield calls
+    finally:
+        vit.merge_step = original
+
+
+def _assign_agreement(calls) -> dict:
+    """Share of equal ``assign`` entries between each merge_step the card
+    ran and the same call (same tokens and state) on the CPU, per layer:
+    near-ties of the bf16 similarity may rank differently on the two."""
+    from visiontransformer_tpu_torch.ops.token_merge import (
+        MergeState,
+        merge_step,
+    )
+
+    shares = []
+    for x, state, r, assign in calls:
+        _, cpu = merge_step(x.cpu(), MergeState(*(t.cpu() for t in state)),
+                            r)
+        shares.append(float((cpu.assign == assign.cpu()).float().mean()))
+    return {"shape": list(calls[0][0].shape), "dtype": str(
+        calls[0][0].dtype)[6:], "per_layer": shares, "min": min(shares),
+        "layers_equal": sum(share == 1.0 for share in shares)}
+
+
+@contextlib.contextmanager
+def _deterministic():
+    """torch.use_deterministic_algorithms(True) for the block: cuDNN and
+    the other libraries take their deterministic algorithms; an op without
+    one warns instead of raising, and the block yields those warnings."""
+    import warnings
+
+    before = torch.are_deterministic_algorithms_enabled()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            yield caught
+        finally:
+            torch.use_deterministic_algorithms(before)
+
+
+def _serve_timing(fns: dict, batch: int) -> dict:
+    """masks/s (best of 3 rounds of 10 forwards ending in the masks'
+    readback, the variants in turns, then in the reverse order), host ms
+    (host_ms) and the profiler's device ms, busy share and device kernels
+    of one forward, per variant."""
+    rows = {name: {"masks_per_s": 0.0} for name in fns}
+    for order in (list(fns), list(fns)[::-1]):
+        for name in order:
+            fns[name]().cpu()
+            for _ in range(3):
+                t0 = time.perf_counter()
+                for _ in range(10):
+                    out = fns[name]()
+                out.cpu()
+                rows[name]["masks_per_s"] = max(
+                    rows[name]["masks_per_s"],
+                    batch * 10 / (time.perf_counter() - t0))
+    for name, fn in fns.items():
+        prof = profile_steps(fn, batch, steps=3, top=4)
+        rows[name].update(
+            host_ms=host_ms(fn, iters=10, rounds=3),
+            device_ms=prof["device_ms_per_step"],
+            device_busy_share=prof["device_busy_share"],
+            device_kernels_per_forward=prof["device_kernels_per_step"],
+            own_kernels_ms=prof["own_kernels_ms_per_step"])
+    return rows
+
+
+def phase_optin(gen):
+    """Phase 13: ToMe token merging, W8A8 int8, the fused preprocessing, a
+    served opt-in row, and training with merging and with remat, on
+    ViT-B/16 (17 classes, bf16, seeded weights)."""
+    from visiontransformer_tpu_torch.configs import CE_TRAIN_DEFAULTS
+    from visiontransformer_tpu_torch.models.registry import (
+        resolve_model,
+        vitseg_config,
+    )
+    from visiontransformer_tpu_torch.models.vitseg import (
+        set_token_merge_r,
+        vitseg_apply,
+        vitseg_build_fused_preproc,
+        vitseg_predict,
+        vitseg_predict_fused,
+    )
+    from visiontransformer_tpu_torch.nn.layers import (
+        int8_matmul,
+        int8_matmul_plain,
+        quantize_per_token,
+    )
+    from visiontransformer_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        flash_attention_plain,
+        forward_path,
+    )
+    from visiontransformer_tpu_torch.ops.quant import (
+        QUANTIZED_LAYER_KEYS,
+        quantize_vitseg,
+    )
+    from visiontransformer_tpu_torch.ops.resize import resize_bilinear_mm
+    from visiontransformer_tpu_torch.ops.upsample_argmax import upsample_argmax
+    from visiontransformer_tpu_torch.serve.store import JobStore
+    from visiontransformer_tpu_torch.serve.worker import ModelRunner
+    from visiontransformer_tpu_torch.train.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    batch, size, compute = 32, 512, 224
+    cfg, model = resolve_model("vitseg", "P16H768A12", num_classes=17,
+                               input_size=compute, compute_dtype="bfloat16",
+                               device="cuda")
+    layers, heads = cfg.vit.num_hidden_layers, cfg.vit.num_attention_heads
+    n0 = cfg.vit.seq_len
+    lengths = {r: _merged_lengths(n0, r, layers) for r in OPTIN_RS}
+    merged_ns = sorted({n for ns in lengths.values() for n in ns})
+    reset, read = _train_launches()
+    path_launches = {}
+
+    def take(on_path: bool = True):
+        """Launches of kernels 1-5 since the last take(), added to the
+        path's unless they were comparisons or timing runs."""
+        got = {**read(), "upsample_argmax": upsample_argmax.launches}
+        reset()
+        upsample_argmax.launches = 0
+        for k, v in got.items():
+            path_launches[k] = path_launches.get(k, 0) + v * on_path
+        return got
+
+    def forward_launches(got, what):
+        if (got["flash_attention_fwd"], got["upsample_argmax"]) != (
+                layers, 1) or any(got[k] for k in got if k not in (
+                    "flash_attention_fwd", "upsample_argmax")):
+            raise AssertionError(f"{what}: launches {got}, expected "
+                                 f"{layers} of kernel 1 and 1 of kernel 5")
+
+    mean = torch.tensor(MEAN, device="cuda")
+    std = torch.tensor(STD, device="cuda")
+    raw = torch.rand(batch, size, size, 3, generator=gen, device="cuda")
+    raw_u8 = torch.randint(0, 256, (batch, size, size, 3), generator=gen,
+                           device="cuda", dtype=torch.uint8)
+
+    def serve(m, images=raw):
+        x = (resize_bilinear_mm(images, (compute, compute)) - mean) / std
+        return vitseg_predict(m, x, out_size=(size, size),
+                              mask_dtype=torch.uint8)
+
+    result = {"config": "P16H768A12", "classes": 17, "dtype": "bfloat16",
+              "batch": batch, "in": size, "compute": compute,
+              "kernel1_lengths": lengths}
+    qmodel = quantize_vitseg(model)
+    with torch.inference_mode():
+        # 1. Kernel 1 at every merged length against its plain version.
+        take(False)
+        rows = []
+        for n in merged_ns:
+            q, k, v = (torch.randn(batch, heads, n, 64, generator=gen,
+                                   device="cuda", dtype=torch.bfloat16)
+                       for _ in range(3))
+            ok, fields = flash_agrees(flash_attention(q, k, v),
+                                      flash_attention_plain(q, k, v))
+            rows.append({"n": n, "path": forward_path(n, 64, torch.bfloat16),
+                         **fields})
+            if not ok:
+                raise AssertionError(f"kernel 1 at the merged shape "
+                                     f"({batch * heads}, {n}, 64): {fields}")
+        result["flash_merged"] = {
+            "shapes": [[batch * heads, r["n"], 64] for r in rows],
+            "paths": sorted({r["path"] for r in rows}),
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "max_rel_err_norm": max(r["rel_err_norm"] for r in rows)}
+        take(False)
+
+        # 2. The merged forwards: kernel 1 at the 12 lengths, kernel 5
+        # once; r = 0 again after merging gives the plain masks.
+        masks, assign = {}, {}
+        for r in (0, *OPTIN_RS, 0):
+            set_token_merge_r(model, r)
+            with _kernel1_lengths() as seen, _merge_calls() as merges:
+                got = serve(model)
+            forward_launches(take(), f"r = {r}")
+            if r:
+                # The card's merge choices against the CPU's, same inputs.
+                assign[r] = _assign_agreement(merges)
+            if seen != lengths.get(r, [n0] * layers):
+                raise AssertionError(f"r = {r}: kernel 1 ran at N = {seen}")
+            if r in masks and not torch.equal(got, masks[r]):
+                raise AssertionError("r = 0 after merging differs from the "
+                                     "plain forward's masks")
+            masks[r] = got
+        for r in OPTIN_RS:
+            result[f"r{r}"] = {"agreement_vs_r0": float(
+                (masks[r] == masks[0]).float().mean()),
+                "assign_vs_cpu": assign[r]}
+
+        # 3. int8: the forward, then layer 0's four products at the
+        # serving shape on the card against the plain int32 product on
+        # the CPU, and the masks against the CPU's for one image.
+        inputs = {}
+
+        def keep_input(key):
+            def hook(_module, args):
+                inputs[key] = args[0]
+            return hook
+
+        hooks = [getattr(qmodel.backbone.layers[0], key)
+                 .register_forward_pre_hook(keep_input(key))
+                 for key in QUANTIZED_LAYER_KEYS]
+        masks["int8"] = serve(qmodel)
+        for hook in hooks:
+            hook.remove()
+        forward_launches(take(), "int8")
+        products = {}
+        for key in QUANTIZED_LAYER_KEYS:
+            weight = getattr(qmodel.backbone.layers[0], key).kernel_q
+            xq = quantize_per_token(inputs[key])[0].reshape(
+                -1, weight.shape[0])
+            acc = int8_matmul(xq, weight)
+            t0 = time.perf_counter()
+            want = int8_matmul_plain(xq.cpu(), weight.cpu())
+            cpu_s = time.perf_counter() - t0
+            xb = inputs[key].reshape(xq.shape)
+            wb = getattr(model.backbone.layers[0], key).kernel.to(xb.dtype)
+            products[key] = {
+                "shape": [*xq.shape, weight.shape[1]],
+                "equal": torch.equal(acc.cpu(), want),
+                "max_abs_acc": int(want.abs().max()),
+                "int_mm_ms": device_ms(lambda: int8_matmul(xq, weight)),
+                "bf16_matmul_ms": device_ms(lambda: xb @ wb),
+                "cpu_s": cpu_s}
+            if not products[key]["equal"]:
+                raise AssertionError(f"int8 product of layer 0 {key}: the "
+                                     f"card's accumulators differ from the "
+                                     f"CPU's")
+        cpu_model = copy.deepcopy(qmodel).to("cpu")
+        x_cpu = ((resize_bilinear_mm(raw[:1], (compute, compute)) - mean)
+                 / std).cpu()
+        t0 = time.perf_counter()
+        cpu_masks = vitseg_predict(cpu_model, x_cpu, out_size=(size, size),
+                                   mask_dtype=torch.uint8)
+        del cpu_model
+        result["int8"] = {
+            "products": products,
+            "agreement_vs_cpu": float(
+                (masks["int8"][:1].cpu() == cpu_masks).float().mean()),
+            "cpu_forward_s": time.perf_counter() - t0,
+            "agreement_vs_bf16": float(
+                (masks["int8"] == masks[0]).float().mean())}
+        take(False)
+
+        # 4. The fused preprocessing: fp32 compute against the unfused
+        # forward on the same raw images, fp32 and uint8 forms; then bf16.
+        fused = {}
+        for dtype in ("float32", "bfloat16"):
+            model.cfg = dataclasses.replace(model.cfg, compute_dtype=dtype)
+            for form, images in (("float32", raw), ("uint8", raw_u8)):
+                u8 = form == "uint8"
+                consts = vitseg_build_fused_preproc(
+                    model, in_size=size, mean=MEAN, std=STD,
+                    input_scale=1.0 / 255.0 if u8 else 1.0)
+                got = vitseg_predict_fused(model, consts, images,
+                                           out_size=(size, size),
+                                           mask_dtype=torch.uint8)
+                forward_launches(take(), f"fused {dtype} {form}")
+                unfused = serve(model, images.float() / 255.0 if u8
+                                else images)
+                take()
+                agreement = float((got == unfused).float().mean())
+                fused[f"{dtype}_{form}"] = agreement
+                if dtype == "float32" and agreement < FUSED_MIN_AGREEMENT:
+                    raise AssertionError(
+                        f"fused forward ({form} input) agrees with the "
+                        f"unfused one on {agreement:.5f} of the pixels, "
+                        f"below {FUSED_MIN_AGREEMENT}")
+        result["fused_agreement"] = fused
+
+    # 5. A row registered with token_merge_r=16 and quantize="int8", served
+    # over HTTP: every DONE mask equals ModelRunner.predict.
+    pngs = _job_pngs(8, seed=3)
+    with tempfile.TemporaryDirectory() as media:
+        store = JobStore(":memory:", media_root=media)
+        model_id = store.register_model(
+            "vit-b16-tome16-int8", num_classes=17, config_name="P16H768A12",
+            token_merge_r=16, quantize="int8")
+        with _http_server(store, (8,)) as (client, csrf, _):
+            jobs, done, elapsed = _run_jobs(client, csrf, model_id, pngs)
+            served = _served_masks(client, jobs, done)
+        serving = take()
+        runner = ModelRunner(store.get_model(model_id), device="cuda",
+                             buckets=(8,))
+        equal = sum(int(np.array_equal(mask, runner.predict(
+            _decoded(png)[None])[0])) for mask, png in zip(served, pngs))
+        take(False)
+        del runner
+    result["serving"] = {"jobs": len(pngs), "masks_equal_runner": equal,
+                         "jobs_per_s": len(pngs) / elapsed,
+                         "launches": serving}
+    if equal != len(pngs) or not serving["flash_attention_fwd"]:
+        raise AssertionError(f"opt-in row served {equal} of {len(pngs)} "
+                             f"masks equal to ModelRunner.predict, "
+                             f"launches {serving}")
+
+    # 6. Training, CE defaults (batch 16 as 4 x 4, dropout 0.1, bf16):
+    # kernels 2-4 against their plain versions at every merged length of
+    # the micro-batch, (4, 12, N, 64) without and with dropout; one step at
+    # r = 16; then one step without and with remat from the same weights
+    # and seed, under deterministic algorithms, equal bit for bit.
+    tcfg = CE_TRAIN_DEFAULTS
+    accum, per_step = tcfg.accumulate_grad_batches, (
+        layers * tcfg.accumulate_grad_batches)
+    take(False)
+    rows = [check_train_kernels(gen, (tcfg.batch_size // accum, heads, n, 64),
+                                torch.bfloat16, rate)[0]
+            for n in merged_ns for rate in (0.0, 0.1)]
+    take(False)
+    keys = ("out", "lse", "dq", "dq_delta", "dk", "dv", "delta")
+    result["flash_train_merged"] = {
+        "shapes": [r["shape"] for r in rows[::2]], "rates": [0.0, 0.1],
+        "paths": sorted({r["path"] for r in rows}),
+        "max_abs_err": {k: max(r[k]["max_abs_err"] for r in rows)
+                        for k in keys},
+        "max_rel_err_norm": {k: max(r[k]["rel_err_norm"] for r in rows)
+                             for k in keys if "rel_err_norm" in rows[0][k]}}
+    rng = np.random.default_rng(0)
+    tbatch = {"image": rng.random((tcfg.batch_size, compute, compute, 3),
+                                  np.float32),
+              "mask": rng.integers(0, 17, (tcfg.batch_size, 256, 256),
+                                   dtype=np.int32)}
+    want = {"flash_attention_fwd": 0, "flash_attention_fwd_train": per_step,
+            "flash_attention_bwd_dq": per_step,
+            "flash_attention_bwd_dkv": per_step, "upsample_argmax": 0}
+    train_cfg = vitseg_config("P16H768A12", num_classes=17,
+                              input_size=compute, compute_dtype="bfloat16")
+    trainer = Trainer(dataclasses.replace(train_cfg, vit=dataclasses.replace(
+        train_cfg.vit, token_merge_r=16)), tcfg, device="cuda")
+    state = trainer.init_state()
+    _, metrics = trainer.train_step(state, tbatch, seed=0)
+    merged_loss = float(metrics["loss"])
+    launches = take()
+    if launches != want or not np.isfinite(merged_loss):
+        raise AssertionError(f"merged train step: loss {merged_loss}, "
+                             f"launches {launches}, expected {want}")
+    result["train_r16"] = {"loss": merged_loss, "launches": launches}
+    del trainer, state
+
+    def one_step(remat: bool):
+        trainer = Trainer(train_cfg, dataclasses.replace(tcfg, remat=remat),
+                          device="cuda")
+        state = trainer.init_state()
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        _, metrics = trainer.train_step(state, tbatch, seed=0)
+        torch.cuda.synchronize()
+        step_peak = torch.cuda.max_memory_allocated() - resident
+        grads = {n: p.grad.clone() for n, p in
+                 state.model.named_parameters()}
+        # One more forward and backward, the whole batch as one
+        # micro-batch, with an explicit generator: its state at the end,
+        # and the peak memory above the weights, gradients and Adam state
+        # (the step's own peak is the optimizer's, after the activations
+        # are freed).
+        g = torch.Generator(device="cuda").manual_seed(11)
+        images = torch.from_numpy(tbatch["image"]).cuda()
+        state.model.zero_grad(set_to_none=False)
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        vitseg_apply(state.model, images, deterministic=False,
+                     generator=g).float().square().mean().backward()
+        torch.cuda.synchronize()
+        activation_peak = torch.cuda.max_memory_allocated() - resident
+        extra = {n: p.grad.clone() for n, p in
+                 state.model.named_parameters()}
+        return {"loss": metrics["loss"], "grads": grads, "extra": extra,
+                "gen_state": g.get_state(), "step_peak": step_peak,
+                "activation_peak": activation_peak, "trainer": trainer,
+                "state": state, "launches": take()}
+
+    def same(a, b) -> list:
+        """Names of what differs between two runs of one_step."""
+        diff = [] if torch.equal(a["loss"], b["loss"]) else ["loss"]
+        diff += [n for n in a["grads"]
+                 if not torch.equal(a["grads"][n], b["grads"][n])]
+        diff += [f"extra:{n}" for n in a["extra"]
+                 if not torch.equal(a["extra"][n], b["extra"][n])]
+        return diff + ([] if torch.equal(a["gen_state"], b["gen_state"])
+                       else ["generator state"])
+
+    with _deterministic() as caught:
+        plain, again = one_step(False), one_step(False)
+        remat = one_step(True)
+    if same(plain, again):
+        raise AssertionError(f"two plain steps differ under deterministic "
+                             f"algorithms: {same(plain, again)[:5]}")
+    differs = same(plain, remat)
+    if differs:
+        raise AssertionError(f"the remat step differs from the plain step: "
+                             f"{differs[:5]}")
+    # The step's micro-batches and the extra backward: kernels 3 and 4 once
+    # a layer each, kernel 2 once a layer, twice under remat (recompute).
+    once = per_step + layers
+    want_plain = dict(want, flash_attention_fwd_train=once,
+                      flash_attention_bwd_dq=once,
+                      flash_attention_bwd_dkv=once)
+    want_remat = dict(want_plain, flash_attention_fwd_train=2 * once)
+    if (plain["launches"] != want_plain
+            or remat["launches"] != want_remat):
+        raise AssertionError(f"plain / remat step launches "
+                             f"{plain['launches']} / {remat['launches']}, "
+                             f"expected {want_plain} / {want_remat}")
+    train = {"loss": float(plain["loss"]), "bit_for_bit": True,
+             "deterministic_warnings": sorted({str(w.message)[:120]
+                                               for w in caught})}
+    for name, run in (("plain", plain), ("remat", remat)):
+        step = _train_step_fn(run["trainer"], run["state"], [tbatch])
+        prof = profile_steps(step, tcfg.batch_size, steps=2, top=4)
+        train[name] = {"step_peak_bytes_above_resident": run["step_peak"],
+                       "forward_backward_peak_bytes_batch16":
+                           run["activation_peak"],
+                       "device_ms": prof["device_ms_per_step"],
+                       "wall_ms": prof["wall_ms_per_step"],
+                       "launches": run["launches"]}
+        take(False)
+    result["train"] = train
+    del plain, again, remat
+
+    # 7. Speed of the serving variants, in turns in one process.
+    with torch.inference_mode():
+        set_token_merge_r(model, 0)
+        consts = {form: vitseg_build_fused_preproc(
+            model, in_size=size, mean=MEAN, std=STD,
+            input_scale=1.0 / 255.0 if form == "uint8" else 1.0)
+            for form in ("float32", "uint8")}
+
+        def merged(r):
+            def fn():
+                set_token_merge_r(model, r)
+                try:
+                    return serve(model)
+                finally:
+                    set_token_merge_r(model, 0)
+            return fn
+
+        result["timing"] = _serve_timing({
+            "exact": lambda: serve(model), "r8": merged(8),
+            "r16": merged(16), "int8": lambda: serve(qmodel),
+            "fused": lambda: vitseg_predict_fused(
+                model, consts["float32"], raw, out_size=(size, size),
+                mask_dtype=torch.uint8),
+            "fused_uint8": lambda: vitseg_predict_fused(
+                model, consts["uint8"], raw_u8, out_size=(size, size),
+                mask_dtype=torch.uint8)}, batch)
+        take(False)
+    result.update(path_launches=dict(path_launches),
+                  seconds=time.perf_counter() - t_phase)
+    emit("optin", **result)
+    missing = [k for k, v in path_launches.items() if not v]
+    if missing:
+        raise AssertionError(f"phase 13 never launched {missing}")
+    model.to("cpu")
+    return result
+
+
 def _forward_lines(peaks, flash_timed, flash_train):
     """One line per timed bf16 d = 64 shape: kernel 1, kernel 2 at dropout
     0 and 0.1 and SDPA's forward at both rates (device time), the bounds and
@@ -2381,6 +2930,7 @@ def main() -> int:
         paed, trained = phase_paed(tmp)
         sweep = phase_eval_sweep(tmp, trained)
         del trained
+    optin = phase_optin(gen)
     emit("done", seconds=time.perf_counter() - t0,
          masks_per_s=model["bfloat16"]["masks_per_s"],
          jobs_per_s=serving["jobs_per_s"],
@@ -2438,10 +2988,11 @@ def main() -> int:
                  ratio=t["bwd_sum_ms"] / t["sdpa_bwd_ms"])
     for line in _forward_lines(peaks, flash_timed, flash_train):
         emit("flash_forward", **line)
-    for row in kernels:  # kernels 1-5: their launches on phases 10-12
+    for row in kernels:  # kernels 1-5: their launches on phases 10-13
         row["checkpoint_launches"] = checkpoint["path_launches"][row["name"]]
         row["paed_launches"] = paed["path_launches"][row["name"]]
         row["eval_sweep_launches"] = sweep["path_launches"][row["name"]]
+        row["optin_launches"] = optin["path_launches"][row["name"]]
     kernels += variants
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -591,14 +591,15 @@ def test_register_model_command(tmp_path):
     assert cli_main(base + ["--name", "ok", "--config", "P16H768A12",
                             "--ckpt", path]) == 0
     assert cli_main(base + ["--name", "preset", "--config", "vit_b_16"]) == 0
+    assert cli_main(base + ["--name", "tome-int8", "--config", "P16H768A12",
+                            "--token-merge-r", "8", "--quantize", "int8",
+                            "--ckpt", path]) == 0
     for bad in (["--name", "unknown", "--config", "nope"],
                 ["--name", "missing", "--config", "P16H768A12", "--ckpt",
-                 str(tmp_path / "missing")],
-                ["--name", "tome", "--config", "P16H768A12",
-                 "--token-merge-r", "8"],
-                ["--name", "int8", "--config", "P16H768A12",
-                 "--quantize", "int8"]):
+                 str(tmp_path / "missing")]):
         assert cli_main(base + bad) == 1, bad
     rows = JobStore(db, media_root=media).list_models()
-    assert [(r["name"], r["checkpoint_path"]) for r in rows] == [
-        ("ok", path), ("preset", "")]
+    assert [(r["name"], r["checkpoint_path"], r["token_merge_r"],
+             r["quantize"]) for r in rows] == [
+        ("ok", path, 0, ""), ("preset", "", 0, ""),
+        ("tome-int8", path, 8, "int8")]

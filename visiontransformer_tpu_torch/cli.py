@@ -328,18 +328,16 @@ def cmd_register_model(argv) -> int:
                         "(empty: random init, useful for smoke tests)")
     p.add_argument("--description", default="")
     p.add_argument("--token-merge-r", type=int, default=0,
-                   help="not ported yet")
+                   help="opt-in ToMe token merging: tokens merged per "
+                        "encoder block (ops/token_merge.py)")
     p.add_argument("--quantize", default="", choices=("", "int8"),
-                   help="not ported yet")
+                   help="opt-in W8A8 dynamic int8 quantization of the "
+                        "encoder linears (ops/quant.py)")
     args = p.parse_args(argv)
     try:
         vit_config_by_name(args.config)
     except KeyError as exc:
         print(f"error: {exc.args[0]}", file=sys.stderr)
-        return 1
-    if args.token_merge_r or args.quantize:
-        print("error: token merging and int8 quantization are not ported "
-              "yet", file=sys.stderr)
         return 1
     if args.ckpt and not os.path.exists(args.ckpt):
         print(f"error: checkpoint {args.ckpt} does not exist",
@@ -349,7 +347,8 @@ def cmd_register_model(argv) -> int:
     model_id = store.register_model(
         args.name, num_classes=args.num_classes, config_name=args.config,
         description=args.description, input_size=args.input_size,
-        checkpoint_path=args.ckpt)
+        checkpoint_path=args.ckpt, token_merge_r=args.token_merge_r,
+        quantize=args.quantize)
     print(f"registered model id={model_id} name={args.name} "
           f"family=vitseg config={args.config} "
           f"ckpt={args.ckpt or '<random init>'}")

@@ -4,10 +4,10 @@ A copy of the TPU package's ``configs.py`` (``ViTConfig``, ``ViTSegConfig``,
 the 9-config sweep table, the named size presets, ``TrainConfig`` and the
 CE/PAED training defaults) with the same field names and defaults;
 ``ViTSegConfig.dtype`` is a ``torch.dtype``. Fields the port does not use
-yet (``remat``, ``token_merge_r``, the mesh and parallelism fields of
-``TrainConfig``) are kept so that one configuration means the same model and
-schedule in both packages; ``not_ported`` names those set away from their
-defaults, and the port's entry points reject them.
+yet (the mesh and parallelism fields of ``TrainConfig``) are kept so that
+one configuration means the same model and schedule in both packages;
+``not_ported`` names those set away from their defaults, and the port's
+entry points reject them.
 """
 
 from __future__ import annotations
@@ -40,8 +40,8 @@ class ViTConfig:
     attention_probs_dropout_prob: float = 0.1
     initializer_range: float = 0.02
     layer_norm_eps: float = 1e-12
-    # Per-block rematerialisation and ToMe token merging: options of the
-    # TPU package not ported yet (the port's models reject non-defaults).
+    # Per-block rematerialisation (training memory) and ToMe token merging
+    # (opt-in serving speed, tokens merged per layer; models/vit.py).
     remat: bool = False
     token_merge_r: int = 0
 
@@ -207,9 +207,9 @@ class TrainConfig:
 
     def not_ported(self) -> List[str]:
         """Fields set away from their defaults that the port does not
-        implement yet: remat and parallelism (ROADMAP queue 1)."""
+        implement yet: parallelism (ROADMAP queue 1)."""
         default = TrainConfig()
-        names = ("remat", "mesh_shape", "fsdp", "fsdp_min_size",
+        names = ("mesh_shape", "fsdp", "fsdp_min_size",
                  "seq_parallel", "pipeline_stages", "pipeline_microbatches")
         return [n for n in names if getattr(self, n) != getattr(default, n)]
 

@@ -6,8 +6,22 @@ embeddings, pre-LN encoder blocks with a fused (H, 3H) QKV projection and
 exact-erf GELU MLP, final LayerNorm. With ``deterministic=False`` dropout
 applies where the TPU package applies it (embeddings, attention probs,
 attention output, MLP output), its draws taken in that order from one
-explicit ``torch.Generator``. Remat, token merging and sharding are not
-ported.
+explicit ``torch.Generator``.
+
+Two options of ``ViTConfig`` shape the encoder trunk (``vit_encode``):
+
+- ``token_merge_r``: ToMe merging after every block (``ops/token_merge.py``),
+  then the final LayerNorm, then the unmerge back to every position;
+- ``remat``: each block under ``torch.utils.checkpoint`` when a gradient
+  is being taken, its activations recomputed in the backward. The
+  recompute replays the block's dropout draws: the generator's state at
+  the block's start is an input of the checkpointed function, which
+  rewinds the generator to it on the recompute and restores it after, so
+  loss, gradients and the generator's final state equal those without
+  remat bit for bit (the TPU package passes ``fold_in(rng, i)`` into its
+  checkpointed block instead).
+
+Sharding is not ported.
 """
 
 from __future__ import annotations
@@ -16,6 +30,7 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from visiontransformer_tpu_torch.configs import ViTConfig
 from visiontransformer_tpu_torch.nn.layers import (
@@ -25,6 +40,11 @@ from visiontransformer_tpu_torch.nn.layers import (
     gelu_exact,
 )
 from visiontransformer_tpu_torch.ops.attention import multi_head_attention
+from visiontransformer_tpu_torch.ops.token_merge import (
+    init_merge_state,
+    merge_step,
+    unmerge,
+)
 
 
 class EncoderLayer(nn.Module):
@@ -42,8 +62,6 @@ class EncoderLayer(nn.Module):
 class ViT(nn.Module):
     def __init__(self, cfg: ViTConfig):
         super().__init__()
-        if cfg.remat or cfg.token_merge_r:
-            raise ValueError("remat and token merging are not ported")
         self.cfg = cfg
         patch_dim = cfg.patch_size * cfg.patch_size * cfg.num_channels
         self.patch_embed = Linear(patch_dim, cfg.hidden_size)
@@ -77,7 +95,15 @@ def vit_embed(model: ViT, images: torch.Tensor, *,
     """Patchify + project + CLS + position embeddings + embedding
     dropout."""
     x = patchify(images.to(dtype), model.cfg.patch_size)
-    x = model.patch_embed(x, dtype=dtype)
+    return _embed_patch_tokens(model, model.patch_embed(x, dtype=dtype),
+                               dtype=dtype, deterministic=deterministic,
+                               generator=generator)
+
+
+def _embed_patch_tokens(model: ViT, x: torch.Tensor, *, dtype: torch.dtype,
+                        deterministic: bool,
+                        generator: Optional[torch.Generator]) -> torch.Tensor:
+    x = x.to(dtype)
     cls = model.cls_token.to(dtype).expand(x.shape[0], -1, -1)
     x = torch.cat([cls, x], dim=1)
     x = x + model.pos_embed.to(dtype)
@@ -109,14 +135,50 @@ def encoder_layer(layer: EncoderLayer, x: torch.Tensor, cfg: ViTConfig, *,
                        deterministic=deterministic)
 
 
+def _remat_layer(layer: EncoderLayer, x: torch.Tensor, cfg: ViTConfig, *,
+                 attn_impl: str, deterministic: bool,
+                 generator: Optional[torch.Generator]) -> torch.Tensor:
+    """encoder_layer under activation checkpointing. The first run draws
+    from the generator as usual; a recompute rewinds it to the state the
+    block started from, draws the same masks, and puts it back."""
+    start = None if generator is None else generator.get_state()
+    runs = [0]
+
+    def run(x):
+        runs[0] += 1
+        replay = runs[0] > 1 and start is not None
+        if replay:
+            now = generator.get_state()
+            generator.set_state(start)
+        try:
+            return encoder_layer(layer, x, cfg, attn_impl=attn_impl,
+                                 deterministic=deterministic,
+                                 generator=generator)
+        finally:  # also when the recompute stops early
+            if replay:
+                generator.set_state(now)
+
+    return checkpoint(run, x, use_reentrant=False)
+
+
 def vit_encode(model: ViT, x: torch.Tensor, *, attn_impl: str,
                deterministic: bool = True,
                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-    """Encoder blocks + final LayerNorm over embedded tokens."""
+    """Encoder blocks + final LayerNorm over embedded tokens, with the
+    config's token merging (merge after each block, final LayerNorm, then
+    unmerge) and remat (only where a gradient is taken)."""
+    cfg = model.cfg
+    remat = cfg.remat and torch.is_grad_enabled()
+    state = (init_merge_state(x.shape[0], x.shape[1], x.device)
+             if cfg.token_merge_r else None)
     for layer in model.layers:
-        x = encoder_layer(layer, x, model.cfg, attn_impl=attn_impl,
-                          deterministic=deterministic, generator=generator)
-    return model.final_ln(x)
+        x = (_remat_layer if remat else encoder_layer)(
+            layer, x, cfg, attn_impl=attn_impl, deterministic=deterministic,
+            generator=generator)
+        if state is not None:
+            x, state = merge_step(x, state, cfg.token_merge_r)
+    x = model.final_ln(x)
+    return x if state is None else unmerge(x, state)
 
 
 def vit_apply(model: ViT, images: torch.Tensor, *, attn_impl: str = "auto",
@@ -125,5 +187,20 @@ def vit_apply(model: ViT, images: torch.Tensor, *, attn_impl: str = "auto",
     """(B, H, W, C) images -> (B, N+1, hidden) final token states."""
     x = vit_embed(model, images, dtype=dtype, deterministic=deterministic,
                   generator=generator)
+    return vit_encode(model, x, attn_impl=attn_impl,
+                      deterministic=deterministic, generator=generator)
+
+
+def vit_apply_from_patch_tokens(model: ViT, patch_tokens: torch.Tensor, *,
+                                attn_impl: str = "auto",
+                                dtype: torch.dtype = torch.float32,
+                                deterministic: bool = True,
+                                generator: Optional[torch.Generator] = None
+                                ) -> torch.Tensor:
+    """vit_apply from already projected (B, N, hidden) patch embeddings,
+    the entry of the fused preprocessing (``ops/fused_preproc.py``): CLS,
+    position embeddings, dropout and the encoder as in vit_apply."""
+    x = _embed_patch_tokens(model, patch_tokens, dtype=dtype,
+                            deterministic=deterministic, generator=generator)
     return vit_encode(model, x, attn_impl=attn_impl,
                       deterministic=deterministic, generator=generator)

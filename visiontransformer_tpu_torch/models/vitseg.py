@@ -6,18 +6,30 @@ Conv1×1(256→classes), then one bilinear upsample (align_corners=False) to
 the output size. Activations are NHWC throughout, as in the TPU package.
 ``vitseg_apply`` with ``deterministic=False`` and a generator is the
 training forward (dropout in the backbone, fp32 logits at the input size).
+``vitseg_predict_fused`` is the serving forward from raw images with the
+resize and normalize folded into the patch embedding
+(``ops/fused_preproc.py``).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Tuple
 
 import torch
 from torch import nn
 
 from visiontransformer_tpu_torch.configs import ViTSegConfig
-from visiontransformer_tpu_torch.models.vit import ViT, vit_apply
+from visiontransformer_tpu_torch.models.vit import (
+    ViT,
+    vit_apply,
+    vit_apply_from_patch_tokens,
+)
 from visiontransformer_tpu_torch.nn.layers import Conv2d
+from visiontransformer_tpu_torch.ops.fused_preproc import (
+    build_fused_embed,
+    fused_resize_embed,
+)
 from visiontransformer_tpu_torch.ops.resize import resize_bilinear_mm
 from visiontransformer_tpu_torch.ops.upsample_argmax import (
     upsample_argmax,
@@ -42,16 +54,32 @@ class ViTSeg(nn.Module):
                             deterministic=deterministic, generator=generator)
 
 
+def set_token_merge_r(model: ViTSeg, r: int) -> ViTSegConfig:
+    """Turn ToMe token merging on (r tokens merged per block) or off (0)
+    in place, with the same weights; returns the new config."""
+    model.backbone.cfg = dataclasses.replace(model.backbone.cfg,
+                                             token_merge_r=r)
+    model.cfg = dataclasses.replace(model.cfg, vit=model.backbone.cfg)
+    return model.cfg
+
+
 def vitseg_head_logits(model: ViTSeg, images: torch.Tensor, *,
                        attn_impl: str = "auto", deterministic: bool = True,
                        generator: Optional[torch.Generator] = None
                        ) -> torch.Tensor:
     """(B, H, W, 3) images -> (B, g, g, classes) grid logits, in the
     compute dtype (before the upsample)."""
-    cfg = model.cfg
     tokens = vit_apply(model.backbone, images, attn_impl=attn_impl,
-                       dtype=cfg.dtype, deterministic=deterministic,
+                       dtype=model.cfg.dtype, deterministic=deterministic,
                        generator=generator)
+    return vitseg_head_from_tokens(model, tokens)
+
+
+def vitseg_head_from_tokens(model: ViTSeg, tokens: torch.Tensor
+                            ) -> torch.Tensor:
+    """Final hidden states (B, N+1, hidden) -> grid logits (B, g, g,
+    classes): drop CLS, fold to the grid, the conv head."""
+    cfg = model.cfg
     g = cfg.vit.grid_size
     features = tokens[:, 1:, :].reshape(tokens.shape[0], g, g,
                                         cfg.vit.hidden_size)
@@ -93,10 +121,53 @@ def vitseg_predict(model: ViTSeg, images: torch.Tensor, *,
     the same function."""
     if out_size is None:
         out_size = (images.shape[1], images.shape[2])
+    _check_epilogue(epilogue)
+    grid = vitseg_head_logits(model, images, attn_impl=attn_impl)
+    return _masks(grid, out_size, epilogue, mask_dtype)
+
+
+def _check_epilogue(epilogue: str) -> None:
     if epilogue not in EPILOGUES:
         raise ValueError(f"unknown epilogue {epilogue!r}; known: {EPILOGUES}")
-    grid = vitseg_head_logits(model, images, attn_impl=attn_impl)
+
+
+def _masks(grid: torch.Tensor, out_size, epilogue: str,
+           mask_dtype: torch.dtype) -> torch.Tensor:
     if epilogue == "kernel" or (epilogue == "auto" and grid.is_cuda):
         return upsample_argmax(grid.contiguous(), tuple(out_size),
                                out_dtype=mask_dtype)
     return upsample_argmax_plain(grid, tuple(out_size), mask_dtype)
+
+
+def vitseg_build_fused_preproc(model: ViTSeg, *, in_size: int, mean, std,
+                               input_scale: float = 1.0) -> dict:
+    """The constants of ``vitseg_predict_fused`` for raw ``in_size``
+    images (512 for the bench workload), on the model's device; the compute
+    size is the backbone's (``cfg.vit.image_size``). ``input_scale`` =
+    1/255 takes uint8 images."""
+    pe = model.backbone.patch_embed
+    return build_fused_embed(
+        {"kernel": pe.kernel, "bias": pe.bias},
+        patch_size=model.cfg.vit.patch_size, in_size=in_size,
+        compute_size=model.cfg.vit.image_size, mean=mean, std=std,
+        input_scale=input_scale, device=pe.kernel.device)
+
+
+def vitseg_predict_fused(model: ViTSeg, consts: dict, raw: torch.Tensor, *,
+                         out_size: Tuple[int, int], epilogue: str = "auto",
+                         attn_impl: str = "auto",
+                         mask_dtype: torch.dtype = torch.int32
+                         ) -> torch.Tensor:
+    """The serving forward with the preprocessing folded into the patch
+    embedding: (B, in, in, 3) raw images (fp32 in [0, 1], or uint8 where
+    the constants fold 1/255) -> (B, out_H, out_W) masks in
+    ``mask_dtype``; the same function as resize -> normalize ->
+    ``vitseg_predict`` up to floating-point association. ``epilogue`` as
+    in vitseg_predict."""
+    _check_epilogue(epilogue)
+    dtype = model.cfg.dtype
+    tokens = vit_apply_from_patch_tokens(
+        model.backbone, fused_resize_embed(consts, raw, dtype=dtype),
+        attn_impl=attn_impl, dtype=dtype)
+    grid = vitseg_head_from_tokens(model, tokens)
+    return _masks(grid, tuple(out_size), epilogue, mask_dtype)

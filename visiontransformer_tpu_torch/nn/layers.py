@@ -2,7 +2,9 @@
 
 The functions mirror the TPU package's ``nn/layers.py`` arithmetic: a
 linear kernel is stored (in, out) in fp32 and cast to the activation dtype
-at use, with the bias added after the product in that dtype; LayerNorm runs
+at use, with the bias added after the product in that dtype (a W8A8 layer,
+``LinearW8A8``, holds an int8 kernel and runs ``_linear_w8a8``'s int8
+product instead, for inference only); LayerNorm runs
 in fp32 and casts back; convolutions take NHWC activations and HWIO
 kernels; dropout draws its mask from an explicit generator. The modules
 hold parameters under the TPU package's names (``kernel``, ``bias``,
@@ -29,6 +31,68 @@ def linear(x: torch.Tensor, kernel: torch.Tensor,
     if bias is not None:
         y = y + bias.to(y.dtype)
     return y
+
+
+def int8_matmul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(M, K) int8 @ (K, N) int8 -> (M, N) int32, as a plain int32
+    product (exact: |sum| <= 127^2 K)."""
+    return torch.matmul(a.to(torch.int32), b.to(torch.int32))
+
+
+# torch._int_mm on CUDA takes more than 16 rows.
+_INT_MM_MIN_ROWS = 16
+
+
+def int8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(M, K) int8 @ (K, N) int8 -> (M, N) int32. On CUDA: cuBLASLt's int8
+    product (``torch._int_mm``), whose preconditions are checked here: K and
+    N multiples of 8 (raises otherwise), more than 16 rows (fewer are padded
+    with zero rows, whose products are dropped). On the CPU: the plain int32
+    product."""
+    if a.dtype != torch.int8 or b.dtype != torch.int8 or a.dim() != 2 \
+            or b.dim() != 2 or a.shape[1] != b.shape[0]:
+        raise ValueError(f"int8_matmul takes (M, K) and (K, N) int8, got "
+                         f"{tuple(a.shape)} {a.dtype}, {tuple(b.shape)} "
+                         f"{b.dtype}")
+    if not a.is_cuda:
+        return int8_matmul_plain(a, b)
+    m, k = a.shape
+    if k % 8 or b.shape[1] % 8:
+        raise ValueError(f"the int8 product on CUDA needs K and N multiples "
+                         f"of 8, got K={k}, N={b.shape[1]}")
+    if m > _INT_MM_MIN_ROWS:
+        return torch._int_mm(a.contiguous(), b)
+    padded = a.new_zeros((_INT_MM_MIN_ROWS + 1, k))
+    padded[:m] = a
+    return torch._int_mm(padded, b)[:m]
+
+
+def quantize_per_token(x: torch.Tensor):
+    """(int8 x, fp32 per-token scales): s_x = max|x| / 127 over the last
+    axis in fp32 (at least 1e-12), x / s_x rounded half to even and
+    clipped to +-127."""
+    x32 = x.float()
+    s_x = torch.clamp(x32.abs().amax(dim=-1, keepdim=True) / 127.0,
+                      min=1e-12)
+    return torch.clamp(torch.round(x32 / s_x), -127, 127).to(torch.int8), s_x
+
+
+def _linear_w8a8(x: torch.Tensor, kernel_q: torch.Tensor,
+                 kernel_scale: torch.Tensor,
+                 bias: Optional[torch.Tensor] = None, *,
+                 dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """The TPU package's W8A8 linear step for step: per-token int8
+    activations (``quantize_per_token``), the int8 x int8 -> int32
+    product, then acc * s_x * s_w + bias in fp32, cast to the activation
+    dtype (or ``dtype``)."""
+    if dtype is not None:
+        x = x.to(dtype)
+    xq, s_x = quantize_per_token(x)
+    acc = int8_matmul(xq.reshape(-1, xq.shape[-1]), kernel_q)
+    y = acc.reshape(*x.shape[:-1], -1).float() * s_x * kernel_scale
+    if bias is not None:
+        y = y + bias
+    return y.to(x.dtype)
 
 
 def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, *,
@@ -92,6 +156,26 @@ class Linear(nn.Module):
 
     def forward(self, x: torch.Tensor, dtype: Optional[torch.dtype] = None):
         return linear(x, self.kernel, self.bias, dtype=dtype)
+
+
+class LinearW8A8(nn.Module):
+    """A linear layer in W8A8 form (``ops/quant.py``): ``kernel_q`` (in,
+    out) int8, ``kernel_scale`` (out,) fp32 and ``bias`` fp32 are buffers,
+    not parameters, since rounding has no gradient. ``kernel_q`` is held
+    column-major (the transpose of a contiguous (out, in) tensor): cuBLASLt's
+    int8 product on the H100 takes 4.3-6.5x less time with its second
+    operand so laid out than row-major at the encoder's shapes (PERF.md)."""
+
+    def __init__(self, kernel_q: torch.Tensor, kernel_scale: torch.Tensor,
+                 bias: Optional[torch.Tensor] = None):
+        super().__init__()
+        self.register_buffer("kernel_q", kernel_q.t().contiguous().t())
+        self.register_buffer("kernel_scale", kernel_scale)
+        self.register_buffer("bias", bias)
+
+    def forward(self, x: torch.Tensor, dtype: Optional[torch.dtype] = None):
+        return _linear_w8a8(x, self.kernel_q, self.kernel_scale, self.bias,
+                            dtype=dtype)
 
 
 class LayerNorm(nn.Module):

@@ -34,9 +34,13 @@ import torch
 
 from visiontransformer_tpu_torch.device import resolve_device
 from visiontransformer_tpu_torch.models.registry import resolve_model
-from visiontransformer_tpu_torch.models.vitseg import vitseg_predict
+from visiontransformer_tpu_torch.models.vitseg import (
+    set_token_merge_r,
+    vitseg_predict,
+)
 from visiontransformer_tpu_torch.native import available as native_available
 from visiontransformer_tpu_torch.native import detections as native_detections
+from visiontransformer_tpu_torch.ops.quant import quantize_vit_
 from visiontransformer_tpu_torch.serve.store import JobStore
 from visiontransformer_tpu_torch.visualize import class_color_table, colorize
 
@@ -49,7 +53,9 @@ class ModelRunner:
     The forward is ``vitseg_predict`` at ``out_size = input_size``, the
     same function as the TPU runner's ``argmax(vitseg_apply(...))``: on a
     CUDA device it runs the flash-attention and fused upsample+argmax
-    kernels. ``device=None`` means CUDA and raises without it."""
+    kernels. The row's opt-ins apply at load, as in the TPU runner:
+    ``token_merge_r`` (ToMe merging) and ``quantize == "int8"`` (W8A8
+    encoder linears). ``device=None`` means CUDA and raises without it."""
 
     def __init__(self, model_row: Dict, *, compute_dtype: str = "bfloat16",
                  buckets: Sequence[int] = BUCKETS, device=None):
@@ -57,16 +63,21 @@ class ModelRunner:
         self.buckets = tuple(sorted(buckets))
         self.input_size = model_row["input_size"]
         self.family = model_row.get("model_family") or "vitseg"
-        if int(model_row.get("token_merge_r") or 0) or model_row.get(
-                "quantize"):
-            raise ValueError("token merging and int8 quantization are not "
-                             "ported yet")
         self.cfg, self.model = resolve_model(
             self.family, model_row["config_name"],
             num_classes=model_row["num_classes"],
             input_size=self.input_size, compute_dtype=compute_dtype,
             checkpoint_path=model_row.get("checkpoint_path") or "",
             device=self.device)
+        merge_r = int(model_row.get("token_merge_r") or 0)
+        if merge_r:
+            # The row's ToMe opt-in (vitseg only; the store validates): the
+            # same weights, tokens merged after every block.
+            self.cfg = set_token_merge_r(self.model, merge_r)
+        if model_row.get("quantize") == "int8":
+            # The row's W8A8 opt-in: the encoder linears quantized once,
+            # here, in place (ops/quant.py).
+            quantize_vit_(self.model.backbone)
         self.color_table = class_color_table(None, self.cfg.num_classes)
         # uint8 in / uint8 out: the /255 runs on the device (uint8 -> fp32
         # then /255, as the TPU runner does); masks fit uint8 whenever

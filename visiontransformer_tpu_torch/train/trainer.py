@@ -18,15 +18,19 @@ not saved: a resumed run trains at the restored learning rate until its
 first monitored epoch, where a fresh ``PlateauScheduler`` sets
 ``learning_rate`` again, as the TPU package's does.
 
-Not ported yet, and rejected when asked for: mesh, FSDP, sequence and
-pipeline parallelism, multi-host, remat, the profiler trace (ROADMAP
-queue 1). No tfevents file is written.
+``TrainConfig.remat`` turns on ``ViTConfig.remat`` (per-block activation
+checkpointing, ``models/vit.py``), as the TPU package's trainer does. A
+W8A8-quantized model (``ops/quant.py``) is refused: rounding has no
+gradient, so it would learn nothing. Not ported yet, and rejected when
+asked for: mesh, FSDP, sequence and pipeline parallelism, multi-host, the
+profiler trace (ROADMAP queue 1). No tfevents file is written.
 Metrics stay 0-dim device tensors until a log line or the epoch's mean
 needs them, so a step does not wait for the card.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Callable, Dict, Iterable, Optional, Union
 
@@ -45,6 +49,7 @@ from visiontransformer_tpu_torch.data.pipeline import batch_iterator, prefetch
 from visiontransformer_tpu_torch.device import resolve_device
 from visiontransformer_tpu_torch.models.registry import init_vitseg_
 from visiontransformer_tpu_torch.models.vitseg import ViTSeg
+from visiontransformer_tpu_torch.ops.quant import is_quantized
 from visiontransformer_tpu_torch.train.optim import (
     EarlyStopping,
     PlateauScheduler,
@@ -85,12 +90,16 @@ class Trainer:
                 f"batch_size={train_cfg.batch_size} must be divisible by "
                 f"accumulate_grad_batches={train_cfg.accumulate_grad_batches} "
                 f"(the step splits it into that many micro-batches)")
+        if train_cfg.remat and not seg_cfg.vit.remat:
+            seg_cfg = dataclasses.replace(
+                seg_cfg, vit=dataclasses.replace(seg_cfg.vit, remat=True))
         self.seg_cfg = seg_cfg
         self.train_cfg = train_cfg
         self.task_name = task
         self.task_fn = get_task(task)
         self.logger = logger
         self.attn_impl = attn_impl
+        self._checked_model = None  # the model train_step last accepted
 
     # ------------------------------------------------------------------ init
     def init_state(self, params=None) -> TrainState:
@@ -124,6 +133,16 @@ class Trainer:
         micro-batch i draws its dropout from a generator seeded with
         ``fold_seed(seed, i)``. Returns (state, mean metrics), the state
         updated in place."""
+        if state.model is not self._checked_model:
+            # Once per model, as the TPU trainer checks once before its
+            # first compile.
+            if is_quantized(state.model):
+                raise ValueError(
+                    "the model holds W8A8-quantized layers (kernel_q); "
+                    "quantization is inference-only (round/clip has zero "
+                    "gradient). Train the fp32 model and quantize it when "
+                    "serving (ops/quant.py).")
+            self._checked_model = state.model
         accum = self.train_cfg.accumulate_grad_batches
         total = len(batch["image"])
         if total % accum:
