@@ -156,12 +156,30 @@ failure:
              forward and backward, and device ms, of both; masks/s, host ms, device ms and device kernels a
              forward of the exact, r = 8, r = 16, int8 and fused forwards
              in turns.
+14. conv_families  the ten conv families (models/registry.py:
+             CONV_FAMILIES) at full width, seeded weights, 17 classes,
+             224^2: each at resnet34, and unet at resnet18, resnet50,
+             mobilenetv2 and efficientnet_b0, the card's fp32 logits (TF32
+             off) against the plain CPU forward of the same weights at
+             batch 2 (atol 5e-5, the CPU parity tests'), and the bf16
+             argmax's agreement with the fp32 one; device ms (queued) and
+             host ms of one bf16 forward at batch 32 for every family, and
+             for unet/resnet34 at 512^2; Trainer(model="unet") on resnet34
+             at the CE defaults (bf16, batch 16 = 4 x 4), five steps
+             (finite losses, images/s, device ms a step), one fp32 step
+             (TF32 off) against the same step on the CPU (loss 1e-5,
+             gradients 5e-5 / 5e-4); the trained weights saved, registered
+             with register-model --family unet --config resnet34 --ckpt and
+             served over HTTP (the mask equals ModelRunner.predict's); no
+             launch of kernels 1-9 in the phase (no Pallas kernel lies on
+             the JAX families' path).
 
 Then it prints the card's name and power limit as nvidia-smi gives them,
 one JSON line describing every kernel (launches of the serving kernels
 counted during the serving run, of the training kernels during the train
 run, of the sweep kernels during the two sweeps; kernels 1-5 also with
-their launches on the paths of phases 10, 11, 12 and 13), and, last,
+their launches on the paths of phases 10, 11, 12 and 13; kernels 1-9 with
+their launches in phase 14, which must be 0), and, last,
 {"ok": true, "device": {...}}.
 Without CUDA it exits with code 1 and prints no result.
 
@@ -2868,6 +2886,263 @@ def phase_optin(gen):
     return result
 
 
+# Phase 14. The conv families: (family, encoder preset) checked on the card
+# against the plain CPU forward of the same weights; every family at
+# resnet34, unet at the other real presets.
+CONV_OTHER_PRESETS = ("resnet18", "resnet50", "mobilenetv2", "efficientnet_b0")
+CONV_CLASSES = 17
+CONV_SIZE = 224
+CONV_BATCH = 32          # the timed bf16 forwards
+CONV_CHECK_BATCH = 2     # the card against the CPU
+# fp32 logits, the card (TF32 off) against the CPU: the CPU parity tests'
+# seg-logit atol (tests/conv_parity.py).
+CONV_LOGITS_ATOL = 5e-5
+CONV_TRAIN_STEPS = 5
+
+
+def _kernel_launch_counts():
+    """(reset, read) of the launch counts of kernels 1-9."""
+    from visiontransformer_tpu_torch.ops import flash_variants
+    from visiontransformer_tpu_torch.ops.upsample_argmax import upsample_argmax
+
+    reset_train, read_train = _train_launches()
+    others = {"upsample_argmax": upsample_argmax,
+              **{name: getattr(flash_variants, name)
+                 for name in VARIANT_KERNELS}}
+
+    def reset():
+        reset_train()
+        for fn in others.values():
+            fn.launches = 0
+
+    return reset, lambda: {**read_train(),
+                           **{k: fn.launches for k, fn in others.items()}}
+
+
+@contextlib.contextmanager
+def _no_tf32():
+    """fp32 convolutions and products at fp32 on the card (PyTorch lets
+    cuDNN take TF32 for fp32 convolutions by default)."""
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+
+
+def _conv_check(family: str, encoder: str, images: torch.Tensor,
+                timed: torch.Tensor) -> dict:
+    """One (family, encoder) at full width, seeded weights: the card's
+    fp32 logits (TF32 off) against the plain CPU forward of the same
+    weights, the bf16 argmax's agreement with the fp32 one, and, given
+    ``timed``, device ms and host ms of one bf16 forward of it."""
+    from visiontransformer_tpu_torch.models.registry import (
+        get_model_family,
+        model_config,
+    )
+
+    cfg = model_config(family, encoder, num_classes=CONV_CLASSES,
+                       compute_dtype="float32")
+    model = get_model_family(family).init(torch.Generator().manual_seed(0),
+                                          cfg).eval()
+    row = {"family": family, "encoder": encoder,
+           "params": sum(p.numel() for p in model.parameters())}
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        want = model(images)
+        row["cpu_forward_s"] = time.perf_counter() - t0
+        model.to("cuda")
+        with _no_tf32():
+            got = model(images.cuda()).cpu()
+        row["max_abs_err"] = float((got - want).abs().max())
+        row["max_abs_logit"] = float(want.abs().max())
+        row["fp32_argmax_agreement_cpu"] = float(
+            (got.argmax(-1) == want.argmax(-1)).float().mean())
+        model.cfg = dataclasses.replace(cfg, compute_dtype="bfloat16")
+        bf16 = model(images.cuda()).argmax(-1).cpu()
+        row["bf16_argmax_agreement_fp32"] = float(
+            (bf16 == got.argmax(-1)).float().mean())
+        if timed is not None:
+            fn = lambda: model(timed)  # noqa: E731
+            # One forward queued behind the spin: a conv forward launches
+            # 560-920 kernels, and the device's queue does not hold two.
+            row.update(batch=timed.shape[0], size=timed.shape[1],
+                       device_ms=device_ms(fn, iters=1),
+                       host_ms=host_ms(fn, iters=5, rounds=3))
+            prof = profile_steps(fn, timed.shape[0], steps=2, top=4)
+            row.update(device_kernels_per_forward=prof[
+                "device_kernels_per_step"],
+                profiler_device_ms=prof["device_ms_per_step"],
+                device_busy_share=prof["device_busy_share"],
+                top=prof["top"])
+            row["masks_per_s"] = timed.shape[0] / row["host_ms"] * 1e3
+    row["ok"] = row["max_abs_err"] <= CONV_LOGITS_ATOL
+    model.to("cpu")
+    return row
+
+
+def _conv_train(tmp: str) -> tuple:
+    """Trainer(model="unet") on resnet34 at the CE defaults (bf16, batch 16
+    as 4 x 4) for CONV_TRAIN_STEPS steps on the card; one fp32 step
+    (TF32 off) against the same step on the CPU; the trained weights
+    saved. Returns (the line's fields, the checkpoint path)."""
+    from visiontransformer_tpu_torch.ckpt.io import save_checkpoint
+    from visiontransformer_tpu_torch.configs import CE_TRAIN_DEFAULTS
+    from visiontransformer_tpu_torch.models.unet import UNetConfig
+    from visiontransformer_tpu_torch.train.trainer import Trainer
+
+    tcfg = CE_TRAIN_DEFAULTS
+    cfg = UNetConfig(encoder_name="resnet34", num_classes=CONV_CLASSES,
+                     compute_dtype="bfloat16")
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    batches = [{"image": torch.rand(tcfg.batch_size, CONV_SIZE, CONV_SIZE, 3,
+                                    generator=gen, device="cuda"),
+                "mask": torch.randint(0, CONV_CLASSES, (tcfg.batch_size,
+                                                        CONV_SIZE, CONV_SIZE),
+                                      generator=gen, device="cuda",
+                                      dtype=torch.int32)}
+               for _ in range(2)]
+    trainer = Trainer(cfg, tcfg, model="unet", device="cuda")
+    state = trainer.init_state()
+    step = _train_step_fn(trainer, state, batches)
+    step()  # first step: cuDNN's and the allocator's set-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = []
+    for i in range(CONV_TRAIN_STEPS):
+        _, metrics = trainer.train_step(state, batches[i % 2], i)
+        losses.append(metrics["loss"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    losses = [float(x) for x in losses]
+    prof = profile_steps(step, tcfg.batch_size, steps=2, top=6)
+    out = {"config": "unet/resnet34", "classes": CONV_CLASSES,
+           "dtype": "bfloat16", "batch": tcfg.batch_size,
+           "accumulate": tcfg.accumulate_grad_batches,
+           "timed_steps": CONV_TRAIN_STEPS, "losses": losses,
+           "images_per_s": CONV_TRAIN_STEPS * tcfg.batch_size / seconds,
+           "step_ms": seconds / CONV_TRAIN_STEPS * 1e3,
+           "device_ms_per_step": prof["device_ms_per_step"],
+           "device_busy_share": prof["device_busy_share"],
+           "device_kernels_per_step": prof["device_kernels_per_step"],
+           "top": prof["top"], "finite": all(np.isfinite(losses))}
+    path = save_checkpoint(f"{tmp}/ckpt", {"params": state.model.state_dict(),
+                                           "step": state.step},
+                           epoch=0, step=state.step)
+    del state, trainer
+
+    # One fp32 step, the card (TF32 off) against the CPU, same weights.
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    batch = {k: v.cpu().numpy() for k, v in batches[0].items()}
+    steps = {}
+    for device in ("cpu", "cuda"):
+        trainer = Trainer(cfg32, tcfg, model="unet", device=device)
+        st = trainer.init_state()
+        with _no_tf32():
+            _, metrics = trainer.train_step(st, batch, seed=0)
+        steps[device] = (float(metrics["loss"]),
+                         {n: p.grad.detach().cpu()
+                          for n, p in st.model.named_parameters()})
+        del st, trainer
+    (loss_c, grads_c), (loss_g, grads_g) = steps["cpu"], steps["cuda"]
+    checks = {n: close(grads_g[n], grads_c[n], *GRAD_TOL[torch.float32])
+              for n in grads_c}
+    worst = max(checks, key=lambda n: checks[n][1])
+    out["fp32_step"] = {
+        "loss_card": loss_g, "loss_cpu": loss_c,
+        "loss_rel_diff": abs(loss_g - loss_c) / abs(loss_c),
+        "grads": len(checks), "grad_tol": GRAD_TOL[torch.float32],
+        "grads_failed": [n for n, (ok, _) in checks.items() if not ok],
+        "worst_grad": {"name": worst, "max_abs_err": checks[worst][1]}}
+    return out, path
+
+
+def _conv_http(tmp: str, path: str) -> dict:
+    """register-model --family unet --config resnet34 --ckpt path, then one
+    HTTP job, whose mask must equal ModelRunner.predict's."""
+    from visiontransformer_tpu_torch import cli
+    from visiontransformer_tpu_torch.serve.store import JobStore
+    from visiontransformer_tpu_torch.serve.worker import ModelRunner
+
+    db, media = f"{tmp}/serving.db", f"{tmp}/media"
+    rc = cli.main(["register-model", "--db", db, "--media-root", media,
+                   "--name", "unet-r34", "--family", "unet", "--config",
+                   "resnet34", "--num-classes", str(CONV_CLASSES), "--ckpt",
+                   path])
+    if rc:
+        raise AssertionError(f"register-model --family unet exited {rc}")
+    store = JobStore(db, media_root=media)
+    (row,) = store.list_models()
+    pngs = _job_pngs(1, seed=3)
+    with _http_server(store, (1,)) as (client, csrf, startup_s):
+        jobs, done, elapsed = _run_jobs(client, csrf, row["id"], pngs)
+        (mask,) = _served_masks(client, jobs, done)
+    runner = ModelRunner(store.get_model(row["id"]), device="cuda",
+                         buckets=(1,))
+    want = runner.predict(_decoded(pngs[0])[None])
+    return {"family": row["model_family"], "config": row["config_name"],
+            "job_s": elapsed, "startup_s": startup_s,
+            "mask_equals_runner": bool(np.array_equal(mask, want[0])),
+            "classes_in_mask": int(len(np.unique(mask)))}
+
+
+def phase_conv_families():
+    """Phase 14: the ten conv families on the card at full width (17
+    classes, 224^2): logits against the CPU, bf16 forwards timed, unet
+    trained and served. No kernel of the port lies on this path."""
+    from visiontransformer_tpu_torch.models.registry import CONV_FAMILIES
+
+    t_phase = time.perf_counter()
+    reset, read = _kernel_launch_counts()
+    reset()
+    images = torch.rand(CONV_CHECK_BATCH, CONV_SIZE, CONV_SIZE, 3,
+                        generator=torch.Generator().manual_seed(1))
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    timed = torch.rand(CONV_BATCH, CONV_SIZE, CONV_SIZE, 3, generator=gen,
+                       device="cuda")
+    rows = []
+    for family in CONV_FAMILIES:
+        rows.append(_conv_check(family, "resnet34", images, timed))
+        emit("conv_family", **rows[-1])
+    for encoder in CONV_OTHER_PRESETS:
+        rows.append(_conv_check("unet", encoder, images, None))
+        emit("conv_family", **rows[-1])
+    del timed
+    large = torch.rand(CONV_BATCH, 512, 512, 3, generator=gen, device="cuda")
+    rows.append(_conv_check("unet", "resnet34", images, large))
+    emit("conv_family", **rows[-1])
+    del large
+    with tempfile.TemporaryDirectory() as tmp:
+        train, path = _conv_train(tmp)
+        emit("conv_train", **train)
+        http = _conv_http(tmp, path)
+    launches = read()
+    result = {"models": len(rows), "train": {
+        k: train[k] for k in ("images_per_s", "step_ms",
+                              "device_ms_per_step", "fp32_step")},
+        "http": http, "launches": launches,
+        "seconds": time.perf_counter() - t_phase}
+    emit("conv_families", **result)
+    bad = [(r["family"], r["encoder"], r["max_abs_err"]) for r in rows
+           if not r["ok"]]
+    step32 = train["fp32_step"]
+    failed = {
+        "logits": bad,
+        "train_losses": not train["finite"],
+        "fp32_step": (step32["loss_rel_diff"] > LOSS_RTOL
+                      or bool(step32["grads_failed"])),
+        "http": not http["mask_equals_runner"],
+        "kernel_launches": {k: v for k, v in launches.items() if v},
+    }
+    if any(failed.values()):
+        raise AssertionError(f"phase 14 (conv_families) failed: {failed}")
+    return result
+
+
 def _forward_lines(peaks, flash_timed, flash_train):
     """One line per timed bf16 d = 64 shape: kernel 1, kernel 2 at dropout
     0 and 0.1 and SDPA's forward at both rates (device time), the bounds and
@@ -2931,6 +3206,7 @@ def main() -> int:
         sweep = phase_eval_sweep(tmp, trained)
         del trained
     optin = phase_optin(gen)
+    conv = phase_conv_families()
     emit("done", seconds=time.perf_counter() - t0,
          masks_per_s=model["bfloat16"]["masks_per_s"],
          jobs_per_s=serving["jobs_per_s"],
@@ -2994,6 +3270,8 @@ def main() -> int:
         row["eval_sweep_launches"] = sweep["path_launches"][row["name"]]
         row["optin_launches"] = optin["path_launches"][row["name"]]
     kernels += variants
+    for row in kernels:  # kernels 1-9 on phase 14's path: none
+        row["conv_families_launches"] = conv["launches"][row["name"]]
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -189,4 +189,6 @@ def test_resolve_model_random_init():
         resolve_model("vitseg", "P16H512A8", num_classes=3, input_size=40,
                       device="cpu")
     with pytest.raises(KeyError):
-        resolve_model("unet", "resnet18", num_classes=3, device="cpu")
+        resolve_model("nosuchfamily", "resnet18", num_classes=3, device="cpu")
+    with pytest.raises(KeyError):  # a conv family takes an encoder preset
+        resolve_model("unet", "P16H512A8", num_classes=3, device="cpu")

@@ -1,15 +1,29 @@
-"""Weight bridge from the TPU package's parameter tree.
+"""Weight bridge from the TPU package's parameter trees.
 
-The TPU package's vitseg parameters are a nested dict/list tree
+vitseg: the TPU package's parameters are a nested dict/list tree
 (``models/vitseg.py:vitseg_init``, ``models/vit.py:vit_init``): linear
 kernels stored (in, out) — ``patch_embed`` (p²C, H), ``qkv`` (H, 3H) —
 and conv kernels HWIO. The port's modules keep the same names and layouts,
 so a leaf at path ``backbone / layers / 3 / qkv / kernel`` is the state-dict
 entry ``backbone.layers.3.qkv.kernel``. A W8A8-quantized tree (the TPU
 package's ``ops/quant.py``: ``kernel_q`` int8, ``kernel_scale`` fp32) maps
-onto the port's ``LinearW8A8`` buffers the same way. Leaves arrive as numpy
-arrays (the tests convert with ``np.asarray``), so this module needs no
-JAX.
+onto the port's ``LinearW8A8`` buffers the same way.
+
+The conv families (``models/unet.py`` and the decoders beside it) keep the
+tree's names too, but not its layouts. Their state dict holds:
+
+- every conv kernel OIHW, (out, in, kh, kw): the tree's HWIO kernel
+  transposed by (3, 2, 0, 1);
+- every depthwise kernel as (C, 1, k, k): the tree's (k, k, 1, C)
+  transposed the same way (groups = C);
+- conv biases (out,), GroupNorm ``scale`` and ``bias`` (C,), MAnet's
+  ``pab.gamma`` 0-dim, all as in the tree;
+- ``norm_mean`` and ``norm_std`` (3,), buffers of the model (the
+  reference model's buffers), where the tree holds them as parameters.
+
+A W8A8 conv tree is refused: the conv half of W8A8 is not ported yet.
+Leaves arrive as numpy arrays (the tests convert with ``np.asarray``), so
+this module needs no JAX.
 """
 
 from __future__ import annotations
@@ -20,6 +34,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from visiontransformer_tpu_torch.models.unet import ConvSegModel
 from visiontransformer_tpu_torch.ops.quant import (
     is_quantized,
     quantize_vit_,
@@ -48,11 +63,28 @@ def vitseg_params_from_jax(tree) -> Dict[str, torch.Tensor]:
         for k, v in flat.items()}
 
 
+def conv_params_from_jax(tree) -> Dict[str, torch.Tensor]:
+    """TPU-package conv-family param tree (numpy leaves) -> the port's
+    state dict (fp32; 4-D kernels HWIO -> OIHW)."""
+    if tree_is_quantized(tree):
+        raise NotImplementedError(
+            "W8A8 for the conv families (the conv half of ops/quant.py, "
+            "ROADMAP queue 1, item 7) is not ported yet")
+    flat: Dict[str, np.ndarray] = {}
+    _flatten(tree, "", flat)
+    return {k: torch.from_numpy(np.array(
+        v.transpose(3, 2, 0, 1) if v.ndim == 4 else v, dtype=np.float32,
+        order="C")) for k, v in flat.items()}
+
+
 def load_jax_params(model: nn.Module, tree) -> nn.Module:
     """Load a TPU-package param tree into ``model`` (strict: every
-    parameter must be present with its shape; values are copied onto the
-    model's device). A W8A8 tree first turns the model's encoder linears
-    into ``LinearW8A8`` layers, in place."""
+    parameter and buffer must be present with its shape; values are copied
+    onto the model's device). For vitseg, a W8A8 tree first turns the
+    model's encoder linears into ``LinearW8A8`` layers, in place."""
+    if isinstance(model, ConvSegModel):
+        model.load_state_dict(conv_params_from_jax(tree), strict=True)
+        return model
     if tree_is_quantized(tree) and not is_quantized(model):
         quantize_vit_(model.backbone)
     model.load_state_dict(vitseg_params_from_jax(tree), strict=True)

@@ -1,6 +1,7 @@
 """Command-line entry points of the port:
 
   python -m visiontransformer_tpu_torch train --data data --task ce ...
+  python -m visiontransformer_tpu_torch train --data data --model unet ...
   python -m visiontransformer_tpu_torch train --data data --task paed_binary ...
   python -m visiontransformer_tpu_torch eval-sweep --data data --out test ...
   python -m visiontransformer_tpu_torch synth --kind binary --out data
@@ -15,7 +16,10 @@ the port implements (mesh, parallelism, multi-host and profiling wait for
 their slices). ``export-serving`` replaces ``export-hlo``: it writes a
 ``torch.export`` program (``ckpt/export.py``) for the device it runs on.
 Commands that run a model take ``--device`` (default cuda; the CPU only
-when asked for). ``serve`` hands its arguments to ``serve/server.py``.
+when asked for). ``serve`` hands its arguments to ``serve/server.py`` and
+serves the models registered with ``register-model``, of any family the
+port has (``--family``). ``export-serving``, ``convert``, ``export`` and
+``eval-sweep`` are for vitseg.
 """
 
 from __future__ import annotations
@@ -27,6 +31,13 @@ import sys
 
 COMMANDS = ("train", "eval-sweep", "serve", "convert", "export",
             "export-serving", "register-model", "synth")
+# The model families of the port (models/registry.py:MODEL_FAMILIES),
+# named here so that parsing the arguments imports no model code;
+# tests/test_torch_conv_train_serve.py holds them equal.
+MODEL_FAMILY_CHOICES = [
+    "deeplabv3", "deeplabv3plus", "fpn", "linknet", "manet", "pan",
+    "pspnet", "unet", "unetplusplus", "upernet", "vitseg",
+]
 USAGE = ("usage: python -m visiontransformer_tpu_torch "
          "{" + ",".join(COMMANDS) + "} [options]")
 
@@ -45,13 +56,17 @@ def _add_data_args(p: argparse.ArgumentParser) -> None:
 
 def _train_parser() -> argparse.ArgumentParser:
     t = argparse.ArgumentParser(prog="visiontransformer_tpu_torch train",
-                                description="train a vitseg model")
+                                description="train a segmentation model")
     _add_data_args(t)
     t.add_argument("--task", default="ce",
                    choices=["ce", "smp_multiclass", "paed_multiclass",
                             "paed_anchored", "paed_binary"])
+    t.add_argument("--model", default="vitseg",
+                   choices=MODEL_FAMILY_CHOICES)
     t.add_argument("--config", default="P16H1024A16",
-                   help="sweep config name, e.g. P16H512A8")
+                   help="sweep config name (vitseg), e.g. P16H512A8")
+    t.add_argument("--encoder", default="resnet34",
+                   help="encoder preset (conv families)")
     t.add_argument("--batch-size", type=int, default=4)
     t.add_argument("--lr", type=float, default=None)
     t.add_argument("--max-epochs", type=int, default=100)
@@ -80,6 +95,7 @@ def cmd_train(argv) -> int:
         PAEDBinaryDataset,
         train_val_test_split,
     )
+    from visiontransformer_tpu_torch.models.registry import model_config
     from visiontransformer_tpu_torch.train.trainer import Trainer
     from visiontransformer_tpu_torch.utils.csvlog import CSVLogger
 
@@ -100,10 +116,15 @@ def cmd_train(argv) -> int:
                     subset=val_files, cache=args.cache_data)
 
     num_classes = 1 if binary else probe.num_classes
-    seg_cfg = sweep_by_name(args.config).seg_config(
-        num_classes=num_classes, compute_dtype=args.dtype)
-    seg_cfg = dataclasses.replace(seg_cfg, vit=dataclasses.replace(
-        seg_cfg.vit, image_size=args.image_size))
+    if args.model == "vitseg":
+        seg_cfg = sweep_by_name(args.config).seg_config(
+            num_classes=num_classes, compute_dtype=args.dtype)
+        seg_cfg = dataclasses.replace(seg_cfg, vit=dataclasses.replace(
+            seg_cfg.vit, image_size=args.image_size))
+    else:
+        seg_cfg = model_config(args.model, args.encoder,
+                               num_classes=num_classes,
+                               compute_dtype=args.dtype)
     tcfg = dataclasses.replace(
         PAED_TRAIN_DEFAULTS if binary else CE_TRAIN_DEFAULTS,
         batch_size=args.batch_size, max_epochs=args.max_epochs,
@@ -111,8 +132,8 @@ def cmd_train(argv) -> int:
         **({"learning_rate": args.lr} if args.lr else {}))
 
     logger = CSVLogger(args.logs)
-    trainer = Trainer(seg_cfg, tcfg, task=args.task, device=args.device,
-                      logger=logger)
+    trainer = Trainer(seg_cfg, tcfg, task=args.task, model=args.model,
+                      device=args.device, logger=logger)
 
     def report(epoch, metrics):
         line = " ".join(f"{k}={v:.4f}" for k, v in sorted(metrics.items()))
@@ -307,9 +328,10 @@ def cmd_export_serving(argv) -> int:
 
 
 def cmd_register_model(argv) -> int:
-    """Register a vitseg model in the serving store (the reference does
-    this through the Django admin; the conv families are not ported)."""
+    """Register a model of any family in the serving store (the reference
+    does this through the Django admin)."""
     from visiontransformer_tpu_torch.configs import vit_config_by_name
+    from visiontransformer_tpu_torch.models.unet import ENCODER_PRESETS
     from visiontransformer_tpu_torch.serve.store import JobStore
 
     p = argparse.ArgumentParser(
@@ -319,14 +341,19 @@ def cmd_register_model(argv) -> int:
     p.add_argument("--media-root", default="media")
     p.add_argument("--name", required=True)
     p.add_argument("--config", required=True,
-                   help="sweep config name (e.g. P16H768A12) or ViT size "
-                        "preset (vit_b_16/vit_l_16/vit_h_14)")
+                   help="vitseg: sweep config name (e.g. P16H768A12) or "
+                        "ViT size preset (vit_b_16/vit_l_16/vit_h_14); "
+                        "conv families: encoder preset (e.g. resnet34)")
     p.add_argument("--num-classes", type=int, default=17)
     p.add_argument("--input-size", type=int, default=224)
     p.add_argument("--ckpt", default="",
                    help="port checkpoint dir or reference .ckpt file "
                         "(empty: random init, useful for smoke tests)")
     p.add_argument("--description", default="")
+    p.add_argument("--family", default="vitseg",
+                   choices=MODEL_FAMILY_CHOICES,
+                   help="model family; --config is a sweep config for "
+                        "vitseg, an encoder preset for the conv families")
     p.add_argument("--token-merge-r", type=int, default=0,
                    help="opt-in ToMe token merging: tokens merged per "
                         "encoder block (ops/token_merge.py)")
@@ -334,23 +361,38 @@ def cmd_register_model(argv) -> int:
                    help="opt-in W8A8 dynamic int8 quantization of the "
                         "encoder linears (ops/quant.py)")
     args = p.parse_args(argv)
-    try:
-        vit_config_by_name(args.config)
-    except KeyError as exc:
-        print(f"error: {exc.args[0]}", file=sys.stderr)
+    # Validate the config before touching the store.
+    if args.family == "vitseg":
+        try:
+            vit_config_by_name(args.config)
+        except KeyError as exc:
+            print(f"error: {exc.args[0]}", file=sys.stderr)
+            return 1
+    elif args.config not in ENCODER_PRESETS:
+        print(f"error: unknown encoder preset {args.config!r}; choose from "
+              f"{sorted(ENCODER_PRESETS)}", file=sys.stderr)
         return 1
     if args.ckpt and not os.path.exists(args.ckpt):
         print(f"error: checkpoint {args.ckpt} does not exist",
               file=sys.stderr)
         return 1
+    if args.token_merge_r and args.family != "vitseg":
+        print("error: --token-merge-r applies to vitseg models only",
+              file=sys.stderr)
+        return 1
+    if args.quantize and args.family != "vitseg":
+        # The serving runner would refuse the row at load.
+        print("error: --quantize for the conv families (the conv half of "
+              "W8A8) is not ported yet", file=sys.stderr)
+        return 1
     store = JobStore(args.db, media_root=args.media_root)
     model_id = store.register_model(
         args.name, num_classes=args.num_classes, config_name=args.config,
         description=args.description, input_size=args.input_size,
-        checkpoint_path=args.ckpt, token_merge_r=args.token_merge_r,
-        quantize=args.quantize)
+        checkpoint_path=args.ckpt, model_family=args.family,
+        token_merge_r=args.token_merge_r, quantize=args.quantize)
     print(f"registered model id={model_id} name={args.name} "
-          f"family=vitseg config={args.config} "
+          f"family={args.family} config={args.config} "
           f"ckpt={args.ckpt or '<random init>'}")
     return 0
 

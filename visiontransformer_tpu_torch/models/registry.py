@@ -1,14 +1,22 @@
-"""Named models: the vitseg part of the TPU package's
-``models/registry.py:resolve_model``, with its checkpoint loading (a port
-checkpoint directory or a reference Lightning ``.ckpt``). The conv
-families are not ported yet."""
+"""Model family registry: name -> (init, apply, config type), the TPU
+package's ``models/registry.py``, with ``resolve_model``'s checkpoint
+loading (a port checkpoint directory, or a reference Lightning ``.ckpt``
+for vitseg).
+
+``vitseg`` is the primary network; the ten conv families share the
+residual GroupNorm encoder of ``models/unet.py`` and differ in their
+decoders. ``segformer`` (the MiT encoder) is not ported yet and raises.
+An init takes (generator, cfg) and returns the model on the CPU; an apply
+takes (model, NHWC images, ...) and returns NHWC fp32 logits.
+"""
 
 from __future__ import annotations
 
 import os
-from typing import Optional, Tuple, Union
+from typing import Callable, NamedTuple, Optional, Tuple, Union
 
 import torch
+from torch import nn
 
 from visiontransformer_tpu_torch.ckpt.io import restore_checkpoint
 from visiontransformer_tpu_torch.ckpt.torch_convert import (
@@ -20,24 +28,54 @@ from visiontransformer_tpu_torch.configs import (
     vit_config_by_name,
 )
 from visiontransformer_tpu_torch.device import resolve_device
-from visiontransformer_tpu_torch.models.vitseg import ViTSeg
+from visiontransformer_tpu_torch.models.deeplab import (
+    DeepLabV3Config,
+    DeepLabV3PlusConfig,
+    deeplabv3_apply,
+    deeplabv3_init,
+    deeplabv3plus_apply,
+    deeplabv3plus_init,
+)
+from visiontransformer_tpu_torch.models.fpn import FPNConfig, fpn_apply, fpn_init
+from visiontransformer_tpu_torch.models.linknet import (
+    LinkNetConfig,
+    linknet_apply,
+    linknet_init,
+)
+from visiontransformer_tpu_torch.models.manet import (
+    MAnetConfig,
+    manet_apply,
+    manet_init,
+)
+from visiontransformer_tpu_torch.models.pan import PANConfig, pan_apply, pan_init
+from visiontransformer_tpu_torch.models.pspnet import (
+    PSPNetConfig,
+    pspnet_apply,
+    pspnet_init,
+)
+from visiontransformer_tpu_torch.models.unet import (
+    ENCODER_PRESETS,
+    UNetConfig,
+    unet_apply,
+    unet_init,
+)
+from visiontransformer_tpu_torch.models.unetpp import (
+    UNetPlusPlusConfig,
+    unetplusplus_apply,
+    unetplusplus_init,
+)
+from visiontransformer_tpu_torch.models.upernet import (
+    UPerNetConfig,
+    upernet_apply,
+    upernet_init,
+)
+from visiontransformer_tpu_torch.models.vitseg import ViTSeg, vitseg_apply
 
 
-def vitseg_config(config_name: str, *, num_classes: int,
-                  input_size: int = 224,
-                  compute_dtype: str = "bfloat16") -> ViTSegConfig:
-    """ViTSegConfig from a sweep row name ("P16H768A12") or a named size
-    preset ("vit_b_16" / "vit_l_16" / "vit_h_14") at ``input_size``."""
-    try:
-        vit_cfg = sweep_by_name(config_name).vit_config(image_size=input_size)
-    except KeyError:
-        vit_cfg = vit_config_by_name(config_name, image_size=input_size)
-    if input_size % vit_cfg.patch_size:
-        raise ValueError(
-            f"input_size {input_size} is not divisible by "
-            f"{config_name}'s patch size {vit_cfg.patch_size}")
-    return ViTSegConfig(vit=vit_cfg, num_classes=num_classes,
-                        compute_dtype=compute_dtype)
+class ModelFamily(NamedTuple):
+    init: Callable
+    apply: Callable
+    config_cls: type
 
 
 def init_vitseg_(model: ViTSeg, generator: torch.Generator) -> ViTSeg:
@@ -58,44 +96,122 @@ def init_vitseg_(model: ViTSeg, generator: torch.Generator) -> ViTSeg:
     return model
 
 
+def vitseg_init(generator: torch.Generator, cfg: ViTSegConfig) -> ViTSeg:
+    return init_vitseg_(ViTSeg(cfg), generator)
+
+
+MODEL_FAMILIES = {
+    "vitseg": ModelFamily(vitseg_init, vitseg_apply, ViTSegConfig),
+    "unet": ModelFamily(unet_init, unet_apply, UNetConfig),
+    "fpn": ModelFamily(fpn_init, fpn_apply, FPNConfig),
+    "linknet": ModelFamily(linknet_init, linknet_apply, LinkNetConfig),
+    "pspnet": ModelFamily(pspnet_init, pspnet_apply, PSPNetConfig),
+    "deeplabv3": ModelFamily(deeplabv3_init, deeplabv3_apply,
+                             DeepLabV3Config),
+    "deeplabv3plus": ModelFamily(deeplabv3plus_init, deeplabv3plus_apply,
+                                 DeepLabV3PlusConfig),
+    "unetplusplus": ModelFamily(unetplusplus_init, unetplusplus_apply,
+                                UNetPlusPlusConfig),
+    "pan": ModelFamily(pan_init, pan_apply, PANConfig),
+    "manet": ModelFamily(manet_init, manet_apply, MAnetConfig),
+    "upernet": ModelFamily(upernet_init, upernet_apply, UPerNetConfig),
+}
+CONV_FAMILIES = tuple(name for name in MODEL_FAMILIES if name != "vitseg")
+# Families of the TPU package that wait for a later slice of the port.
+NOT_PORTED = {"segformer": "the MiT encoder and SegFormer decoder "
+                           "(ROADMAP queue 1, item 7)"}
+
+
+def get_model_family(name: str) -> ModelFamily:
+    try:
+        return MODEL_FAMILIES[name]
+    except KeyError:
+        if name in NOT_PORTED:
+            raise NotImplementedError(
+                f"model family {name!r} is not ported yet: it waits for "
+                f"{NOT_PORTED[name]}") from None
+        raise KeyError(f"unknown model family {name!r}; "
+                       f"known: {sorted(MODEL_FAMILIES)}") from None
+
+
+def vitseg_config(config_name: str, *, num_classes: int,
+                  input_size: int = 224,
+                  compute_dtype: str = "bfloat16") -> ViTSegConfig:
+    """ViTSegConfig from a sweep row name ("P16H768A12") or a named size
+    preset ("vit_b_16" / "vit_l_16" / "vit_h_14") at ``input_size``."""
+    try:
+        vit_cfg = sweep_by_name(config_name).vit_config(image_size=input_size)
+    except KeyError:
+        vit_cfg = vit_config_by_name(config_name, image_size=input_size)
+    if input_size % vit_cfg.patch_size:
+        raise ValueError(
+            f"input_size {input_size} is not divisible by "
+            f"{config_name}'s patch size {vit_cfg.patch_size}")
+    return ViTSegConfig(vit=vit_cfg, num_classes=num_classes,
+                        compute_dtype=compute_dtype)
+
+
+def model_config(family: str, config_name: str, *, num_classes: int,
+                 input_size: int = 224, compute_dtype: str = "bfloat16"):
+    """The config of a named model: ``config_name`` is a sweep config or
+    ViT size preset for vitseg, an encoder preset (``ENCODER_PRESETS``)
+    for the conv families, which take any input size."""
+    fam = get_model_family(family)
+    if family == "vitseg":
+        return vitseg_config(config_name, num_classes=num_classes,
+                             input_size=input_size,
+                             compute_dtype=compute_dtype)
+    if config_name not in ENCODER_PRESETS:
+        raise KeyError(f"unknown encoder preset {config_name!r}; known: "
+                       f"{sorted(ENCODER_PRESETS)}")
+    return fam.config_cls(encoder_name=config_name, num_classes=num_classes,
+                          compute_dtype=compute_dtype)
+
+
 def resolve_model(family: str, config_name: str, *, num_classes: int,
                   input_size: int = 224, compute_dtype: str = "bfloat16",
                   checkpoint_path: str = "",
                   device: Optional[Union[str, torch.device]] = None
-                  ) -> Tuple[ViTSegConfig, ViTSeg]:
-    """(cfg, model) for a named vitseg model in eval mode on ``device``
-    (None means CUDA; raises without it).
+                  ) -> Tuple[object, nn.Module]:
+    """(cfg, model) for a named model of any ported family, in eval mode on
+    ``device`` (None means CUDA; raises without it).
 
     checkpoint_path: a directory is a port checkpoint (``ckpt/io.py``); its
     ``params``, or the whole tree if it has none, load strictly. A path
     ending in ``.ckpt`` is a reference Lightning file
-    (``ckpt/torch_convert.py``). Empty means random weights from a
+    (``ckpt/torch_convert.py``), for vitseg only: a conv family refuses
+    it, as the TPU package does. Empty means random weights from a
     generator seeded with 0 (the same weights on every call, like the TPU
     package's PRNGKey(0)). Any other path raises: the TPU package falls
     through to random weights there, which would serve random masks under
     a trained model's name. The weights load on the CPU and the model
     moves to the device once."""
     dev = resolve_device(device)
-    if family != "vitseg":
-        raise KeyError(f"model family {family!r} is not ported yet; "
-                       f"known: ['vitseg']")
-    cfg = vitseg_config(config_name, num_classes=num_classes,
-                        input_size=input_size, compute_dtype=compute_dtype)
-    params = (_checkpoint_params(checkpoint_path, cfg) if checkpoint_path
-              else None)
-    model = ViTSeg(cfg)
+    cfg = model_config(family, config_name, num_classes=num_classes,
+                       input_size=input_size, compute_dtype=compute_dtype)
+    params = (_checkpoint_params(checkpoint_path, family, cfg)
+              if checkpoint_path else None)
     if params is None:
-        init_vitseg_(model, torch.Generator().manual_seed(0))
+        model = get_model_family(family).init(
+            torch.Generator().manual_seed(0), cfg)
     else:
+        # The weights are overwritten: vitseg skips its init's draws.
+        model = (ViTSeg(cfg) if family == "vitseg" else
+                 get_model_family(family).init(torch.Generator(), cfg))
         model.load_state_dict(params, strict=True)
     return cfg, model.to(dev).eval()
 
 
-def _checkpoint_params(path: str, cfg: ViTSegConfig):
+def _checkpoint_params(path: str, family: str, cfg):
     if os.path.isdir(path):
         tree = restore_checkpoint(path)
         return tree["params"] if "params" in tree else tree
     if path.endswith(".ckpt"):
+        if family != "vitseg":
+            raise ValueError(
+                "Lightning .ckpt conversion is defined for the vitseg "
+                "family only; load conv families from checkpoint "
+                "directories of the port")
         if not os.path.isfile(path):
             raise FileNotFoundError(f"checkpoint {path} does not exist")
         return load_lightning_checkpoint(path, cfg)

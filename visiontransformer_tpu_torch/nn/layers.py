@@ -6,10 +6,15 @@ at use, with the bias added after the product in that dtype (a W8A8 layer,
 ``LinearW8A8``, holds an int8 kernel and runs ``_linear_w8a8``'s int8
 product instead, for inference only); LayerNorm runs
 in fp32 and casts back; convolutions take NHWC activations and HWIO
-kernels; dropout draws its mask from an explicit generator. The modules
-hold parameters under the TPU package's names (``kernel``, ``bias``,
-``scale``), so its parameter tree maps onto their state dict key for key
-(``ckpt/convert.py``).
+kernels (``conv2d``, ``depthwise``); dropout draws its mask from an
+explicit generator. The modules hold parameters under the TPU package's
+names (``kernel``, ``bias``, ``scale``), so its parameter tree maps onto
+their state dict key for key (``ckpt/convert.py``).
+
+The conv families (``models/unet.py``) run NCHW with OIHW kernels:
+``conv2d_nchw`` pads as XLA's SAME does, ``conv2d_init`` and
+``depthwise_init`` draw their parameters, and ``ParamTree`` holds a
+family's parameter tree under the TPU package's names.
 """
 
 from __future__ import annotations
@@ -148,6 +153,66 @@ def conv2d(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor, *,
     return y.permute(0, 2, 3, 1) + bias.to(y.dtype)
 
 
+def conv2d_nchw(x: torch.Tensor, kernel: torch.Tensor,
+                bias: Optional[torch.Tensor] = None, *, stride: int = 1,
+                dilation: int = 1, groups: int = 1) -> torch.Tensor:
+    """NCHW convolution with an OIHW kernel and XLA's SAME padding: the
+    padding of ``_same_padding``, which is asymmetric where the total is odd
+    (k = 3, stride 2 on an even size pads (0, 1)), so it is applied by
+    ``F.pad`` then, and by the convolution itself where it is symmetric.
+    The bias is added inside the convolution, in the activation dtype."""
+    kh, kw = kernel.shape[2], kernel.shape[3]
+    top, bottom = _same_padding(x.shape[2], kh, stride, dilation)
+    left, right = _same_padding(x.shape[3], kw, stride, dilation)
+    padding = (top, left)
+    if (top, left) != (bottom, right):
+        x = F.pad(x, (left, right, top, bottom))
+        padding = (0, 0)
+    return F.conv2d(x, kernel.to(x.dtype),
+                    None if bias is None else bias.to(x.dtype),
+                    stride=stride, padding=padding, dilation=dilation,
+                    groups=groups)
+
+
+def depthwise(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor, *,
+              stride: int = 1) -> torch.Tensor:
+    """Per-channel convolution of NHWC activations with an HWIO kernel of
+    I = 1 (feature_group_count = C, the TPU package's ``depthwise``) and
+    SAME padding; bias added after the convolution in the activation
+    dtype."""
+    y = conv2d_nchw(x.permute(0, 3, 1, 2), kernel.to(x.dtype).permute(
+        3, 2, 0, 1), stride=stride, groups=x.shape[-1])
+    return y.permute(0, 2, 3, 1) + bias.to(y.dtype)
+
+
+def trunc_normal(shape, generator: torch.Generator,
+                 std: float = 0.02) -> torch.Tensor:
+    """N(0, std) truncated to +-2 std (the TPU package's ``trunc_normal``:
+    the same distribution, not the same bits)."""
+    t = torch.empty(shape)
+    torch.nn.init.trunc_normal_(t, std=std, a=-2 * std, b=2 * std,
+                                generator=generator)
+    return t
+
+
+def conv2d_init(generator: torch.Generator, in_channels: int,
+                out_channels: int, kernel_size: int, std: float = 0.02):
+    """A conv layer's parameters as the TPU package's ``conv2d_init`` draws
+    them (trunc-normal kernel, zero bias), the kernel stored OIHW."""
+    shape = (out_channels, in_channels, kernel_size, kernel_size)
+    return {"kernel": trunc_normal(shape, generator, std),
+            "bias": torch.zeros(out_channels)}
+
+
+def depthwise_init(generator: torch.Generator, channels: int,
+                   kernel_size: int = 3, std: float = 0.02):
+    """A depthwise layer's parameters, the kernel stored OIHW as (C, 1, k,
+    k)."""
+    shape = (channels, 1, kernel_size, kernel_size)
+    return {"kernel": trunc_normal(shape, generator, std),
+            "bias": torch.zeros(channels)}
+
+
 class Linear(nn.Module):
     def __init__(self, in_features: int, out_features: int, bias: bool = True):
         super().__init__()
@@ -200,3 +265,34 @@ class Conv2d(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return conv2d(x, self.kernel, self.bias)
+
+
+class ParamTree(nn.Module):
+    """A nested dict of parameters as a module, the form of the TPU
+    package's conv-family parameter trees: a dict node is a ParamTree, a
+    list an ``nn.ModuleList``, a tensor an ``nn.Parameter``, each under its
+    key, so the leaf at path ``stages / 0 / 1 / conv1 / kernel`` is the
+    state-dict entry ``stages.0.1.conv1.kernel``. ``tree["key"]`` and
+    ``"key" in tree`` read it as the dict it was built from."""
+
+    def __init__(self, tree: dict):
+        super().__init__()
+        for key, value in tree.items():
+            setattr(self, key, _tree_module(value))
+
+    def __getitem__(self, key: str):
+        if key not in self:
+            raise KeyError(key)
+        return getattr(self, key)
+
+    def __contains__(self, key: str) -> bool:
+        return (key in self._modules or key in self._parameters
+                or key in self._buffers)
+
+
+def _tree_module(value):
+    if isinstance(value, dict):
+        return ParamTree(value)
+    if isinstance(value, (list, tuple)):
+        return nn.ModuleList([_tree_module(v) for v in value])
+    return nn.Parameter(value)

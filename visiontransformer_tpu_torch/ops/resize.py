@@ -21,7 +21,10 @@
   ground truth to the prediction grid with it.
 
 Index and weight tables are cached per device: a fresh copy from host
-memory would wait for the card at every call.
+memory would wait for the card at every call. They are made outside
+inference mode, so a table first made by a forward under
+``torch.inference_mode`` (the serving runner's) can be saved for the
+backward of a later training step.
 """
 
 from __future__ import annotations
@@ -50,6 +53,7 @@ def bilinear_matrix(out_size: int, in_size: int) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=64)
+@torch.inference_mode(False)
 def _matrix_on(out_size: int, in_size: int, device: str) -> torch.Tensor:
     return torch.from_numpy(bilinear_matrix(out_size, in_size)).to(device)
 
@@ -99,6 +103,7 @@ _NEAREST = {"torch": nearest_indices_torch, "pil": nearest_indices_pil}
 
 
 @functools.lru_cache(maxsize=64)
+@torch.inference_mode(False)
 def _nearest_on(kind: str, out_size: int, in_size: int,
                 device: str) -> torch.Tensor:
     return torch.from_numpy(_NEAREST[kind](out_size, in_size)).to(device)
@@ -142,6 +147,7 @@ def _linear_weights(out_size: int, in_size: int
 
 
 @functools.lru_cache(maxsize=64)
+@torch.inference_mode(False)
 def _linear_on(out_size: int, in_size: int, device: str):
     return tuple(torch.from_numpy(a).to(device)
                  for a in _linear_weights(out_size, in_size))

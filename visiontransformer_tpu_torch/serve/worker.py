@@ -10,7 +10,7 @@ in-process worker loop:
     → pad the batch to a fixed bucket size (a small fixed set of shapes
       per model)
     → forward + fused upsample/argmax on the GPU (models/vitseg.py
-      vitseg_predict)
+      vitseg_predict), or argmax of a conv family's logits
     → colorized mask PNG + connected-component detections
     → DONE (or FAILED with error_message — a transition the reference
       defines but never exercises, SURVEY.md §5)
@@ -50,12 +50,17 @@ BUCKETS = (1, 2, 4, 8, 16, 32)
 class ModelRunner:
     """One loaded model on one device: weights + a bucketed forward.
 
-    The forward is ``vitseg_predict`` at ``out_size = input_size``, the
-    same function as the TPU runner's ``argmax(vitseg_apply(...))``: on a
-    CUDA device it runs the flash-attention and fused upsample+argmax
-    kernels. The row's opt-ins apply at load, as in the TPU runner:
-    ``token_merge_r`` (ToMe merging) and ``quantize == "int8"`` (W8A8
-    encoder linears). ``device=None`` means CUDA and raises without it."""
+    The forward is the TPU runner's ``argmax(apply(images / 255))`` cast
+    to the mask type. For vitseg it is ``vitseg_predict`` at ``out_size =
+    input_size``: on a CUDA device it runs the flash-attention and fused
+    upsample+argmax kernels. For a conv family it is the family's apply
+    and ``torch.argmax`` (no kernel of the port's on that path, as no
+    Pallas kernel is on the TPU runner's). The row's opt-ins apply at
+    load, as in the TPU runner: ``token_merge_r`` (ToMe merging, vitseg
+    only) and ``quantize == "int8"`` (W8A8 encoder linears; a conv row
+    asking for it raises until the conv half of W8A8 is ported, rather
+    than serve unquantized weights under it). ``device=None`` means CUDA
+    and raises without it."""
 
     def __init__(self, model_row: Dict, *, compute_dtype: str = "bfloat16",
                  buckets: Sequence[int] = BUCKETS, device=None):
@@ -63,6 +68,11 @@ class ModelRunner:
         self.buckets = tuple(sorted(buckets))
         self.input_size = model_row["input_size"]
         self.family = model_row.get("model_family") or "vitseg"
+        if model_row.get("quantize") == "int8" and self.family != "vitseg":
+            raise NotImplementedError(
+                f"quantize='int8' for the {self.family!r} family: W8A8 of "
+                f"the conv families (the conv half of ops/quant.py, ROADMAP "
+                f"queue 1, item 7) is not ported yet")
         self.cfg, self.model = resolve_model(
             self.family, model_row["config_name"],
             num_classes=model_row["num_classes"],
@@ -104,9 +114,12 @@ class ModelRunner:
             images = np.concatenate([images, pad])
         x = torch.from_numpy(np.array(images, copy=True)).to(self.device)
         x = x.float() / 255.0
-        masks = vitseg_predict(self.model, x,
-                               out_size=(self.input_size, self.input_size),
-                               mask_dtype=self.mask_dtype)
+        if self.family == "vitseg":
+            masks = vitseg_predict(
+                self.model, x, out_size=(self.input_size, self.input_size),
+                mask_dtype=self.mask_dtype)
+        else:
+            masks = torch.argmax(self.model(x), dim=-1).to(self.mask_dtype)
         return _PendingMasks(masks, b)
 
     def predict(self, images: np.ndarray) -> np.ndarray:

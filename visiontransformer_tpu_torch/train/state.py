@@ -12,11 +12,9 @@ import dataclasses
 
 import torch
 
-from visiontransformer_tpu_torch.models.vitseg import ViTSeg
-
 
 @dataclasses.dataclass
 class TrainState:
-    model: ViTSeg
+    model: torch.nn.Module  # a model of any family (models/registry.py)
     optimizer: torch.optim.Optimizer
     step: int = 0

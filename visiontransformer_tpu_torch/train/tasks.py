@@ -16,7 +16,10 @@ Lightning modules of the reference:
 - ``paed_binary_loss_fn``     ↔ PAEDTrainer._forward_step_paed
   (reference model/PAED/classes.py:664-701)
 
-Batches are dicts of NHWC tensors on the model's device. The binary task
+The tasks take a model of any family (``models/registry.py``) and call
+its forward: ``vitseg_apply`` for vitseg, the family's apply for a conv
+family, which takes and ignores the dropout and attention arguments (the
+TPU package's ``del deterministic, rng``). Batches are dicts of NHWC tensors on the model's device. The binary task
 takes binary masks and makes its SDF targets on that device
 (``losses/sdf.py``); the reference computes them with scipy in its
 dataloader workers (model/PAED/classes.py:69). The metric dicts carry the
@@ -47,7 +50,6 @@ from visiontransformer_tpu_torch.metrics.segmentation import (
     smp_iou_micro_imagewise,
     soft_iou_score,
 )
-from visiontransformer_tpu_torch.models.vitseg import vitseg_apply
 from visiontransformer_tpu_torch.ops.resize import resize_nearest_torch
 
 
@@ -65,8 +67,8 @@ def ce_loss_fn(model, batch, cfg, *,
     masks (B,Hm,Wm) int class indices."""
     images, masks = batch["image"], batch["mask"]
     target = _resize_target(masks, images.shape[1])
-    logits = vitseg_apply(model, images, attn_impl=attn_impl,
-                          deterministic=deterministic, generator=generator)
+    logits = model(images, attn_impl=attn_impl,
+                   deterministic=deterministic, generator=generator)
     loss = cross_entropy_loss(logits, target)
     return loss, {"loss": loss}
 
@@ -80,8 +82,8 @@ def smp_multiclass_loss_fn(model, batch, cfg, *,
     tp/fp/fn/tn -> micro / micro-imagewise IoU, accuracy, recall, F1."""
     images, masks = batch["image"], batch["mask"]
     target = _resize_target(masks, images.shape[1])
-    logits = vitseg_apply(model, images, attn_impl=attn_impl,
-                          deterministic=deterministic, generator=generator)
+    logits = model(images, attn_impl=attn_impl,
+                   deterministic=deterministic, generator=generator)
     loss = cross_entropy_loss(logits, target)
     preds = torch.argmax(logits, dim=-1)
     tp, fp, fn, tn = multiclass_confusion_stats(preds, target,
@@ -110,8 +112,8 @@ def _softmax_and_one_hot(model, batch, cfg, generator, deterministic,
                          attn_impl):
     images, masks = batch["image"], batch["mask"]
     target = _resize_target(masks, images.shape[1])
-    logits = vitseg_apply(model, images, attn_impl=attn_impl,
-                          deterministic=deterministic, generator=generator)
+    logits = model(images, attn_impl=attn_impl,
+                   deterministic=deterministic, generator=generator)
     probs = torch.softmax(logits, dim=-1)
     one_hot = F.one_hot(target.long(), cfg.num_classes).float()
     return logits, target, probs, torch.argmax(probs, dim=-1), one_hot
@@ -168,8 +170,8 @@ def paed_binary_loss_fn(model, batch, cfg, *,
     # Targets: no graph (the reference detaches them too,
     # model/PAED/classes.py:569-570).
     sdf_ext, sdf_int = compute_sdf_batch(masks > 0.5)
-    logits = vitseg_apply(model, images, attn_impl=attn_impl,
-                          deterministic=deterministic, generator=generator)
+    logits = model(images, attn_impl=attn_impl,
+                   deterministic=deterministic, generator=generator)
     preds = torch.sigmoid(logits)  # (B, H, W, 1)
     loss, parts = paed_binary_total_loss(preds, masks[..., None].float(),
                                          sdf_ext, sdf_int)

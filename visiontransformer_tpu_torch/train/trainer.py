@@ -18,8 +18,11 @@ not saved: a resumed run trains at the restored learning rate until its
 first monitored epoch, where a fresh ``PlateauScheduler`` sets
 ``learning_rate`` again, as the TPU package's does.
 
-``TrainConfig.remat`` turns on ``ViTConfig.remat`` (per-block activation
-checkpointing, ``models/vit.py``), as the TPU package's trainer does. A
+``model`` names the family (``models/registry.py``): vitseg or one of the
+ten conv families, whose configs the trainer takes as the TPU package's
+does. ``TrainConfig.remat`` turns on ``ViTConfig.remat`` (per-block
+activation checkpointing, ``models/vit.py``) for vitseg and is ignored for
+the other families, as the TPU package's trainer does. A
 W8A8-quantized model (``ops/quant.py``) is refused: rounding has no
 gradient, so it would learn nothing. Not ported yet, and rejected when
 asked for: mesh, FSDP, sequence and pipeline parallelism, multi-host, the
@@ -44,11 +47,10 @@ from visiontransformer_tpu_torch.ckpt.io import (
     restore_checkpoint,
     save_checkpoint,
 )
-from visiontransformer_tpu_torch.configs import TrainConfig, ViTSegConfig
+from visiontransformer_tpu_torch.configs import TrainConfig
 from visiontransformer_tpu_torch.data.pipeline import batch_iterator, prefetch
 from visiontransformer_tpu_torch.device import resolve_device
-from visiontransformer_tpu_torch.models.registry import init_vitseg_
-from visiontransformer_tpu_torch.models.vitseg import ViTSeg
+from visiontransformer_tpu_torch.models.registry import get_model_family
 from visiontransformer_tpu_torch.ops.quant import is_quantized
 from visiontransformer_tpu_torch.train.optim import (
     EarlyStopping,
@@ -72,14 +74,15 @@ def fold_seed(seed: int, data: int) -> int:
 
 
 class Trainer:
-    def __init__(self, seg_cfg: ViTSegConfig, train_cfg: TrainConfig,
-                 task: str = "ce", *,
+    def __init__(self, seg_cfg, train_cfg: TrainConfig,
+                 task: str = "ce", *, model: str = "vitseg",
                  device: Optional[Union[str, torch.device]] = None,
                  logger: Optional[CSVLogger] = None,
                  attn_impl: str = "auto"):
-        """device: None means CUDA (raises without it). attn_impl: the
-        attention implementation of every step ("auto" = the kernels on
-        CUDA)."""
+        """seg_cfg: the config of ``model``'s family (ViTSegConfig for
+        vitseg, e.g. UNetConfig for unet). device: None means CUDA (raises
+        without it). attn_impl: the attention implementation of every step
+        ("auto" = the kernels on CUDA; the conv families have none)."""
         self.device = resolve_device(device)
         not_ported = train_cfg.not_ported()
         if not_ported:
@@ -90,7 +93,9 @@ class Trainer:
                 f"batch_size={train_cfg.batch_size} must be divisible by "
                 f"accumulate_grad_batches={train_cfg.accumulate_grad_batches} "
                 f"(the step splits it into that many micro-batches)")
-        if train_cfg.remat and not seg_cfg.vit.remat:
+        self.model_family = get_model_family(model)
+        if (train_cfg.remat and model == "vitseg"
+                and hasattr(seg_cfg, "vit") and not seg_cfg.vit.remat):
             seg_cfg = dataclasses.replace(
                 seg_cfg, vit=dataclasses.replace(seg_cfg.vit, remat=True))
         self.seg_cfg = seg_cfg
@@ -103,14 +108,12 @@ class Trainer:
 
     # ------------------------------------------------------------------ init
     def init_state(self, params=None) -> TrainState:
-        """Random weights from ``init_vitseg_`` seeded with
-        ``TrainConfig.seed``, or ``params``, a TPU-package param tree with
-        numpy leaves, through the weight bridge."""
-        model = ViTSeg(self.seg_cfg)
-        if params is None:
-            init_vitseg_(model, torch.Generator().manual_seed(
-                self.train_cfg.seed))
-        else:
+        """Random weights from the family's init with a generator seeded
+        with ``TrainConfig.seed``, or ``params``, a TPU-package param tree
+        with numpy leaves, through the weight bridge."""
+        model = self.model_family.init(
+            torch.Generator().manual_seed(self.train_cfg.seed), self.seg_cfg)
+        if params is not None:
             load_jax_params(model, params)
         model.to(self.device).train()
         return TrainState(model=model, optimizer=build_optimizer(
@@ -172,7 +175,8 @@ class Trainer:
         return state, {k: torch.stack([m[k] for m in metric_list]).mean()
                        for k in metric_list[0]}
 
-    def eval_step(self, model: ViTSeg, batch) -> Dict[str, torch.Tensor]:
+    def eval_step(self, model: torch.nn.Module,
+                  batch) -> Dict[str, torch.Tensor]:
         with torch.no_grad():
             _, metrics = self.task_fn(model, self._place(batch), self.seg_cfg,
                                       deterministic=True,
@@ -279,7 +283,7 @@ class Trainer:
                     break
         return state
 
-    def evaluate(self, dataset, model: ViTSeg, *,
+    def evaluate(self, dataset, model: torch.nn.Module, *,
                  batch_size: Optional[int] = None) -> Dict[str, float]:
         batch_size = batch_size or self.train_cfg.batch_size
         return _mean_metrics([self.eval_step(model, b)
