@@ -173,13 +173,33 @@ failure:
              served over HTTP (the mask equals ModelRunner.predict's); no
              launch of kernels 1-9 in the phase (no Pallas kernel lies on
              the JAX families' path).
+15. segformer_export_int8  segformer (17 classes, 224^2, decode width
+             256) on mit_b0, mit_b2 (SegFormer-B2's widths) and resnet34:
+             the card's fp32 logits (TF32 off) against the CPU's at batch 2
+             (atol 5e-5, fp32 argmax equal); device ms and host ms of one
+             bf16 forward at batch 32 (mit_b2 also at 512^2; a forward
+             whose launches overflow the device's queue is timed by the
+             profiler's device sum, and says so); one fp32 mit_b0 CE step
+             against the CPU's (loss 1e-5, gradients 5e-5 / 5e-4);
+             Trainer(model="segformer") on mit_b2 at the CE defaults, five
+             steps; int8 rows of unet/resnet34 and segformer/mit_b0: every
+             W8A8 layer of one forward quantized and multiplied on the
+             card (cuBLASLt's int8 product, im2col for the convs) and on
+             the CPU, int8 activations, scales and int32 accumulators
+             equal; int8 against bf16 at batch 32 (mask agreement and
+             device ms, recorded); export-serving --family for
+             unet/resnet34 and segformer/mit_b2 at 224^2, batch 8 (the
+             program's masks equal ModelRunner.predict's bit for bit);
+             the segformer row and both int8 rows registered and served
+             over HTTP (each mask equals ModelRunner.predict's); no launch
+             of kernels 1-9 in the phase.
 
 Then it prints the card's name and power limit as nvidia-smi gives them,
 one JSON line describing every kernel (launches of the serving kernels
 counted during the serving run, of the training kernels during the train
 run, of the sweep kernels during the two sweeps; kernels 1-5 also with
 their launches on the paths of phases 10, 11, 12 and 13; kernels 1-9 with
-their launches in phase 14, which must be 0), and, last,
+their launches in phases 14 and 15, which must be 0), and, last,
 {"ok": true, "device": {...}}.
 Without CUDA it exits with code 1 and prints no result.
 
@@ -2934,6 +2954,20 @@ def _no_tf32():
          torch.backends.cudnn.allow_tf32) = saved
 
 
+def _forward_ms(fn) -> dict:
+    """Device ms of one forward queued behind the spin (``device_ms``), or,
+    where the forward launches more kernels than the device's queue holds
+    (mit_b2's 1,462; an int8 forward's quantize passes), the device time
+    the profiler sums over its kernels (the gaps between them left out),
+    named as such."""
+    try:
+        return {"device_ms": device_ms(fn, iters=1), "timed_by": "queued"}
+    except RuntimeError:
+        prof = profile_steps(fn, 0, steps=3, top=1)
+        return {"device_ms": prof["device_ms_per_step"],
+                "timed_by": "profiler"}
+
+
 def _conv_check(family: str, encoder: str, images: torch.Tensor,
                 timed: torch.Tensor) -> dict:
     """One (family, encoder) at full width, seeded weights: the card's
@@ -2971,7 +3005,7 @@ def _conv_check(family: str, encoder: str, images: torch.Tensor,
             # One forward queued behind the spin: a conv forward launches
             # 560-920 kernels, and the device's queue does not hold two.
             row.update(batch=timed.shape[0], size=timed.shape[1],
-                       device_ms=device_ms(fn, iters=1),
+                       **_forward_ms(fn),
                        host_ms=host_ms(fn, iters=5, rounds=3))
             prof = profile_steps(fn, timed.shape[0], steps=2, top=4)
             row.update(device_kernels_per_forward=prof[
@@ -2985,28 +3019,31 @@ def _conv_check(family: str, encoder: str, images: torch.Tensor,
     return row
 
 
-def _conv_train(tmp: str) -> tuple:
-    """Trainer(model="unet") on resnet34 at the CE defaults (bf16, batch 16
-    as 4 x 4) for CONV_TRAIN_STEPS steps on the card; one fp32 step
-    (TF32 off) against the same step on the CPU; the trained weights
-    saved. Returns (the line's fields, the checkpoint path)."""
+def _conv_batches(tcfg, seed: int = 2):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return [{"image": torch.rand(tcfg.batch_size, CONV_SIZE, CONV_SIZE, 3,
+                                 generator=gen, device="cuda"),
+             "mask": torch.randint(0, CONV_CLASSES, (tcfg.batch_size,
+                                                     CONV_SIZE, CONV_SIZE),
+                                   generator=gen, device="cuda",
+                                   dtype=torch.int32)}
+            for _ in range(2)]
+
+
+def _timed_training(family: str, encoder: str, tmp: str = None) -> tuple:
+    """Trainer(model=family) on encoder at the CE defaults (bf16, batch 16
+    as 4 x 4) for CONV_TRAIN_STEPS steps on the card. Returns (the line's
+    fields, the trained weights' checkpoint path under tmp, or None)."""
     from visiontransformer_tpu_torch.ckpt.io import save_checkpoint
     from visiontransformer_tpu_torch.configs import CE_TRAIN_DEFAULTS
-    from visiontransformer_tpu_torch.models.unet import UNetConfig
+    from visiontransformer_tpu_torch.models.registry import model_config
     from visiontransformer_tpu_torch.train.trainer import Trainer
 
     tcfg = CE_TRAIN_DEFAULTS
-    cfg = UNetConfig(encoder_name="resnet34", num_classes=CONV_CLASSES,
-                     compute_dtype="bfloat16")
-    gen = torch.Generator(device="cuda").manual_seed(2)
-    batches = [{"image": torch.rand(tcfg.batch_size, CONV_SIZE, CONV_SIZE, 3,
-                                    generator=gen, device="cuda"),
-                "mask": torch.randint(0, CONV_CLASSES, (tcfg.batch_size,
-                                                        CONV_SIZE, CONV_SIZE),
-                                      generator=gen, device="cuda",
-                                      dtype=torch.int32)}
-               for _ in range(2)]
-    trainer = Trainer(cfg, tcfg, model="unet", device="cuda")
+    cfg = model_config(family, encoder, num_classes=CONV_CLASSES,
+                       compute_dtype="bfloat16")
+    batches = _conv_batches(tcfg)
+    trainer = Trainer(cfg, tcfg, model=family, device="cuda")
     state = trainer.init_state()
     step = _train_step_fn(trainer, state, batches)
     step()  # first step: cuDNN's and the allocator's set-up
@@ -3020,7 +3057,7 @@ def _conv_train(tmp: str) -> tuple:
     seconds = time.perf_counter() - t0
     losses = [float(x) for x in losses]
     prof = profile_steps(step, tcfg.batch_size, steps=2, top=6)
-    out = {"config": "unet/resnet34", "classes": CONV_CLASSES,
+    out = {"config": f"{family}/{encoder}", "classes": CONV_CLASSES,
            "dtype": "bfloat16", "batch": tcfg.batch_size,
            "accumulate": tcfg.accumulate_grad_batches,
            "timed_steps": CONV_TRAIN_STEPS, "losses": losses,
@@ -3030,17 +3067,27 @@ def _conv_train(tmp: str) -> tuple:
            "device_busy_share": prof["device_busy_share"],
            "device_kernels_per_step": prof["device_kernels_per_step"],
            "top": prof["top"], "finite": all(np.isfinite(losses))}
-    path = save_checkpoint(f"{tmp}/ckpt", {"params": state.model.state_dict(),
-                                           "step": state.step},
-                           epoch=0, step=state.step)
-    del state, trainer
+    path = None if tmp is None else save_checkpoint(
+        f"{tmp}/ckpt", {"params": state.model.state_dict(),
+                        "step": state.step}, epoch=0, step=state.step)
+    return out, path
 
-    # One fp32 step, the card (TF32 off) against the CPU, same weights.
-    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
-    batch = {k: v.cpu().numpy() for k, v in batches[0].items()}
+
+def _fp32_step(family: str, encoder: str) -> dict:
+    """One fp32 CE step (TF32 off) at the CE defaults, the card against the
+    CPU from the same seeded weights and batch: the loss and every
+    gradient."""
+    from visiontransformer_tpu_torch.configs import CE_TRAIN_DEFAULTS
+    from visiontransformer_tpu_torch.models.registry import model_config
+    from visiontransformer_tpu_torch.train.trainer import Trainer
+
+    tcfg = CE_TRAIN_DEFAULTS
+    cfg32 = model_config(family, encoder, num_classes=CONV_CLASSES,
+                         compute_dtype="float32")
+    batch = {k: v.cpu().numpy() for k, v in _conv_batches(tcfg)[0].items()}
     steps = {}
     for device in ("cpu", "cuda"):
-        trainer = Trainer(cfg32, tcfg, model="unet", device=device)
+        trainer = Trainer(cfg32, tcfg, model=family, device=device)
         st = trainer.init_state()
         with _no_tf32():
             _, metrics = trainer.train_step(st, batch, seed=0)
@@ -3052,12 +3099,19 @@ def _conv_train(tmp: str) -> tuple:
     checks = {n: close(grads_g[n], grads_c[n], *GRAD_TOL[torch.float32])
               for n in grads_c}
     worst = max(checks, key=lambda n: checks[n][1])
-    out["fp32_step"] = {
-        "loss_card": loss_g, "loss_cpu": loss_c,
-        "loss_rel_diff": abs(loss_g - loss_c) / abs(loss_c),
-        "grads": len(checks), "grad_tol": GRAD_TOL[torch.float32],
-        "grads_failed": [n for n, (ok, _) in checks.items() if not ok],
-        "worst_grad": {"name": worst, "max_abs_err": checks[worst][1]}}
+    return {"config": f"{family}/{encoder}",
+            "loss_card": loss_g, "loss_cpu": loss_c,
+            "loss_rel_diff": abs(loss_g - loss_c) / abs(loss_c),
+            "grads": len(checks), "grad_tol": GRAD_TOL[torch.float32],
+            "grads_failed": [n for n, (ok, _) in checks.items() if not ok],
+            "worst_grad": {"name": worst, "max_abs_err": checks[worst][1]}}
+
+
+def _conv_train(tmp: str) -> tuple:
+    """Trainer(model="unet") on resnet34 (``_timed_training``), its weights
+    saved, and its fp32 step against the CPU's (``_fp32_step``)."""
+    out, path = _timed_training("unet", "resnet34", tmp)
+    out["fp32_step"] = _fp32_step("unet", "resnet34")
     return out, path
 
 
@@ -3143,6 +3197,231 @@ def phase_conv_families():
     return result
 
 
+# Phase 15: segformer at full width (17 classes, 224^2, decode width 256,
+# the registry's default), export-serving --family, W8A8 for conv and
+# segformer rows.
+SEG_ENCODERS = ("mit_b0", "mit_b2", "resnet34")  # mit_b2: SegFormer-B2's
+SEG_EXPORTS = (("unet", "resnet34"), ("segformer", "mit_b2"))
+SEG_INT8 = (("unet", "resnet34"), ("segformer", "mit_b0"))
+EXPORT_BATCH = 8
+
+
+@contextlib.contextmanager
+def _w8a8_calls(record):
+    """Within: every W8A8 conv and linear of the tree helpers
+    (models/unet.py) appends (kind, x, layer's int8 tensors, options) to
+    ``record`` as it runs."""
+    from visiontransformer_tpu_torch.models import unet
+
+    conv, linear = unet.conv2d_w8a8, unet._linear_w8a8
+
+    def conv_rec(x, kq, ks, bias=None, **kw):
+        record.append(("conv", x, kq, kw))
+        return conv(x, kq, ks, bias, **kw)
+
+    def linear_rec(x, kq, ks, bias=None, **kw):
+        record.append(("linear", x, kq, kw))
+        return linear(x, kq, ks, bias, **kw)
+
+    unet.conv2d_w8a8, unet._linear_w8a8 = conv_rec, linear_rec
+    try:
+        yield record
+    finally:
+        unet.conv2d_w8a8, unet._linear_w8a8 = conv, linear
+
+
+def _int8_check(family: str, encoder: str, images: torch.Tensor,
+                timed: torch.Tensor) -> dict:
+    """An int8 model of (family, encoder) at full width: every W8A8 layer of
+    one forward of ``images`` (the card's activations) quantized and
+    multiplied on the card (cuBLASLt ``_int_mm``, im2col for convs) and on
+    the CPU (plain int32 product, float64 conv): int8 activations, scales
+    and int32 accumulators equal; then the int8 forward of ``timed``
+    against the bf16 one of the same weights (mask agreement, device ms)."""
+    from visiontransformer_tpu_torch.models.registry import resolve_model
+    from visiontransformer_tpu_torch.nn.layers import (
+        int8_conv,
+        int8_matmul,
+        quantize_per_sample,
+        quantize_per_token,
+    )
+    from visiontransformer_tpu_torch.ops.quant import quantize_conv_model_
+
+    _, model = resolve_model(family, encoder, num_classes=CONV_CLASSES,
+                             device="cuda")
+    row = {"family": family, "encoder": encoder}
+    with torch.inference_mode():
+        bf16_masks = model(timed).argmax(-1)
+        fn = lambda: model(timed)  # noqa: E731
+        row["bf16"] = _forward_ms(fn)
+        quantize_conv_model_(model)
+        with _w8a8_calls([]) as calls:
+            model(images)
+        layers, bad = {"conv": 0, "linear": 0}, []
+        for kind, x, kq, kw in calls:
+            layers[kind] += 1
+            quantize = quantize_per_sample if kind == "conv" \
+                else quantize_per_token
+            forms = []
+            for t, w in ((x, kq), (x.cpu(), kq.cpu())):
+                xq, s_x = quantize(t)
+                acc = (int8_conv(xq, w, **kw) if kind == "conv" else
+                       int8_matmul(xq.reshape(-1, xq.shape[-1]), w))
+                forms.append((xq.cpu(), s_x.cpu(), acc.cpu()))
+            (a, b) = forms
+            if not all(torch.equal(u, v) for u, v in zip(a, b)):
+                bad.append({"kind": kind, "x": list(x.shape),
+                            "kernel_q": list(kq.shape), **kw})
+        row.update(layers=layers, layers_not_equal=bad)
+        int8_masks = model(timed).argmax(-1)
+        row["int8"] = _forward_ms(fn)
+        row["int8_over_bf16_device_ms"] = (row["int8"]["device_ms"]
+                                           / row["bf16"]["device_ms"])
+        row["int8_mask_agreement_bf16"] = float(
+            (int8_masks == bf16_masks).float().mean())
+    row["batch"], row["size"] = timed.shape[0], timed.shape[1]
+    return row
+
+
+def _export_check(family: str, encoder: str, tmp: str) -> dict:
+    """export-serving --family at CONV_SIZE, batch EXPORT_BATCH, seeded
+    weights, bf16 on the card: the program's masks against
+    ModelRunner.predict's on the same uint8 images, bit for bit."""
+    from visiontransformer_tpu_torch import cli
+    from visiontransformer_tpu_torch.ckpt.export import load_serving
+    from visiontransformer_tpu_torch.serve.worker import ModelRunner
+
+    out = f"{tmp}/{family}-{encoder}.pt2"
+    t0 = time.perf_counter()
+    rc = cli.main(["export-serving", "--family", family, "--config",
+                   encoder, "--num-classes", str(CONV_CLASSES),
+                   "--input-size", str(CONV_SIZE), "--batch",
+                   str(EXPORT_BATCH), "--device", "cuda", "--out", out])
+    if rc:
+        raise AssertionError(f"export-serving --family {family} exited {rc}")
+    export_s = time.perf_counter() - t0
+    art = load_serving(out, device="cuda")
+    rng = np.random.default_rng(5)
+    images = rng.integers(0, 256, (EXPORT_BATCH, CONV_SIZE, CONV_SIZE, 3),
+                          dtype=np.uint8)
+    x = torch.from_numpy(images).cuda().float() / 255.0
+    got = art.call(x).cpu().numpy()
+    runner = ModelRunner({"input_size": CONV_SIZE, "config_name": encoder,
+                          "num_classes": CONV_CLASSES,
+                          "model_family": family},
+                         buckets=(EXPORT_BATCH,), device="cuda")
+    want = runner.predict(images)
+    with torch.inference_mode():
+        program_ms = host_ms(lambda: art.call(x), iters=5, rounds=2)
+        eager_ms = host_ms(lambda: runner.model(x).argmax(-1), iters=5,
+                           rounds=2)
+    return {"family": family, "encoder": encoder,
+            "header": {k: art.meta[k] for k in (
+                "family", "input_size", "batch_size", "platforms")},
+            "export_s": export_s, "bytes": os.path.getsize(out),
+            "masks_equal_runner": bool(np.array_equal(got, want)),
+            "program_host_ms": program_ms, "eager_host_ms": eager_ms}
+
+
+def _segformer_http(tmp: str) -> dict:
+    """A segformer/mit_b2 row and the int8 rows of SEG_INT8 registered with
+    register-model and served over HTTP: each job's mask equals its row's
+    ModelRunner.predict."""
+    from visiontransformer_tpu_torch import cli
+    from visiontransformer_tpu_torch.serve.store import JobStore
+    from visiontransformer_tpu_torch.serve.worker import ModelRunner
+
+    db, media = f"{tmp}/serving.db", f"{tmp}/media"
+    rows = [("segformer", "mit_b2", "")] + [(f, e, "int8")
+                                            for f, e in SEG_INT8]
+    for family, encoder, quantize in rows:
+        args = ["register-model", "--db", db, "--media-root", media,
+                "--name", f"{family}-{encoder}-{quantize or 'bf16'}",
+                "--family", family, "--config", encoder,
+                "--num-classes", str(CONV_CLASSES)]
+        if cli.main(args + (["--quantize", quantize] if quantize else [])):
+            raise AssertionError(f"register-model {family} {encoder} "
+                                 f"{quantize} failed")
+    store = JobStore(db, media_root=media)
+    pngs = _job_pngs(1, seed=4)
+    out = {}
+    with _http_server(store, (1,)) as (client, csrf, startup_s):
+        for row in store.list_models():
+            jobs, done, elapsed = _run_jobs(client, csrf, row["id"], pngs)
+            (mask,) = _served_masks(client, jobs, done)
+            runner = ModelRunner(store.get_model(row["id"]), device="cuda",
+                                 buckets=(1,))
+            want = runner.predict(_decoded(pngs[0])[None])
+            out[row["name"]] = {
+                "job_s": elapsed,
+                "mask_equals_runner": bool(np.array_equal(mask, want[0]))}
+        out["startup_s"] = startup_s
+    return out
+
+
+def phase_segformer_export_int8():
+    """Phase 15: segformer on the card at full width, export-serving
+    --family and W8A8 for conv and segformer rows. No kernel of the port
+    lies on these paths."""
+    t_phase = time.perf_counter()
+    reset, read = _kernel_launch_counts()
+    reset()
+    images = torch.rand(CONV_CHECK_BATCH, CONV_SIZE, CONV_SIZE, 3,
+                        generator=torch.Generator().manual_seed(1))
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    timed = torch.rand(CONV_BATCH, CONV_SIZE, CONV_SIZE, 3, generator=gen,
+                       device="cuda")
+    rows = []
+    for encoder in SEG_ENCODERS:
+        rows.append(_conv_check("segformer", encoder, images, timed))
+        emit("segformer", **rows[-1])
+    large = torch.rand(CONV_BATCH, 512, 512, 3, generator=gen, device="cuda")
+    rows.append(_conv_check("segformer", "mit_b2", images, large))
+    emit("segformer", **rows[-1])
+    del large
+    fp32_step = _fp32_step("segformer", "mit_b0")
+    emit("segformer_fp32_step", **fp32_step)
+    train, _ = _timed_training("segformer", "mit_b2")
+    emit("segformer_train", **train)
+    int8 = [_int8_check(f, e, images.cuda(), timed) for f, e in SEG_INT8]
+    for row in int8:
+        emit("int8", **row)
+    del timed
+    with tempfile.TemporaryDirectory() as tmp:
+        exports = [_export_check(f, e, tmp) for f, e in SEG_EXPORTS]
+        for row in exports:
+            emit("export_serving", **row)
+        http = _segformer_http(tmp)
+    launches = read()
+    result = {"models": len(rows), "train": {
+        k: train[k] for k in ("images_per_s", "step_ms",
+                              "device_ms_per_step", "device_busy_share")},
+        "http": http, "launches": launches,
+        "seconds": time.perf_counter() - t_phase}
+    emit("segformer_export_int8", **result)
+    failed = {
+        "logits": [(r["encoder"], r["max_abs_err"]) for r in rows
+                   if not r["ok"]],
+        "fp32_argmax": [r["encoder"] for r in rows
+                        if r["fp32_argmax_agreement_cpu"] != 1.0],
+        "train_losses": not train["finite"],
+        "fp32_step": (fp32_step["loss_rel_diff"] > LOSS_RTOL
+                      or bool(fp32_step["grads_failed"])),
+        "int8_layers": [(r["family"], r["layers_not_equal"]) for r in int8
+                        if r["layers_not_equal"]],
+        "exports": [r["family"] for r in exports
+                    if not r["masks_equal_runner"]
+                    or r["header"]["family"] != r["family"]],
+        "http": [k for k, v in http.items()
+                 if isinstance(v, dict) and not v["mask_equals_runner"]],
+        "kernel_launches": {k: v for k, v in launches.items() if v},
+    }
+    if any(failed.values()):
+        raise AssertionError(f"phase 15 (segformer_export_int8) failed: "
+                             f"{failed}")
+    return result
+
+
 def _forward_lines(peaks, flash_timed, flash_train):
     """One line per timed bf16 d = 64 shape: kernel 1, kernel 2 at dropout
     0 and 0.1 and SDPA's forward at both rates (device time), the bounds and
@@ -3207,6 +3486,7 @@ def main() -> int:
         del trained
     optin = phase_optin(gen)
     conv = phase_conv_families()
+    seg = phase_segformer_export_int8()
     emit("done", seconds=time.perf_counter() - t0,
          masks_per_s=model["bfloat16"]["masks_per_s"],
          jobs_per_s=serving["jobs_per_s"],
@@ -3270,8 +3550,9 @@ def main() -> int:
         row["eval_sweep_launches"] = sweep["path_launches"][row["name"]]
         row["optin_launches"] = optin["path_launches"][row["name"]]
     kernels += variants
-    for row in kernels:  # kernels 1-9 on phase 14's path: none
+    for row in kernels:  # kernels 1-9 on the paths of phases 14, 15: none
         row["conv_families_launches"] = conv["launches"][row["name"]]
+        row["segformer_export_int8_launches"] = seg["launches"][row["name"]]
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -4,8 +4,8 @@ One ``Trainer(model="unet")`` step against the JAX Trainer's step (ce,
 Adam, batch 4 as 2 micro-batches of 2) at the ``small`` encoder preset,
 32^2; remat with a conv config ignored, as in JAX; the registry, the inits
 and ``resolve_model`` for every family (a ``.ckpt`` refused for a conv
-family, segformer not ported); ``ModelRunner`` conv rows (masks =
-argmax of the family's apply; an int8 row refused); train -> save ->
+family; segformer registered as in JAX); ``ModelRunner`` conv rows (masks
+= argmax of the family's apply; an int8 row quantized); train -> save ->
 ``resolve_model(checkpoint_path=)`` -> the same masks bit for bit; and the
 commands ``train --model/--encoder`` and ``register-model --family`` on
 the CPU (``device="cpu"``).
@@ -26,6 +26,7 @@ from visiontransformer_tpu.models import registry as jregistry
 from visiontransformer_tpu.models.unet import UNetConfig as JUNetConfig
 from visiontransformer_tpu.models.unet import unet_apply as junet_apply
 from visiontransformer_tpu.models.unet import unet_init as junet_init
+from visiontransformer_tpu.ops import quant as jquant
 from visiontransformer_tpu.train import tasks as jtasks
 from visiontransformer_tpu.train.trainer import Trainer as JaxTrainer
 from visiontransformer_tpu_torch import cli
@@ -44,6 +45,7 @@ from visiontransformer_tpu_torch.models.unet import (
     ConvSegModel,
     UNetConfig,
 )
+from visiontransformer_tpu_torch.ops.quant import is_quantized
 from visiontransformer_tpu_torch.serve.store import JobStore
 from visiontransformer_tpu_torch.serve.worker import ModelRunner
 from visiontransformer_tpu_torch.train.trainer import Trainer
@@ -154,14 +156,17 @@ def test_remat_is_ignored_for_a_conv_family(jax_step):
 
 
 def test_registry_has_every_conv_family():
+    # Every family of the JAX package, segformer included.
     assert sorted(registry.MODEL_FAMILIES) == sorted(
-        set(jregistry.MODEL_FAMILIES) - {"segformer"})
+        jregistry.MODEL_FAMILIES)
     assert sorted(cli.MODEL_FAMILY_CHOICES) == sorted(registry.MODEL_FAMILIES)
-    with pytest.raises(NotImplementedError, match="MiT"):
-        registry.get_model_family("segformer")
-    with pytest.raises(NotImplementedError, match="MiT"):
-        registry.resolve_model("segformer", "mit_b0", num_classes=3,
-                               device="cpu")
+    assert sorted(registry.CONV_FAMILIES) == sorted(
+        set(registry.MODEL_FAMILIES) - {"vitseg", "segformer"})
+    assert registry.get_model_family("segformer").config_cls.__name__ == \
+        "SegformerConfig"
+    cfg, model = registry.resolve_model("segformer", "mit_b0", num_classes=3,
+                                        device="cpu")
+    assert isinstance(model, ConvSegModel) and cfg.is_mit
     with pytest.raises(KeyError):
         registry.get_model_family("nosuchfamily")
 
@@ -238,17 +243,24 @@ def test_runner_serves_a_conv_row(family, dtype):
 
 
 def test_an_int8_conv_row_raises():
-    with pytest.raises(NotImplementedError, match="W8A8"):
-        ModelRunner({**ROW, "model_family": "unet", "quantize": "int8"},
-                    device="cpu")
-    # A W8A8 tree of the JAX package is refused by the bridge too.
-    model = registry.get_model_family("unet").init(
+    # The conv half of W8A8 is ported: an int8 conv row no longer raises
+    # but quantizes its model (tests/test_torch_conv_quant.py holds the
+    # arithmetic against JAX).
+    runner = ModelRunner({**ROW, "model_family": "unet", "quantize": "int8"},
+                         compute_dtype="float32", device="cpu")
+    assert is_quantized(runner.model)
+    assert "stages.0.0.conv1.kernel_q" in runner.model.state_dict()
+    # A W8A8 tree of the JAX package loads through the bridge too: the
+    # model takes the W8A8 form first.
+    cfg = JUNetConfig(encoder_name="small", num_classes=CLASSES)
+    tree = jax.tree_util.tree_map(np.asarray, jquant.quantize_params_tree(
+        junet_init(jax.random.PRNGKey(0), cfg)))
+    model = load_jax_params(registry.get_model_family("unet").init(
         torch.Generator().manual_seed(0),
-        UNetConfig(encoder_name="small", num_classes=CLASSES))
-    with pytest.raises(NotImplementedError, match="W8A8"):
-        load_jax_params(model, {"head": {
-            "kernel_q": np.zeros((1, 1, 32, CLASSES), np.int8),
-            "kernel_scale": np.ones(CLASSES, np.float32)}})
+        UNetConfig(encoder_name="small", num_classes=CLASSES)), tree)
+    assert is_quantized(model)
+    assert model.state_dict()["stages.0.0.conv1.kernel_q"].dtype == \
+        torch.int8
 
 
 @pytest.fixture(scope="module")
@@ -315,16 +327,16 @@ def test_register_model_command_takes_a_family(tmp_path, capsys):
     rows = JobStore(db, media_root=media).list_models()
     assert [(r["model_family"], r["config_name"]) for r in rows] == [
         ("fpn", "small")]
-    # An encoder preset for a conv family, a ViT config for vitseg; the
-    # conv opt-ins are refused.
+    # An encoder preset for a conv family, a ViT config for vitseg; int8
+    # registers for a conv family, ToMe is refused.
     assert cli.main(base + ["--name", "x", "--family", "fpn",
                             "--config", "P16H768A12"]) == 1
     assert cli.main(base + ["--name", "x", "--config", "resnet34"]) == 1
-    assert cli.main(base + ["--name", "x", "--family", "unet", "--config",
-                            "small", "--quantize", "int8"]) == 1
+    assert cli.main(base + ["--name", "q", "--family", "unet", "--config",
+                            "small", "--quantize", "int8"]) == 0
     assert cli.main(base + ["--name", "x", "--family", "unet", "--config",
                             "small", "--token-merge-r", "8"]) == 1
-    assert len(JobStore(db, media_root=media).list_models()) == 1
+    assert len(JobStore(db, media_root=media).list_models()) == 2
 
 
 def test_training_after_serving_at_the_same_size(jax_step):
@@ -345,8 +357,8 @@ def test_training_after_serving_at_the_same_size(jax_step):
 
 
 def test_worker_serves_conv_jobs(tmp_path):
-    # A conv row and a failing int8 conv row through InferenceWorker: the
-    # served mask is ModelRunner.predict's, the int8 row's job FAILS.
+    # A conv row and an int8 conv row through InferenceWorker: each served
+    # mask is its row's ModelRunner.predict's.
     from PIL import Image
 
     from visiontransformer_tpu_torch.serve.worker import InferenceWorker
@@ -375,13 +387,14 @@ def test_worker_serves_conv_jobs(tmp_path):
             time.sleep(0.05)
     finally:
         worker.stop()
-    done, failed = (store.get_job(j) for j in jobs)
-    assert done["status"] == "DONE", done
-    assert failed["status"] == "FAILED" and "W8A8" in failed[
-        "error_message"], failed
-    runner = ModelRunner(store.get_model(ok_id), compute_dtype="float32",
-                         buckets=(1,), device="cpu")
     image = np.asarray(Image.fromarray(pixels).resize((32, 32),
                                                       Image.BILINEAR))
-    np.testing.assert_array_equal(np.asarray(Image.open(done["mask_image"])),
-                                  runner.predict(image[None])[0])
+    for job, model_id in zip(jobs, (ok_id, int8_id)):
+        done = store.get_job(job)
+        assert done["status"] == "DONE", done
+        runner = ModelRunner(store.get_model(model_id),
+                             compute_dtype="float32", buckets=(1,),
+                             device="cpu")
+        np.testing.assert_array_equal(
+            np.asarray(Image.open(done["mask_image"])),
+            runner.predict(image[None])[0])

@@ -4,7 +4,9 @@ custom ops of kernels 1 and 5.
 The port's ``ckpt/export.py`` (``torch.export``) is held against the JAX
 package's ``ckpt/stablehlo.py`` (``jax.export``) on the same weights, and
 against the port's eager ``vitseg_predict``; ``vt::flash_attention_fwd``
-and ``vt::upsample_argmax`` pass ``torch.library.opcheck``. Everything runs
+and ``vt::upsample_argmax`` pass ``torch.library.opcheck``; ``export-serving
+--family`` programs of a conv family and of segformer give
+``ModelRunner.predict``'s masks bit for bit. Everything runs
 on the CPU, where the ops run their plain versions (their CUDA
 implementations are the kernels, checked on the card by chip_smoke.py).
 """
@@ -32,6 +34,7 @@ from visiontransformer_tpu_torch.ckpt.convert import load_jax_params
 from visiontransformer_tpu_torch.ckpt.export import (
     export_serving,
     load_serving,
+    serving_input_size,
 )
 from visiontransformer_tpu_torch.ckpt.io import save_checkpoint
 from visiontransformer_tpu_torch.cli import main as cli_main
@@ -48,6 +51,7 @@ from visiontransformer_tpu_torch.ops.upsample_argmax import (
     upsample_argmax,
     upsample_argmax_plain,
 )
+from visiontransformer_tpu_torch.serve.worker import ModelRunner
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 VIT = dict(image_size=32, patch_size=8, hidden_size=64, num_hidden_layers=2,
@@ -263,3 +267,41 @@ def test_export_serving_command(tmp_path, monkeypatch, models):
     with torch.no_grad():
         logits = vitseg_apply(trained.eval(), images)
     assert torch.equal(art.call(images), logits.argmax(-1).to(torch.uint8))
+
+
+@pytest.mark.parametrize("family,config", [("unet", "small"),
+                                           ("segformer", "mit_b0")])
+def test_export_serving_family_masks_equal_runner(tmp_path, family, config):
+    """export-serving --family for a conv family and segformer: the
+    program's masks equal ModelRunner.predict's bit for bit, and its header
+    names the family."""
+    out = str(tmp_path / f"{family}.pt2")
+    assert cli_main(["export-serving", "--family", family, "--config",
+                     config, "--num-classes", str(CLASSES), "--input-size",
+                     "40", "--batch", "2", "--compute-dtype", "float32",
+                     "--device", "cpu", "--out", out]) == 0
+    art = load_serving(out, device="cpu")
+    assert (art.meta["family"], art.meta["input_size"],
+            art.meta["batch_size"]) == (family, 40, 2)
+    images = np.random.default_rng(11).integers(0, 256, (2, 40, 40, 3),
+                                                dtype=np.uint8)
+    runner = ModelRunner({"input_size": 40, "config_name": config,
+                          "num_classes": CLASSES, "model_family": family},
+                         compute_dtype="float32", buckets=(2,), device="cpu")
+    got = art.call(torch.from_numpy(images).float() / 255.0)
+    assert got.dtype == torch.uint8
+    np.testing.assert_array_equal(got.numpy(), runner.predict(images))
+
+
+def test_export_serving_family_needs_an_input_size(tmp_path, models):
+    _, _, t, _ = models
+    cfg = port_registry.model_config("unet", "small", num_classes=CLASSES)
+    with pytest.raises(ValueError, match="input_size"):
+        serving_input_size(cfg, "unet", None)
+    assert serving_input_size(cfg, "unet", 48) == 48
+    assert serving_input_size(t, "vitseg", None) == 32
+    with pytest.raises(SystemExit):
+        cli_main(["export-serving", "--family", "segformer", "--config",
+                  "mit_b0", "--device", "cpu", "--out",
+                  str(tmp_path / "x.pt2")])
+    assert not (tmp_path / "x.pt2").exists()

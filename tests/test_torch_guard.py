@@ -2,7 +2,8 @@
 
 - No file of the port, nor chip_smoke.py, imports JAX, Orbax (which
   imports JAX) or any module of the JAX package (``visiontransformer_tpu`` and its submodules; the port's own
-  name shares that prefix and is allowed).
+  name shares that prefix and is allowed), nor ``transformers`` or
+  ``safetensors``, which the GPU machine lacks.
 - The port's entry points default to CUDA and raise on a host without it
   instead of falling back to the CPU; chip_smoke.py exits non-zero there
   and prints no result.
@@ -30,9 +31,11 @@ FILES = sorted(
 
 
 def _forbidden(module: str) -> bool:
+    # transformers and safetensors: the GPU machine has neither, so a port
+    # file importing them would fail there only (tests may import them).
     top = module.split(".")[0]
     return top in ("jax", "jaxlib", "flax", "optax", "orbax",
-                   "visiontransformer_tpu")
+                   "visiontransformer_tpu", "transformers", "safetensors")
 
 
 def _imported_modules(tree):
@@ -54,6 +57,8 @@ def test_scan_finds_the_port():
     assert _forbidden("visiontransformer_tpu.ops.attention")
     assert _forbidden("jax.numpy")
     assert _forbidden("orbax.checkpoint")
+    assert _forbidden("transformers")
+    assert _forbidden("safetensors.torch")
 
 
 @pytest.mark.parametrize("path", FILES)

@@ -268,10 +268,17 @@ def test_quantize_params_tree_follows_jax_rules():
             sorted(jax.tree_util.tree_flatten_with_path(want)[0],
                    key=lambda kv: str(kv[0]))):
         np.testing.assert_array_equal(np.asarray(g), w, err_msg=str(path))
-    # An interior conv (cin > 4) is what the TPU package would quantize.
-    with pytest.raises(NotImplementedError, match="conv W8A8"):
-        tquant.quantize_params_tree(
-            {"conv": {"kernel": np.zeros((3, 3, 8, 8), np.float32)}})
+    # An interior conv (cin > 4) quantizes as the TPU package's does
+    # (tests/test_torch_conv_quant.py holds whole conv trees).
+    conv = {"conv": {"kernel": np.random.default_rng(0).standard_normal(
+        (3, 3, 8, 8)).astype(np.float32), "bias": np.zeros(8, np.float32)}}
+    got = tquant.quantize_params_tree(conv)
+    want = _numpy(jquant.quantize_params_tree(
+        jax.tree_util.tree_map(jnp.asarray, conv)))
+    assert got["conv"]["kernel_q"].dtype == torch.int8
+    for key in ("kernel_q", "kernel_scale", "bias"):
+        np.testing.assert_array_equal(np.asarray(got["conv"][key]),
+                                      want["conv"][key], err_msg=key)
 
 
 def test_trainer_refuses_a_quantized_model(jax_params):
@@ -361,9 +368,13 @@ def test_optin_quality_script_on_cpu(tmp_path, capsys):
         "--device", "cpu", "--samples", "4", "--test-samples", "2",
         "--epochs", "1", "--config", "P16H512A8", "--image-size", "32",
         "--in-size", "64", "--batch", "2", "--speed-rounds", "0",
-        "--out", str(out)]) == 0
+        "--layer-errors", "--out", str(out)]) == 0
     result = json.loads(out.read_text())["optin_quality"]
     assert result["device"] == "cpu"
+    # Each W8A8 linear against itself on the host: 8 layers of 4.
+    layers = result["layer_errors"]
+    assert len(layers) == 8 * 4
+    assert all(r["acc_equal"] and r["max_ulp"] == 0.0 for r in layers)
     for name in optin_quality.VARIANTS:
         assert 0.0 <= result[name]["agreement"] <= 1.0
         assert 0.0 <= result[name]["pixel_accuracy"] <= 100.0

@@ -9,19 +9,23 @@ entry ``backbone.layers.3.qkv.kernel``. A W8A8-quantized tree (the TPU
 package's ``ops/quant.py``: ``kernel_q`` int8, ``kernel_scale`` fp32) maps
 onto the port's ``LinearW8A8`` buffers the same way.
 
-The conv families (``models/unet.py`` and the decoders beside it) keep the
-tree's names too, but not its layouts. Their state dict holds:
+The conv families (``models/unet.py`` and the decoders beside it) and
+segformer (``models/segformer.py``, ``models/mit.py``) keep the tree's
+names too, but not its layouts. Their state dict holds:
 
 - every conv kernel OIHW, (out, in, kh, kw): the tree's HWIO kernel
   transposed by (3, 2, 0, 1);
 - every depthwise kernel as (C, 1, k, k): the tree's (k, k, 1, C)
   transposed the same way (groups = C);
+- every linear kernel (MiT's) as the tree holds it, (in, out);
 - conv biases (out,), GroupNorm ``scale`` and ``bias`` (C,), MAnet's
   ``pab.gamma`` 0-dim, all as in the tree;
 - ``norm_mean`` and ``norm_std`` (3,), buffers of the model (the
   reference model's buffers), where the tree holds them as parameters.
 
-A W8A8 conv tree is refused: the conv half of W8A8 is not ported yet.
+A W8A8 tree of these families (the TPU package's ``quantize_params_tree``)
+holds ``kernel_q`` int8, transposed as the kernel it replaces, and
+``kernel_scale`` fp32.
 Leaves arrive as numpy arrays (the tests convert with ``np.asarray``), so
 this module needs no JAX.
 """
@@ -37,6 +41,7 @@ from torch import nn
 from visiontransformer_tpu_torch.models.unet import ConvSegModel
 from visiontransformer_tpu_torch.ops.quant import (
     is_quantized,
+    quantize_conv_model_,
     quantize_vit_,
     tree_is_quantized,
 )
@@ -64,25 +69,27 @@ def vitseg_params_from_jax(tree) -> Dict[str, torch.Tensor]:
 
 
 def conv_params_from_jax(tree) -> Dict[str, torch.Tensor]:
-    """TPU-package conv-family param tree (numpy leaves) -> the port's
-    state dict (fp32; 4-D kernels HWIO -> OIHW)."""
-    if tree_is_quantized(tree):
-        raise NotImplementedError(
-            "W8A8 for the conv families (the conv half of ops/quant.py, "
-            "ROADMAP queue 1, item 7) is not ported yet")
+    """TPU-package conv-family or segformer param tree (numpy leaves) ->
+    the port's state dict: fp32 (int8 for W8A8 kernels); 4-D kernels HWIO
+    -> OIHW, 2-D (linear) kernels kept (in, out)."""
     flat: Dict[str, np.ndarray] = {}
     _flatten(tree, "", flat)
     return {k: torch.from_numpy(np.array(
-        v.transpose(3, 2, 0, 1) if v.ndim == 4 else v, dtype=np.float32,
-        order="C")) for k, v in flat.items()}
+        v.transpose(3, 2, 0, 1) if v.ndim == 4 else v,
+        dtype=np.int8 if v.dtype == np.int8 else np.float32, order="C"))
+        for k, v in flat.items()}
 
 
 def load_jax_params(model: nn.Module, tree) -> nn.Module:
     """Load a TPU-package param tree into ``model`` (strict: every
     parameter and buffer must be present with its shape; values are copied
-    onto the model's device). For vitseg, a W8A8 tree first turns the
-    model's encoder linears into ``LinearW8A8`` layers, in place."""
+    onto the model's device). A W8A8 tree first puts the model in that
+    form, in place: the encoder linears of vitseg (``LinearW8A8``), the
+    tree quantizer's layers of the other families
+    (``quantize_conv_model_``)."""
     if isinstance(model, ConvSegModel):
+        if tree_is_quantized(tree) and not is_quantized(model):
+            quantize_conv_model_(model)
         model.load_state_dict(conv_params_from_jax(tree), strict=True)
         return model
     if tree_is_quantized(tree) and not is_quantized(model):

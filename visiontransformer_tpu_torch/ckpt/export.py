@@ -2,8 +2,11 @@
 
 The port's counterpart of the TPU package's ``ckpt/stablehlo.py``.
 ``torch.export`` traces the serving forward (images in [0, 1] -> uint8
-class masks, ``vitseg_predict`` as the serving worker calls it) once under
-``no_grad``, with the trained weights inside the program, and saves it. A
+class masks, as the serving worker computes them: ``vitseg_predict`` for
+vitseg, the argmax of the logits for every other family, a W8A8 model's
+included) once under ``no_grad``, with the trained weights inside the
+program, and saves it. A vitseg program's size is its patch grid's; any
+other family's is named at export (``input_size``). A
 deployment host then runs inference with ``load_serving`` + ``call``: no
 model code, no configuration, no re-trace, and an error, not a silent
 retrace, if the input shape or the device does not match what was
@@ -32,41 +35,60 @@ from torch import nn
 # them before it reads a program that calls them).
 from visiontransformer_tpu_torch.ops import flash_attention as _flash  # noqa: F401
 from visiontransformer_tpu_torch.ops import upsample_argmax as _epilogue  # noqa: F401
-from visiontransformer_tpu_torch.configs import ViTSegConfig
 from visiontransformer_tpu_torch.device import resolve_device
 from visiontransformer_tpu_torch.models.vitseg import ViTSeg, vitseg_predict
 
 _MAGIC = b"VTTEXP1\n"
 
 
-def serving_input_size(cfg: ViTSegConfig) -> int:
+def serving_input_size(cfg, family: str = "vitseg",
+                       input_size: Optional[int] = None) -> int:
     """The static image side the artifact is exported for: a vitseg
-    model's is fixed by its patch grid (the conv families, which take any
-    size, are not ported)."""
-    return cfg.vit.image_size
+    model's is fixed by its patch grid; the other families take any size,
+    so the caller names one, and none raises (the program is
+    static-shape), as in the TPU package."""
+    if family == "vitseg":
+        return cfg.vit.image_size
+    if input_size is None:
+        raise ValueError(
+            f"family {family!r} takes any input size but the exported "
+            f"program is static: pass input_size")
+    return int(input_size)
 
 
 class _ServingForward(nn.Module):
-    def __init__(self, model: ViTSeg, attn_impl: str, epilogue: str):
+    """vitseg: ``vitseg_predict`` (kernels 1 and 5 on CUDA); any other
+    family: ``argmax(model(images))`` as uint8, as ``ModelRunner``
+    serves it."""
+
+    def __init__(self, model: nn.Module, attn_impl: str, epilogue: str):
         super().__init__()
         self.model = model
         self.attn_impl, self.epilogue = attn_impl, epilogue
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
-        return vitseg_predict(self.model, images, attn_impl=self.attn_impl,
-                              epilogue=self.epilogue, mask_dtype=torch.uint8)
+        if isinstance(self.model, ViTSeg):
+            return vitseg_predict(self.model, images,
+                                  attn_impl=self.attn_impl,
+                                  epilogue=self.epilogue,
+                                  mask_dtype=torch.uint8)
+        return torch.argmax(self.model(images), dim=-1).to(torch.uint8)
 
 
-def export_serving(model: ViTSeg, cfg: ViTSegConfig, *, out_path: str,
-                   batch_size: int = 8, attn_impl: str = "auto",
+def export_serving(model: nn.Module, cfg, *, out_path: str,
+                   batch_size: int = 8, input_size: Optional[int] = None,
+                   attn_impl: str = "auto",
                    epilogue: str = "auto") -> Dict[str, Any]:
-    """Save the serving forward of ``model`` at (batch_size, size, size, 3)
-    fp32 images, with its weights inside, for the device type the model is
-    on. It is traced under ``no_grad``, so attention takes the inference
-    kernel. attn_impl and epilogue: as ``vitseg_predict``'s ("auto": the
-    kernels on CUDA, the plain forms on the CPU). Returns the metadata
-    written to the header."""
-    size = serving_input_size(cfg)
+    """Save the serving forward of ``model`` (any family; a
+    ``ConvSegModel`` names its own) at (batch_size, size, size, 3) fp32
+    images, with its weights inside, for the device type the model is on;
+    ``size`` is ``serving_input_size(cfg, family, input_size)``. It is
+    traced under ``no_grad``, so attention takes the inference kernel.
+    attn_impl and epilogue: as ``vitseg_predict``'s ("auto": the kernels
+    on CUDA, the plain forms on the CPU). Returns the metadata written to
+    the header."""
+    family = "vitseg" if isinstance(model, ViTSeg) else model.family
+    size = serving_input_size(cfg, family, input_size)
     device = next(model.parameters()).device
     images = torch.zeros((batch_size, size, size, 3), device=device)
     with torch.no_grad():
@@ -75,7 +97,7 @@ def export_serving(model: ViTSeg, cfg: ViTSegConfig, *, out_path: str,
     blob = io.BytesIO()
     torch.export.save(program, blob)
     meta = {
-        "family": "vitseg",
+        "family": family,
         "num_classes": int(cfg.num_classes),
         "batch_size": int(batch_size),
         "input_size": int(size),

@@ -18,8 +18,12 @@ translations are the TPU package's:
 
 Loaded weights come back as the port's fp32 state dict, keyed as
 ``ckpt/convert.py:vitseg_params_from_jax`` keys them; exported ones as
-numpy arrays, as the TPU package's export returns them. The Segformer
-converters wait for the MiT slice.
+numpy arrays, as the TPU package's export returns them.
+
+``convert_hf_segformer_state`` and ``convert_hf_segformer_seg_state`` map
+an HF SegFormer state dict (``ckpt/hf_dir.py`` reads one from a
+``save_pretrained`` directory) onto the TPU package's segformer tree,
+which ``ckpt/convert.py:conv_params_from_jax`` then loads.
 """
 
 from __future__ import annotations
@@ -31,6 +35,8 @@ import torch
 
 from visiontransformer_tpu_torch.ckpt.convert import vitseg_params_from_jax
 from visiontransformer_tpu_torch.configs import ViTConfig, ViTSegConfig
+from visiontransformer_tpu_torch.models.mit import MIT_PRESETS
+from visiontransformer_tpu_torch.models.unet import IMAGENET_MEAN, IMAGENET_STD
 
 Array = np.ndarray
 
@@ -212,3 +218,89 @@ def save_lightning_checkpoint(path: str, state: Mapping, cfg: ViTSegConfig,
     torch.save({"state_dict": tensors, "epoch": epoch,
                 "global_step": global_step}, path)
     return path
+
+
+def convert_hf_segformer_state(state: Mapping, encoder_name: str) -> dict:
+    """HF ``SegformerModel`` / ``SegformerForSemanticSegmentation`` state
+    dict -> the MiT encoder's tree in the TPU package's layout (numpy
+    leaves; linear kernels (in, out), conv kernels HWIO), which
+    ``ckpt/convert.py:conv_params_from_jax`` turns into the port's state
+    dict. The ``segformer.`` prefix of the wrapper is stripped; HF's keys
+    (modeling_segformer.py): ``encoder.patch_embeddings.{i}.{proj,
+    layer_norm}``, ``encoder.block.{i}.{j}.{layer_norm_1, attention.self.
+    (query|key|value|sr|layer_norm), attention.output.dense, layer_norm_2,
+    mlp.(dense1|dwconv.dwconv|dense2)}``, ``encoder.layer_norm.{i}``. The
+    depthwise Mix-FFN kernel arrives as (C, 1, 3, 3) and becomes the
+    (3, 3, 1, C) HWIO kernel of groups = C."""
+    state = {k.removeprefix("segformer."): v for k, v in state.items()}
+    _, depths, _, srs = MIT_PRESETS[encoder_name]
+    stages = []
+    for i, (depth, sr) in enumerate(zip(depths, srs)):
+        blocks = []
+        for j in range(depth):
+            b = f"encoder.block.{i}.{j}."
+            attn = {"q": _linear(state, b + "attention.self.query"),
+                    "k": _linear(state, b + "attention.self.key"),
+                    "v": _linear(state, b + "attention.self.value"),
+                    "proj": _linear(state, b + "attention.output.dense")}
+            if sr > 1:
+                attn["sr"] = _conv(state, b + "attention.self.sr")
+                attn["sr_ln"] = _layer_norm(state,
+                                            b + "attention.self.layer_norm")
+            blocks.append({
+                "ln1": _layer_norm(state, b + "layer_norm_1"),
+                "attn": attn,
+                "ln2": _layer_norm(state, b + "layer_norm_2"),
+                "ffn": {"fc1": _linear(state, b + "mlp.dense1"),
+                        "dw": _conv(state, b + "mlp.dwconv.dwconv"),
+                        "fc2": _linear(state, b + "mlp.dense2")}})
+        e = f"encoder.patch_embeddings.{i}."
+        stages.append({"embed": _conv(state, e + "proj"),
+                       "embed_ln": _layer_norm(state, e + "layer_norm"),
+                       "blocks": blocks,
+                       "norm": _layer_norm(state, f"encoder.layer_norm.{i}")})
+    return {"stages": stages}
+
+
+def convert_hf_segformer_seg_state(state: Mapping, cfg) -> dict:
+    """HF ``SegformerForSemanticSegmentation`` state dict -> the whole
+    segformer tree (``models/segformer.py``, a MiT encoder, ``head_norm=
+    "affine"``) in the TPU package's layout. The decode head
+    (modeling_segformer.py ``SegformerDecodeHead``):
+
+    - ``linear_c.{i}.proj`` Linears become 1x1 conv projections ((out, in)
+      transposed, as (1, 1, in, out) HWIO);
+    - HF concatenates the upsampled levels deepest first, the port
+      shallowest first, so the input-channel blocks of the bias-free
+      ``linear_fuse`` kernel are reversed;
+    - the inference-mode ``batch_norm`` folds to a per-channel affine,
+      scale = gamma / sqrt(var + 1e-5), bias = beta - mean * scale (in
+      fp32, as the TPU package folds it);
+    - ``classifier`` is the 1x1 head."""
+    state = {k.removeprefix("segformer."): v for k, v in state.items()}
+    if cfg.head_norm != "affine":
+        raise ValueError("HF decode-head weights need head_norm='affine' "
+                         f"(the folded BatchNorm); got {cfg.head_norm!r}")
+    params = convert_hf_segformer_state(state, cfg.encoder_name)
+    c = cfg.embed_channels
+    n_levels = len(cfg.level_channels)
+    params["proj"] = [
+        {"kernel": _to_np(state[f"decode_head.linear_c.{i}.proj.weight"])
+         .T[None, None],
+         "bias": _to_np(state[f"decode_head.linear_c.{i}.proj.bias"])}
+        for i in range(n_levels)]
+    fuse = _to_np(state["decode_head.linear_fuse.weight"])  # (C, L·C, 1, 1)
+    fuse = fuse.reshape(c, n_levels, c, 1, 1)[:, ::-1].reshape(
+        c, n_levels * c, 1, 1).transpose(2, 3, 1, 0)
+    gamma, beta, mean, var = (
+        _to_np(state[f"decode_head.batch_norm.{k}"])
+        for k in ("weight", "bias", "running_mean", "running_var"))
+    scale = gamma / np.sqrt(var + 1e-5)
+    params["fuse"] = {"conv": {"kernel": np.ascontiguousarray(fuse),
+                               "bias": np.zeros((c,), np.float32)},
+                      "affine": {"scale": scale,
+                                 "bias": beta - mean * scale}}
+    params["head"] = _conv(state, "decode_head.classifier")
+    params["norm_mean"] = np.asarray(IMAGENET_MEAN, np.float32)
+    params["norm_std"] = np.asarray(IMAGENET_STD, np.float32)
+    return params

@@ -18,8 +18,9 @@ their slices). ``export-serving`` replaces ``export-hlo``: it writes a
 Commands that run a model take ``--device`` (default cuda; the CPU only
 when asked for). ``serve`` hands its arguments to ``serve/server.py`` and
 serves the models registered with ``register-model``, of any family the
-port has (``--family``). ``export-serving``, ``convert``, ``export`` and
-``eval-sweep`` are for vitseg.
+port has (``--family``), int8 included. ``export-serving --family`` takes
+any family (and, for segformer, an HF SegFormer directory as ``--ckpt``);
+``convert``, ``export`` and ``eval-sweep`` are for vitseg.
 """
 
 from __future__ import annotations
@@ -36,7 +37,7 @@ COMMANDS = ("train", "eval-sweep", "serve", "convert", "export",
 # tests/test_torch_conv_train_serve.py holds them equal.
 MODEL_FAMILY_CHOICES = [
     "deeplabv3", "deeplabv3plus", "fpn", "linknet", "manet", "pan",
-    "pspnet", "unet", "unetplusplus", "upernet", "vitseg",
+    "pspnet", "segformer", "unet", "unetplusplus", "upernet", "vitseg",
 ]
 USAGE = ("usage: python -m visiontransformer_tpu_torch "
          "{" + ",".join(COMMANDS) + "} [options]")
@@ -66,7 +67,8 @@ def _train_parser() -> argparse.ArgumentParser:
     t.add_argument("--config", default="P16H1024A16",
                    help="sweep config name (vitseg), e.g. P16H512A8")
     t.add_argument("--encoder", default="resnet34",
-                   help="encoder preset (conv families)")
+                   help="encoder preset (conv families; segformer also "
+                        "mit_b0 ... mit_b5)")
     t.add_argument("--batch-size", type=int, default=4)
     t.add_argument("--lr", type=float, default=None)
     t.add_argument("--max-epochs", type=int, default=100)
@@ -305,24 +307,34 @@ def cmd_export_serving(argv) -> int:
                     "(replaces the TPU package's export-hlo)")
     p.add_argument("--ckpt", default="",
                    help="port checkpoint (or a directory of them, latest "
-                        "picked) or reference .ckpt file (empty: random "
-                        "init, useful for smoke tests)")
+                        "picked), reference .ckpt file (vitseg) or HF "
+                        "SegFormer directory (segformer); empty: random "
+                        "init, useful for smoke tests")
+    p.add_argument("--family", default="vitseg",
+                   choices=MODEL_FAMILY_CHOICES)
     p.add_argument("--config", required=True,
-                   help="sweep config name or ViT size preset")
+                   help="vitseg: sweep config name or ViT size preset; "
+                        "other families: encoder preset")
     p.add_argument("--num-classes", type=int, default=17)
-    p.add_argument("--input-size", type=int, default=224)
+    p.add_argument("--input-size", type=int, default=None,
+                   help="image side of the program: vitseg's defaults to "
+                        "224, every other family's must be given")
     p.add_argument("--batch", type=int, default=8)
     p.add_argument("--compute-dtype", default="bfloat16")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.add_argument("--out", required=True, help="output artifact path")
     args = p.parse_args(argv)
+    if args.family != "vitseg" and args.input_size is None:
+        p.error(f"--input-size is required for --family {args.family}: "
+                f"the exported program is static-shape")
     ckpt = get_latest_checkpoint(args.ckpt) or args.ckpt
     cfg, model = resolve_model(
-        "vitseg", args.config, num_classes=args.num_classes,
-        input_size=args.input_size, compute_dtype=args.compute_dtype,
-        checkpoint_path=ckpt, device=args.device)
+        args.family, args.config, num_classes=args.num_classes,
+        input_size=args.input_size or 224,
+        compute_dtype=args.compute_dtype, checkpoint_path=ckpt,
+        device=args.device)
     meta = export_serving(model, cfg, out_path=args.out,
-                          batch_size=args.batch)
+                          batch_size=args.batch, input_size=args.input_size)
     print(f"{args.out}: {meta}")
     return 0
 
@@ -331,7 +343,7 @@ def cmd_register_model(argv) -> int:
     """Register a model of any family in the serving store (the reference
     does this through the Django admin)."""
     from visiontransformer_tpu_torch.configs import vit_config_by_name
-    from visiontransformer_tpu_torch.models.unet import ENCODER_PRESETS
+    from visiontransformer_tpu_torch.models.registry import encoder_presets
     from visiontransformer_tpu_torch.serve.store import JobStore
 
     p = argparse.ArgumentParser(
@@ -343,12 +355,14 @@ def cmd_register_model(argv) -> int:
     p.add_argument("--config", required=True,
                    help="vitseg: sweep config name (e.g. P16H768A12) or "
                         "ViT size preset (vit_b_16/vit_l_16/vit_h_14); "
-                        "conv families: encoder preset (e.g. resnet34)")
+                        "conv families: encoder preset (e.g. resnet34); "
+                        "segformer: also mit_b0 ... mit_b5")
     p.add_argument("--num-classes", type=int, default=17)
     p.add_argument("--input-size", type=int, default=224)
     p.add_argument("--ckpt", default="",
-                   help="port checkpoint dir or reference .ckpt file "
-                        "(empty: random init, useful for smoke tests)")
+                   help="port checkpoint dir, reference .ckpt file "
+                        "(vitseg) or HF SegFormer directory (segformer); "
+                        "empty: random init, useful for smoke tests")
     p.add_argument("--description", default="")
     p.add_argument("--family", default="vitseg",
                    choices=MODEL_FAMILY_CHOICES,
@@ -358,8 +372,9 @@ def cmd_register_model(argv) -> int:
                    help="opt-in ToMe token merging: tokens merged per "
                         "encoder block (ops/token_merge.py)")
     p.add_argument("--quantize", default="", choices=("", "int8"),
-                   help="opt-in W8A8 dynamic int8 quantization of the "
-                        "encoder linears (ops/quant.py)")
+                   help="opt-in W8A8 dynamic int8 quantization "
+                        "(ops/quant.py): vitseg's encoder linears, every "
+                        "other family's linears and interior convs")
     args = p.parse_args(argv)
     # Validate the config before touching the store.
     if args.family == "vitseg":
@@ -368,9 +383,9 @@ def cmd_register_model(argv) -> int:
         except KeyError as exc:
             print(f"error: {exc.args[0]}", file=sys.stderr)
             return 1
-    elif args.config not in ENCODER_PRESETS:
+    elif args.config not in encoder_presets(args.family):
         print(f"error: unknown encoder preset {args.config!r}; choose from "
-              f"{sorted(ENCODER_PRESETS)}", file=sys.stderr)
+              f"{encoder_presets(args.family)}", file=sys.stderr)
         return 1
     if args.ckpt and not os.path.exists(args.ckpt):
         print(f"error: checkpoint {args.ckpt} does not exist",
@@ -379,11 +394,6 @@ def cmd_register_model(argv) -> int:
     if args.token_merge_r and args.family != "vitseg":
         print("error: --token-merge-r applies to vitseg models only",
               file=sys.stderr)
-        return 1
-    if args.quantize and args.family != "vitseg":
-        # The serving runner would refuse the row at load.
-        print("error: --quantize for the conv families (the conv half of "
-              "W8A8) is not ported yet", file=sys.stderr)
         return 1
     store = JobStore(args.db, media_root=args.media_root)
     model_id = store.register_model(

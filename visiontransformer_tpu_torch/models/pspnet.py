@@ -35,6 +35,7 @@ from visiontransformer_tpu_torch.models.unet import (
     resize,
 )
 from visiontransformer_tpu_torch.nn.layers import conv2d_init
+from visiontransformer_tpu_torch.ops.resize import cached_table
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,8 +76,10 @@ def _pool_matrix_on(size_in: int, bins: int, device: str,
 def adaptive_avg_pool(x: torch.Tensor, bins: int) -> torch.Tensor:
     """(B, C, H, W) -> (B, C, bins, bins): the H stage, then the W stage,
     each a product with the averaging matrix cast to x's dtype."""
-    mh = _pool_matrix_on(x.shape[2], bins, str(x.device), x.dtype)
-    mw = _pool_matrix_on(x.shape[3], bins, str(x.device), x.dtype)
+    mh = cached_table(_pool_matrix_on, x.shape[2], bins, str(x.device),
+                      x.dtype)
+    mw = cached_table(_pool_matrix_on, x.shape[3], bins, str(x.device),
+                      x.dtype)
     x = torch.einsum("ph,bchw->bcpw", mh, x)
     return torch.einsum("qw,bcpw->bcpq", mw, x)
 

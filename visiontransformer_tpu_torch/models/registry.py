@@ -1,25 +1,33 @@
 """Model family registry: name -> (init, apply, config type), the TPU
 package's ``models/registry.py``, with ``resolve_model``'s checkpoint
-loading (a port checkpoint directory, or a reference Lightning ``.ckpt``
-for vitseg).
+loading (a port checkpoint directory, a reference Lightning ``.ckpt`` for
+vitseg, or a pretrained HF SegFormer directory for segformer).
 
 ``vitseg`` is the primary network; the ten conv families share the
 residual GroupNorm encoder of ``models/unet.py`` and differ in their
-decoders. ``segformer`` (the MiT encoder) is not ported yet and raises.
-An init takes (generator, cfg) and returns the model on the CPU; an apply
-takes (model, NHWC images, ...) and returns NHWC fp32 logits.
+decoders; ``segformer`` puts the all-MLP decoder on a MiT preset
+(``models/mit.py``) or on that encoder. An init takes (generator, cfg) and
+returns the model on the CPU; an apply takes (model, NHWC images, ...)
+and returns NHWC fp32 logits.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 from typing import Callable, NamedTuple, Optional, Tuple, Union
 
 import torch
 from torch import nn
 
+from visiontransformer_tpu_torch.ckpt.convert import conv_params_from_jax
+from visiontransformer_tpu_torch.ckpt.hf_dir import (
+    is_hf_dir,
+    read_hf_segformer,
+)
 from visiontransformer_tpu_torch.ckpt.io import restore_checkpoint
 from visiontransformer_tpu_torch.ckpt.torch_convert import (
+    convert_hf_segformer_seg_state,
     load_lightning_checkpoint,
 )
 from visiontransformer_tpu_torch.configs import (
@@ -47,11 +55,17 @@ from visiontransformer_tpu_torch.models.manet import (
     manet_apply,
     manet_init,
 )
+from visiontransformer_tpu_torch.models.mit import MIT_PRESETS
 from visiontransformer_tpu_torch.models.pan import PANConfig, pan_apply, pan_init
 from visiontransformer_tpu_torch.models.pspnet import (
     PSPNetConfig,
     pspnet_apply,
     pspnet_init,
+)
+from visiontransformer_tpu_torch.models.segformer import (
+    SegformerConfig,
+    segformer_apply,
+    segformer_init,
 )
 from visiontransformer_tpu_torch.models.unet import (
     ENCODER_PRESETS,
@@ -115,21 +129,18 @@ MODEL_FAMILIES = {
     "pan": ModelFamily(pan_init, pan_apply, PANConfig),
     "manet": ModelFamily(manet_init, manet_apply, MAnetConfig),
     "upernet": ModelFamily(upernet_init, upernet_apply, UPerNetConfig),
+    "segformer": ModelFamily(segformer_init, segformer_apply,
+                             SegformerConfig),
 }
-CONV_FAMILIES = tuple(name for name in MODEL_FAMILIES if name != "vitseg")
-# Families of the TPU package that wait for a later slice of the port.
-NOT_PORTED = {"segformer": "the MiT encoder and SegFormer decoder "
-                           "(ROADMAP queue 1, item 7)"}
+# The ten families on the shared GroupNorm encoder alone.
+CONV_FAMILIES = tuple(name for name in MODEL_FAMILIES
+                      if name not in ("vitseg", "segformer"))
 
 
 def get_model_family(name: str) -> ModelFamily:
     try:
         return MODEL_FAMILIES[name]
     except KeyError:
-        if name in NOT_PORTED:
-            raise NotImplementedError(
-                f"model family {name!r} is not ported yet: it waits for "
-                f"{NOT_PORTED[name]}") from None
         raise KeyError(f"unknown model family {name!r}; "
                        f"known: {sorted(MODEL_FAMILIES)}") from None
 
@@ -151,19 +162,26 @@ def vitseg_config(config_name: str, *, num_classes: int,
                         compute_dtype=compute_dtype)
 
 
+def encoder_presets(family: str) -> list:
+    """The encoder presets a non-vitseg family takes: ``ENCODER_PRESETS``,
+    and for segformer the MiT presets too."""
+    return sorted(ENCODER_PRESETS) + (
+        sorted(MIT_PRESETS) if family == "segformer" else [])
+
+
 def model_config(family: str, config_name: str, *, num_classes: int,
                  input_size: int = 224, compute_dtype: str = "bfloat16"):
     """The config of a named model: ``config_name`` is a sweep config or
-    ViT size preset for vitseg, an encoder preset (``ENCODER_PRESETS``)
-    for the conv families, which take any input size."""
+    ViT size preset for vitseg, an encoder preset (``encoder_presets``)
+    for the other families, which take any input size."""
     fam = get_model_family(family)
     if family == "vitseg":
         return vitseg_config(config_name, num_classes=num_classes,
                              input_size=input_size,
                              compute_dtype=compute_dtype)
-    if config_name not in ENCODER_PRESETS:
+    if config_name not in encoder_presets(family):
         raise KeyError(f"unknown encoder preset {config_name!r}; known: "
-                       f"{sorted(ENCODER_PRESETS)}")
+                       f"{encoder_presets(family)}")
     return fam.config_cls(encoder_name=config_name, num_classes=num_classes,
                           compute_dtype=compute_dtype)
 
@@ -176,7 +194,13 @@ def resolve_model(family: str, config_name: str, *, num_classes: int,
     """(cfg, model) for a named model of any ported family, in eval mode on
     ``device`` (None means CUDA; raises without it).
 
-    checkpoint_path: a directory is a port checkpoint (``ckpt/io.py``); its
+    checkpoint_path: for segformer, a directory holding a ``config.json``
+    is an HF ``save_pretrained`` directory of a
+    ``SegformerForSemanticSegmentation`` (``ckpt/hf_dir.py``): its MiT
+    preset (matched by geometry), class count and decode width replace
+    ``config_name``'s and ``num_classes``, the head takes the folded
+    BatchNorm (``head_norm="affine"``), as the TPU package's does. Any
+    other directory is a port checkpoint (``ckpt/io.py``); its
     ``params``, or the whole tree if it has none, load strictly. A path
     ending in ``.ckpt`` is a reference Lightning file
     (``ckpt/torch_convert.py``), for vitseg only: a conv family refuses
@@ -189,8 +213,18 @@ def resolve_model(family: str, config_name: str, *, num_classes: int,
     dev = resolve_device(device)
     cfg = model_config(family, config_name, num_classes=num_classes,
                        input_size=input_size, compute_dtype=compute_dtype)
-    params = (_checkpoint_params(checkpoint_path, family, cfg)
-              if checkpoint_path else None)
+    if family == "segformer" and checkpoint_path and is_hf_dir(
+            checkpoint_path):
+        hf_cfg, state = read_hf_segformer(checkpoint_path)
+        cfg = dataclasses.replace(
+            cfg, encoder_name=hf_cfg["encoder_name"], head_norm="affine",
+            num_classes=hf_cfg["num_labels"],
+            embed_channels=hf_cfg["decoder_hidden_size"])
+        params = conv_params_from_jax(convert_hf_segformer_seg_state(
+            state, cfg))
+    else:
+        params = (_checkpoint_params(checkpoint_path, family, cfg)
+                  if checkpoint_path else None)
     if params is None:
         model = get_model_family(family).init(
             torch.Generator().manual_seed(0), cfg)

@@ -32,10 +32,13 @@ import torch.nn.functional as F
 
 from visiontransformer_tpu_torch.nn.layers import (
     ParamTree,
+    _linear_w8a8,
     conv2d_init,
     conv2d_nchw,
+    conv2d_w8a8,
     depthwise_init,
 )
+from visiontransformer_tpu_torch.nn.layers import linear as dense
 from visiontransformer_tpu_torch.ops.resize import resize_bilinear
 
 # Encoder presets: (stage channels, blocks per stage, block kind), the TPU
@@ -104,14 +107,35 @@ class ConvSegModel(ParamTree):
         return self._apply_fn(self, images, **kwargs)
 
 
-def conv(params, x: torch.Tensor, *, stride: int = 1,
-         dilation: int = 1) -> torch.Tensor:
-    """The TPU package's ``conv2d(params, x)`` on NCHW activations."""
+def conv(params, x: torch.Tensor, *, stride: int = 1, dilation: int = 1,
+         padding: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """The TPU package's ``conv2d(params, x)`` on NCHW activations (SAME
+    padding, or ``padding`` on both sides); a W8A8 layer (``kernel_q``,
+    ``ops/quant.py``) runs ``conv2d_w8a8``, as the TPU package's dispatches
+    on the same key."""
+    if "kernel_q" in params:
+        return conv2d_w8a8(x, params["kernel_q"], params["kernel_scale"],
+                           params["bias"], stride=stride, dilation=dilation,
+                           padding=padding)
     return conv2d_nchw(x, params["kernel"], params["bias"], stride=stride,
-                       dilation=dilation)
+                       dilation=dilation, padding=padding)
 
 
-def _depthwise(params, x: torch.Tensor, *, stride: int = 1) -> torch.Tensor:
+def linear(params, x: torch.Tensor) -> torch.Tensor:
+    """The TPU package's ``linear(params, x)`` on (..., in) activations
+    with an (in, out) kernel; a W8A8 layer (``kernel_q``) runs
+    ``_linear_w8a8``."""
+    bias = params["bias"] if "bias" in params else None
+    if "kernel_q" in params:
+        return _linear_w8a8(x, params["kernel_q"], params["kernel_scale"],
+                            bias)
+    return dense(x, params["kernel"], bias)
+
+
+def _depthwise(params, x: torch.Tensor, *,
+                   stride: int = 1) -> torch.Tensor:
+    """Per-channel SAME convolution of NCHW x with a (C, 1, k, k) kernel
+    (the TPU package's ``depthwise``)."""
     return conv2d_nchw(x, params["kernel"], params["bias"], stride=stride,
                        groups=x.shape[1])
 

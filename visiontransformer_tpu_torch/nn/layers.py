@@ -12,14 +12,15 @@ names (``kernel``, ``bias``, ``scale``), so its parameter tree maps onto
 their state dict key for key (``ckpt/convert.py``).
 
 The conv families (``models/unet.py``) run NCHW with OIHW kernels:
-``conv2d_nchw`` pads as XLA's SAME does, ``conv2d_init`` and
+``conv2d_nchw`` pads as XLA's SAME does (or symmetrically, as MiT's patch
+embeddings ask), ``conv2d_w8a8`` is its W8A8 form, ``conv2d_init`` and
 ``depthwise_init`` draw their parameters, and ``ParamTree`` holds a
 family's parameter tree under the TPU package's names.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -72,12 +73,21 @@ def int8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch._int_mm(padded, b)[:m]
 
 
+def div127(t: torch.Tensor) -> torch.Tensor:
+    """t / 127 as a true division on every device. PyTorch's CUDA division
+    by a Python scalar multiplies by its reciprocal instead, which moves
+    the quotient by up to one ulp from the CPU's (and the TPU package's
+    op-by-op) division, and with it the int8 rounding of every value near
+    a rounding boundary; a divisor on t's device is divided by."""
+    return t / torch.full((), 127.0, dtype=t.dtype, device=t.device)
+
+
 def quantize_per_token(x: torch.Tensor):
     """(int8 x, fp32 per-token scales): s_x = max|x| / 127 over the last
     axis in fp32 (at least 1e-12), x / s_x rounded half to even and
     clipped to +-127."""
     x32 = x.float()
-    s_x = torch.clamp(x32.abs().amax(dim=-1, keepdim=True) / 127.0,
+    s_x = torch.clamp(div127(x32.abs().amax(dim=-1, keepdim=True)),
                       min=1e-12)
     return torch.clamp(torch.round(x32 / s_x), -127, 127).to(torch.int8), s_x
 
@@ -153,25 +163,133 @@ def conv2d(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor, *,
     return y.permute(0, 2, 3, 1) + bias.to(y.dtype)
 
 
-def conv2d_nchw(x: torch.Tensor, kernel: torch.Tensor,
-                bias: Optional[torch.Tensor] = None, *, stride: int = 1,
-                dilation: int = 1, groups: int = 1) -> torch.Tensor:
-    """NCHW convolution with an OIHW kernel and XLA's SAME padding: the
-    padding of ``_same_padding``, which is asymmetric where the total is odd
-    (k = 3, stride 2 on an even size pads (0, 1)), so it is applied by
-    ``F.pad`` then, and by the convolution itself where it is symmetric.
-    The bias is added inside the convolution, in the activation dtype."""
-    kh, kw = kernel.shape[2], kernel.shape[3]
+def _conv_padding(x: torch.Tensor, kh: int, kw: int, stride: int,
+                  dilation: int, padding: Optional[Tuple[int, int]]):
+    """(x, padding for the convolution): ``padding`` (rows, columns) pads
+    both sides alike; None is XLA's SAME, ``_same_padding``, asymmetric where
+    the total is odd (k = 3, stride 2 on an even size pads (0, 1)), so
+    applied by ``F.pad`` then and by the convolution where symmetric."""
+    if padding is not None:
+        return x, tuple(padding)
     top, bottom = _same_padding(x.shape[2], kh, stride, dilation)
     left, right = _same_padding(x.shape[3], kw, stride, dilation)
-    padding = (top, left)
     if (top, left) != (bottom, right):
-        x = F.pad(x, (left, right, top, bottom))
-        padding = (0, 0)
+        return F.pad(x, (left, right, top, bottom)), (0, 0)
+    return x, (top, left)
+
+
+def conv2d_nchw(x: torch.Tensor, kernel: torch.Tensor,
+                bias: Optional[torch.Tensor] = None, *, stride: int = 1,
+                dilation: int = 1, groups: int = 1,
+                padding: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """NCHW convolution with an OIHW kernel, XLA's SAME padding unless
+    ``padding`` (rows, columns) asks for symmetric explicit padding (MiT's
+    patch embeddings pad k // 2 on each side, which SAME does not: k = 7 at
+    stride 4 on 224 pads (1, 2)). The bias is added inside the
+    convolution, in the activation dtype."""
+    x, padding = _conv_padding(x, kernel.shape[2], kernel.shape[3], stride,
+                               dilation, padding)
     return F.conv2d(x, kernel.to(x.dtype),
                     None if bias is None else bias.to(x.dtype),
                     stride=stride, padding=padding, dilation=dilation,
                     groups=groups)
+
+
+def quantize_per_sample(x: torch.Tensor):
+    """(int8 x, fp32 scales of shape (B, 1, 1, 1)) for NCHW activations:
+    one scale a sample, s_x = max|x| / 127 over (C, H, W) in fp32 (at least
+    1e-12), x / s_x rounded half to even and clipped to +-127. A conv's
+    output pixel reduces over H, W and C, so one sample is the finest
+    dynamic granularity its dequantization allows."""
+    x32 = x.float()
+    s_x = torch.clamp(div127(x32.abs().amax(dim=(1, 2, 3), keepdim=True)),
+                      min=1e-12)
+    return torch.clamp(torch.round(x32 / s_x), -127, 127).to(torch.int8), s_x
+
+
+def int8_conv_plain(xq: torch.Tensor, kernel_q: torch.Tensor, *,
+                    stride: int = 1, dilation: int = 1,
+                    padding: Optional[Tuple[int, int]] = None
+                    ) -> torch.Tensor:
+    """(B, C, H, W) int8 conv (O, C, kh, kw) int8 -> int32, in float64,
+    which holds every partial sum exactly (|sum| <= 127^2 C kh kw < 2^53)."""
+    x, pad = _conv_padding(xq.double(), kernel_q.shape[2], kernel_q.shape[3],
+                           stride, dilation, padding)
+    return F.conv2d(x, kernel_q.double(), stride=stride, padding=pad,
+                    dilation=dilation).to(torch.int32)
+
+
+def _round_up8(n: int) -> int:
+    return -(-n // 8) * 8
+
+
+def int8_conv(xq: torch.Tensor, kernel_q: torch.Tensor, *, stride: int = 1,
+              dilation: int = 1, padding: Optional[Tuple[int, int]] = None
+              ) -> torch.Tensor:
+    """(B, C, H, W) int8 conv (O, C, kh, kw) int8 -> (B, O, Ho, Wo) int32.
+    On CUDA: ``int8_conv_gemm`` with cuBLASLt's int8 product
+    (``int8_matmul``). On the CPU: ``int8_conv_plain``."""
+    if xq.dtype != torch.int8 or kernel_q.dtype != torch.int8 \
+            or xq.dim() != 4 or kernel_q.dim() != 4 \
+            or xq.shape[1] != kernel_q.shape[1]:
+        raise ValueError(f"int8_conv takes (B, C, H, W) and (O, C, kh, kw) "
+                         f"int8, got {tuple(xq.shape)} {xq.dtype}, "
+                         f"{tuple(kernel_q.shape)} {kernel_q.dtype}")
+    if not xq.is_cuda:
+        return int8_conv_plain(xq, kernel_q, stride=stride,
+                               dilation=dilation, padding=padding)
+    return int8_conv_gemm(xq, kernel_q, int8_matmul, stride=stride,
+                          dilation=dilation, padding=padding)
+
+
+def int8_conv_gemm(xq: torch.Tensor, kernel_q: torch.Tensor, matmul, *,
+                   stride: int = 1, dilation: int = 1,
+                   padding: Optional[Tuple[int, int]] = None
+                   ) -> torch.Tensor:
+    """The int8 convolution as one (M, K) x (K, N) int8 -> int32 product,
+    ``matmul``: the padded input unfolded into (B·Ho·Wo, C·kh·kw) rows (a
+    reshape for a 1x1 conv at stride 1; else ``F.unfold`` of a bf16 copy,
+    exact for |v| <= 127, cast back to int8) against the kernel as (C·kh·kw,
+    O), column-major as a view of the OIHW kernel. K and O short of a
+    multiple of 8 (``torch._int_mm``'s rule) get zero columns, whose
+    products add nothing."""
+    o, c, kh, kw = kernel_q.shape
+    x, pad = _conv_padding(xq, kh, kw, stride, dilation, padding)
+    b = x.shape[0]
+    ho = (x.shape[2] + 2 * pad[0] - dilation * (kh - 1) - 1) // stride + 1
+    wo = (x.shape[3] + 2 * pad[1] - dilation * (kw - 1) - 1) // stride + 1
+    if (kh, kw, stride) == (1, 1, 1) and pad == (0, 0):
+        rows = x.permute(0, 2, 3, 1).reshape(b * ho * wo, c)
+    else:
+        cols = F.unfold(x.to(torch.bfloat16), (kh, kw), dilation=dilation,
+                        padding=pad, stride=stride)  # (B, C·kh·kw, L)
+        rows = cols.transpose(1, 2).reshape(b * ho * wo, c * kh * kw).to(
+            torch.int8)
+    w = kernel_q.reshape(o, c * kh * kw).t()
+    k, n = _round_up8(w.shape[0]), _round_up8(o)
+    if (k, n) != tuple(w.shape):
+        rows = F.pad(rows, (0, k - w.shape[0]))
+        w = F.pad(w.t(), (0, k - w.shape[0], 0, n - o)).t()
+    acc = matmul(rows.contiguous(), w)[:, :o]
+    return acc.reshape(b, ho, wo, o).permute(0, 3, 1, 2)
+
+
+def conv2d_w8a8(x: torch.Tensor, kernel_q: torch.Tensor,
+                kernel_scale: torch.Tensor,
+                bias: Optional[torch.Tensor] = None, *, stride: int = 1,
+                dilation: int = 1,
+                padding: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """The TPU package's W8A8 convolution (``_conv2d_w8a8``) on NCHW
+    activations and an OIHW int8 kernel: per-sample int8 activations
+    (``quantize_per_sample``), the exact int32 convolution (``int8_conv``),
+    then acc * s_x * kernel_scale + bias in fp32, cast to x's dtype."""
+    xq, s_x = quantize_per_sample(x)
+    acc = int8_conv(xq, kernel_q, stride=stride, dilation=dilation,
+                    padding=padding)
+    y = acc.float() * s_x * kernel_scale.reshape(1, -1, 1, 1)
+    if bias is not None:
+        y = y + bias.reshape(1, -1, 1, 1)
+    return y.to(x.dtype)
 
 
 def depthwise(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor, *,

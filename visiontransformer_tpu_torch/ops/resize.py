@@ -58,12 +58,18 @@ def _matrix_on(out_size: int, in_size: int, device: str) -> torch.Tensor:
     return torch.from_numpy(bilinear_matrix(out_size, in_size)).to(device)
 
 
-def _matrix(out_size: int, in_size: int, device) -> torch.Tensor:
-    # torch.export traces with fake tensors: a matrix made while it traces
-    # is a constant of the program and must not enter the cache.
+def cached_table(cached, *args):
+    """``cached(*args)`` from a per-shape ``lru_cache``, but made afresh
+    while ``torch.export`` traces: the tracer's tensors are fake, and a
+    table made then is a constant of the program that must not enter the
+    cache."""
     if torch.compiler.is_exporting():
-        return torch.from_numpy(bilinear_matrix(out_size, in_size)).to(device)
-    return _matrix_on(out_size, in_size, str(device))
+        return cached.__wrapped__(*args)
+    return cached(*args)
+
+
+def _matrix(out_size: int, in_size: int, device) -> torch.Tensor:
+    return cached_table(_matrix_on, out_size, in_size, str(device))
 
 
 def resize_bilinear_mm(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
@@ -112,8 +118,10 @@ def _nearest_on(kind: str, out_size: int, in_size: int,
 def _resize_nearest(kind: str, x: torch.Tensor, size: Tuple[int, int],
                     h_axis: int, w_axis: int) -> torch.Tensor:
     h_axis, w_axis = h_axis % x.dim(), w_axis % x.dim()
-    rows = _nearest_on(kind, size[0], x.shape[h_axis], str(x.device))
-    cols = _nearest_on(kind, size[1], x.shape[w_axis], str(x.device))
+    rows = cached_table(_nearest_on, kind, size[0], x.shape[h_axis],
+                        str(x.device))
+    cols = cached_table(_nearest_on, kind, size[1], x.shape[w_axis],
+                        str(x.device))
     return torch.index_select(torch.index_select(x, h_axis, rows), w_axis,
                               cols)
 
@@ -162,7 +170,8 @@ def resize_bilinear(x: torch.Tensor, size: Tuple[int, int],
     orig_dtype = x.dtype
     x = x.float()
     for axis, out in ((h_axis, size[0]), (w_axis, size[1])):
-        lo, hi, w = _linear_on(out, x.shape[axis], str(x.device))
+        lo, hi, w = cached_table(_linear_on, out, x.shape[axis],
+                                 str(x.device))
         shape = [1] * x.dim()
         shape[axis] = out
         a = torch.index_select(x, axis, lo)

@@ -23,7 +23,14 @@ every variant at batch 32 on 512² inputs, best of rounds of 20 forwards
 with the masks' readback, the variants in turns in one process.
 
     python -m visiontransformer_tpu_torch.scripts.optin_quality \\
-        [--samples 240] [--epochs 60] [--test-samples 36] [--out FILE]
+        [--samples 240] [--epochs 60] [--test-samples 36] [--out FILE] \\
+        [--layer-errors]
+
+``--layer-errors`` also runs every W8A8 linear of the int8 model on the
+host, on the activations the served forward of the first held-out batch
+gave it on the device, and reports each layer's int32 accumulators (equal
+or not) and its largest output error, absolute and in units of the
+output dtype's last place (``layer_errors``, the worst layer first).
 
 The defaults are the JAX script's sizes (QUANTQ_SAMPLES, QUANTQ_EPOCHS).
 ``--device cpu`` with a small ``--config``/``--image-size``/``--in-size``
@@ -54,6 +61,12 @@ from visiontransformer_tpu_torch.metrics.segmentation import (
     pixel_accuracy_percent,
 )
 from visiontransformer_tpu_torch.models.registry import vitseg_config
+from visiontransformer_tpu_torch.nn.layers import (
+    LinearW8A8,
+    _linear_w8a8,
+    int8_matmul,
+    quantize_per_token,
+)
 from visiontransformer_tpu_torch.models.vitseg import (
     set_token_merge_r,
     vitseg_build_fused_preproc,
@@ -86,6 +99,8 @@ def _args(argv):
                    help="rounds of the masks/s A/B (0: not measured)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.add_argument("--out", default="", help="also write the JSON here")
+    p.add_argument("--layer-errors", action="store_true",
+                   help="each W8A8 linear on the device against the host")
     return p.parse_args(argv)
 
 
@@ -125,7 +140,8 @@ def _held_out(root: str, n: int, size: int, unique_values: np.ndarray):
 
 
 def _forwards(model, in_size: int):
-    """name -> f(uint8 (B, in, in, 3) on the device) -> uint8 masks."""
+    """(name -> f(uint8 (B, in, in, 3) on the device) -> uint8 masks, the
+    int8 model that "int8" serves)."""
     size = (in_size, in_size)
     compute = (model.cfg.vit.image_size,) * 2
 
@@ -147,10 +163,54 @@ def _forwards(model, in_size: int):
     consts = vitseg_build_fused_preproc(model, in_size=in_size,
                                         mean=(0.0,) * 3, std=(1.0,) * 3,
                                         input_scale=1.0 / 255.0)
-    return {"exact": serve(model), "int8": serve(quantize_vitseg(model)),
+    int8 = quantize_vitseg(model)
+    return {"exact": serve(model), "int8": serve(int8),
             "r8": merged(8), "r16": merged(16),
             "fused": lambda raw: vitseg_predict_fused(
-                model, consts, raw, out_size=size, mask_dtype=torch.uint8)}
+                model, consts, raw, out_size=size, mask_dtype=torch.uint8)
+            }, int8
+
+
+def _layer_errors(forward, int8_model, raw: torch.Tensor) -> list:
+    """Each ``LinearW8A8`` of ``int8_model``, on the inputs ``forward(raw)``
+    gave it, against the same layer on the host: one dict a layer, the
+    largest ulp error first."""
+    seen = {}
+    layers = {n: m for n, m in int8_model.named_modules()
+              if isinstance(m, LinearW8A8)}
+
+    def keep(name):
+        def hook(module, args, out):
+            seen.setdefault(name, (args[0], out))
+        return hook
+
+    hooks = [m.register_forward_hook(keep(name))
+             for name, m in layers.items()]
+    try:
+        forward(raw)
+    finally:
+        for h in hooks:
+            h.remove()
+    rows = []
+    for name, (x, y) in seen.items():
+        m = layers[name]
+        host = [t.cpu() for t in (x, m.kernel_q, m.kernel_scale)]
+        bias = None if m.bias is None else m.bias.cpu()
+        acc = [int8_matmul(q.reshape(-1, q.shape[-1]), w) for q, w in (
+            (quantize_per_token(x)[0], m.kernel_q),
+            (quantize_per_token(host[0])[0], host[1]))]
+        y_host = _linear_w8a8(*host, bias).float()
+        err = (y.float().cpu() - y_host).abs()
+        # One unit in the last place of each host output, in y's dtype.
+        ulp = torch.exp2(torch.floor(torch.log2(y_host.abs().clamp_min(
+            torch.finfo(y.dtype).tiny)))) * torch.finfo(y.dtype).eps
+        rows.append({"layer": name, "x_shape": list(x.shape),
+                     "dtype": str(x.dtype).replace("torch.", ""),
+                     "kernel_shape": list(m.kernel_q.shape),
+                     "acc_equal": bool(torch.equal(acc[0].cpu(), acc[1])),
+                     "max_abs_err": float(err.max()),
+                     "max_ulp": float((err / ulp).max())})
+    return sorted(rows, key=lambda r: -r["max_ulp"])
 
 
 def _score(pred: torch.Tensor, gt: torch.Tensor, num_classes: int):
@@ -223,7 +283,7 @@ def main(argv=None) -> int:
               "epochs": args.epochs, "train_s": train_s, **_card(device)}
     gt = torch.from_numpy(gt).to(device)
     with torch.inference_mode():
-        forwards = _forwards(model, args.in_size)
+        forwards, int8_model = _forwards(model, args.in_size)
         masks = {}
         for name in VARIANTS:
             masks[name] = torch.cat([
@@ -238,6 +298,17 @@ def main(argv=None) -> int:
                             "miou": miou}
             print(f"{name:>8} {agree:>8.4f} {acc:>9.2f} {miou:>7.4f}",
                   flush=True)
+
+        if args.layer_errors:
+            rows = _layer_errors(forwards["int8"], int8_model,
+                                 torch.from_numpy(images[:args.batch])
+                                 .to(device))
+            result["layer_errors"] = rows
+            for r in rows[:5]:
+                print(f"layer {r['layer']} x{r['x_shape']} {r['dtype']}: "
+                      f"acc_equal={r['acc_equal']} max_abs_err="
+                      f"{r['max_abs_err']} max_ulp={r['max_ulp']}",
+                      flush=True)
 
         gen = torch.Generator(device=device).manual_seed(0)
         raw = torch.randint(0, 256, (SPEED_BATCH, args.in_size,

@@ -40,7 +40,10 @@ from visiontransformer_tpu_torch.models.vitseg import (
 )
 from visiontransformer_tpu_torch.native import available as native_available
 from visiontransformer_tpu_torch.native import detections as native_detections
-from visiontransformer_tpu_torch.ops.quant import quantize_vit_
+from visiontransformer_tpu_torch.ops.quant import (
+    quantize_conv_model_,
+    quantize_vit_,
+)
 from visiontransformer_tpu_torch.serve.store import JobStore
 from visiontransformer_tpu_torch.visualize import class_color_table, colorize
 
@@ -55,12 +58,12 @@ class ModelRunner:
     input_size``: on a CUDA device it runs the flash-attention and fused
     upsample+argmax kernels. For a conv family it is the family's apply
     and ``torch.argmax`` (no kernel of the port's on that path, as no
-    Pallas kernel is on the TPU runner's). The row's opt-ins apply at
-    load, as in the TPU runner: ``token_merge_r`` (ToMe merging, vitseg
-    only) and ``quantize == "int8"`` (W8A8 encoder linears; a conv row
-    asking for it raises until the conv half of W8A8 is ported, rather
-    than serve unquantized weights under it). ``device=None`` means CUDA
-    and raises without it."""
+    Pallas kernel is on the TPU runner's); segformer is served the same
+    way. The row's opt-ins apply at load, as in the TPU runner:
+    ``token_merge_r`` (ToMe merging, vitseg only) and ``quantize ==
+    "int8"`` (W8A8: vitseg's encoder linears, the tree quantizer's linears
+    and interior convs for every other family). ``device=None`` means
+    CUDA and raises without it."""
 
     def __init__(self, model_row: Dict, *, compute_dtype: str = "bfloat16",
                  buckets: Sequence[int] = BUCKETS, device=None):
@@ -68,11 +71,6 @@ class ModelRunner:
         self.buckets = tuple(sorted(buckets))
         self.input_size = model_row["input_size"]
         self.family = model_row.get("model_family") or "vitseg"
-        if model_row.get("quantize") == "int8" and self.family != "vitseg":
-            raise NotImplementedError(
-                f"quantize='int8' for the {self.family!r} family: W8A8 of "
-                f"the conv families (the conv half of ops/quant.py, ROADMAP "
-                f"queue 1, item 7) is not ported yet")
         self.cfg, self.model = resolve_model(
             self.family, model_row["config_name"],
             num_classes=model_row["num_classes"],
@@ -85,9 +83,13 @@ class ModelRunner:
             # same weights, tokens merged after every block.
             self.cfg = set_token_merge_r(self.model, merge_r)
         if model_row.get("quantize") == "int8":
-            # The row's W8A8 opt-in: the encoder linears quantized once,
-            # here, in place (ops/quant.py).
-            quantize_vit_(self.model.backbone)
+            # The row's W8A8 opt-in, quantized once, here, in place
+            # (ops/quant.py): vitseg's encoder linears, the other
+            # families' linears and interior convs.
+            if self.family == "vitseg":
+                quantize_vit_(self.model.backbone)
+            else:
+                quantize_conv_model_(self.model)
         self.color_table = class_color_table(None, self.cfg.num_classes)
         # uint8 in / uint8 out: the /255 runs on the device (uint8 -> fp32
         # then /255, as the TPU runner does); masks fit uint8 whenever

@@ -18,9 +18,9 @@ not saved: a resumed run trains at the restored learning rate until its
 first monitored epoch, where a fresh ``PlateauScheduler`` sets
 ``learning_rate`` again, as the TPU package's does.
 
-``model`` names the family (``models/registry.py``): vitseg or one of the
-ten conv families, whose configs the trainer takes as the TPU package's
-does. ``TrainConfig.remat`` turns on ``ViTConfig.remat`` (per-block
+``model`` names the family (``models/registry.py``): vitseg, one of the
+ten conv families or segformer, whose configs the trainer takes as the TPU
+package's does. ``TrainConfig.remat`` turns on ``ViTConfig.remat`` (per-block
 activation checkpointing, ``models/vit.py``) for vitseg and is ignored for
 the other families, as the TPU package's trainer does. A
 W8A8-quantized model (``ops/quant.py``) is refused: rounding has no
