@@ -193,13 +193,33 @@ failure:
              the segformer row and both int8 rows registered and served
              over HTTP (each mask equals ModelRunner.predict's); no launch
              of kernels 1-9 in the phase.
+16. reports_tools  the train command on ViT-B/16 (17 classes, the CE
+             defaults: bf16, batch 16 = 4 x 4, dropout 0.1) for one epoch
+             of 10 steps over a 224^2 synthetic set, with --ckpt-dir,
+             --logs and --profile-dir: launches of kernels 2-4 (12 x 4 a
+             step) and 1 (validation) counted; the torch.profiler trace of
+             steps 2-5 holds 48 launches of each of kernels 2, 3 and 4 a
+             step by their names on the card, and none of kernel 1; the
+             tfevents file's records carry valid masked CRC-32Cs and its
+             (tag, step) pairs equal the CSV's epoch rows (read by a
+             TFRecord reader of this script); host ms of a traced and an
+             untraced step. doctor exits 0 and names the card and the nine
+             kernels as built. demo from the checkpoint just written on a
+             PNG of the set (12 launches of kernel 1); the fp32 mask
+             (TF32 off) of predict_image on the card against the CPU's,
+             flips only on logit ties, detections equal where the masks
+             are; the bf16 forward's device ms. eval-sweep --visualize, one
+             config, two batches: 2 x 12 launches of kernel 1 and the 8
+             panel PNGs. Without matplotlib, predict_image and
+             evaluate_model run without drawing, and the line says so.
 
 Then it prints the card's name and power limit as nvidia-smi gives them,
 one JSON line describing every kernel (launches of the serving kernels
 counted during the serving run, of the training kernels during the train
 run, of the sweep kernels during the two sweeps; kernels 1-5 also with
 their launches on the paths of phases 10, 11, 12 and 13; kernels 1-9 with
-their launches in phases 14 and 15, which must be 0), and, last,
+their launches in phases 14 and 15, which must be 0, and in phase 16),
+and, last,
 {"ok": true, "device": {...}}.
 Without CUDA it exits with code 1 and prints no result.
 
@@ -3422,6 +3442,339 @@ def phase_segformer_export_int8():
     return result
 
 
+# Phase 16: the CE defaults' epoch (16 images a step), long enough for
+# the trace of steps 2-5 and untraced steps after it.
+REPORTS_STEPS = 10
+REPORTS_CONFIG = "P16H768A12"
+# Kernels 2-4 in the profiler's trace, by the names the card gives them:
+# the training forward is fwd_*_kernel<..., true> (kTrain), kernel 1 the
+# same with false.
+TRACE_KERNELS = {
+    "flash_attention_fwd": r"fwd_\w*kernel<[^>]*false>",
+    "flash_attention_fwd_train": r"fwd_\w*kernel<[^>]*true>",
+    "flash_attention_bwd_dq": r"dq_\w*kernel",
+    "flash_attention_bwd_dkv": r"dkv_\w*kernel",
+}
+# fp32 logits on the card (TF32 off) and on the CPU each sit within the
+# seg-logit tolerance (5e-5) of the true value: an argmax may flip between
+# them only where the two top logits are within twice that.
+DEMO_TIE_TOL = 2 * LOGITS_TOL[0]
+
+
+def _crc32c(data: bytes) -> int:
+    crc = 0xFFFFFFFF
+    for byte in data:
+        crc ^= byte
+        for _ in range(8):
+            crc = (crc >> 1) ^ (0x82F63B78 if crc & 1 else 0)
+    return crc ^ 0xFFFFFFFF
+
+
+def _masked(crc: int) -> int:
+    return (((crc >> 15) | (crc << 17)) + 0xA282EAD8) & 0xFFFFFFFF
+
+
+def _proto_fields(buf: bytes):
+    """(field number, wire type, value) of a protobuf message: varints
+    and fixed64/32 as raw bytes or ints, length-delimited as bytes."""
+    pos = 0
+
+    def varint():
+        nonlocal pos
+        shift = value = 0
+        while True:
+            b = buf[pos]
+            pos += 1
+            value |= (b & 0x7F) << shift
+            shift += 7
+            if not b & 0x80:
+                return value
+
+    while pos < len(buf):
+        key = varint()
+        field, wire = key >> 3, key & 7
+        if wire == 0:
+            yield field, wire, varint()
+        elif wire == 1:
+            yield field, wire, buf[pos:pos + 8]
+            pos += 8
+        elif wire == 5:
+            yield field, wire, buf[pos:pos + 4]
+            pos += 4
+        elif wire == 2:
+            n = varint()
+            yield field, wire, buf[pos:pos + n]
+            pos += n
+        else:
+            raise AssertionError(f"protobuf wire type {wire}")
+
+
+def read_tfevents(path: str) -> list:
+    """(tag, step, value) of each scalar of a tfevents file, every record's
+    masked CRC-32C of its length and payload checked (TFRecord framing;
+    Event.step 2, Event.summary 5, Summary.value 1, Value.tag 1,
+    Value.simple_value 2)."""
+    import struct
+
+    with open(path, "rb") as f:
+        data = f.read()
+    out, pos, records = [], 0, 0
+    while pos < len(data):
+        header = data[pos:pos + 8]
+        (n,) = struct.unpack("<Q", header)
+        payload = data[pos + 12:pos + 12 + n]
+        if (struct.unpack("<I", data[pos + 8:pos + 12])[0]
+                != _masked(_crc32c(header))
+                or struct.unpack("<I", data[pos + 12 + n:pos + 16 + n])[0]
+                != _masked(_crc32c(payload))):
+            raise AssertionError(f"{path}: record {records} has a bad CRC")
+        pos, records = pos + 16 + n, records + 1
+        fields = list(_proto_fields(payload))
+        step = next((v for f, w, v in fields if f == 2 and w == 0), 0)
+        for summary in (v for f, w, v in fields if f == 5 and w == 2):
+            for value in (v for f, w, v in _proto_fields(summary) if f == 1):
+                vf = {f: v for f, w, v in _proto_fields(value)}
+                out.append((vf[1].decode(), step,
+                            struct.unpack("<f", vf[2])[0]))
+    return out
+
+
+def _trace_kernels(profile_dir: str) -> tuple:
+    """(launches of kernels 1-4 by their names in the trace, the traced
+    step ranges' host ms, the distinct kernel names matched)."""
+    import glob
+    import re
+
+    (path,) = glob.glob(os.path.join(profile_dir, "*.pt.trace.json"))
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    counts = {name: 0 for name in TRACE_KERNELS}
+    matched = set()
+    steps = {}
+    for e in events:
+        name = str(e.get("name", ""))
+        if e.get("cat") == "kernel":
+            for kernel, pattern in TRACE_KERNELS.items():
+                if re.search(pattern, name):
+                    counts[kernel] += 1
+                    matched.add(name[:120])
+        elif (name.startswith("train_step_")
+              and e.get("cat") == "user_annotation"):
+            steps[int(name.rsplit("_", 1)[1])] = e["dur"] / 1e3
+    return counts, steps, sorted(matched), os.path.getsize(path)
+
+
+def phase_reports_tools():
+    """Phase 16: the train command with --profile-dir (the trace and the
+    tfevents log), doctor, demo and eval-sweep --visualize on ViT-B/16."""
+    import csv
+    import glob
+    import importlib.util
+
+    from visiontransformer_tpu_torch.cli import main as cli_main
+    from visiontransformer_tpu_torch.configs import (
+        CE_TRAIN_DEFAULTS,
+        sweep_by_name,
+    )
+    from visiontransformer_tpu_torch.evaluation.demo import (
+        load_image,
+        make_predict_fn,
+        predict_image,
+    )
+    from visiontransformer_tpu_torch.evaluation.evaluate import sweep_model
+    from visiontransformer_tpu_torch.models.vitseg import vitseg_apply
+    from visiontransformer_tpu_torch.train.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    rendering = importlib.util.find_spec("matplotlib") is not None
+    entry = sweep_by_name(REPORTS_CONFIG)
+    layers = entry.hidden_layers
+    tcfg = CE_TRAIN_DEFAULTS
+    batch, accum = tcfg.batch_size, tcfg.accumulate_grad_batches
+    reset, read = _kernel_launch_counts()
+    result = {"config": REPORTS_CONFIG, "classes": 17, "batch": batch,
+              "accumulate": accum, "steps": REPORTS_STEPS,
+              "rendering": "matplotlib" if rendering
+              else "matplotlib absent"}
+    with tempfile.TemporaryDirectory() as tmp:
+        data = f"{tmp}/data"
+        _synthetic_ce_set(data, REPORTS_STEPS * batch)
+        ckpt_root, prof, logs = f"{tmp}/ckpts", f"{tmp}/prof", f"{tmp}/logs"
+
+        # ---- 1. train --profile-dir, at the CE defaults
+        host_ms = []
+        step_fn = Trainer.train_step
+
+        def timed_step(self, *args, **kwargs):
+            t0 = time.perf_counter()
+            out = step_fn(self, *args, **kwargs)
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        Trainer.train_step = timed_step
+        reset()
+        try:
+            rc = cli_main([
+                "train", "--data", data, "--config", REPORTS_CONFIG,
+                "--no-split", "--batch-size", str(batch), "--accumulate",
+                str(accum), "--max-epochs", "1", "--logs", logs,
+                "--ckpt-dir", f"{ckpt_root}/{REPORTS_CONFIG}",
+                "--profile-dir", prof, "--cache-data", "--device", "cuda"])
+            torch.cuda.synchronize()
+        finally:
+            Trainer.train_step = step_fn
+        launches = read()
+        per_step = layers * accum
+        want = {k: 0 for k in launches}
+        # --no-split: validation runs over the same images, one inference
+        # forward a batch.
+        want.update(flash_attention_fwd=layers * REPORTS_STEPS,
+                    flash_attention_fwd_train=per_step * REPORTS_STEPS,
+                    flash_attention_bwd_dq=per_step * REPORTS_STEPS,
+                    flash_attention_bwd_dkv=per_step * REPORTS_STEPS)
+        if rc != 0 or launches != want or len(host_ms) != REPORTS_STEPS:
+            raise AssertionError(f"train: rc {rc}, launches {launches}, "
+                                 f"expected {want}, {len(host_ms)} steps")
+        traced, trace_steps, names, trace_bytes = _trace_kernels(prof)
+        want_traced = {"flash_attention_fwd": 0,
+                       **{k: per_step * 4 for k in TRACE_KERNELS
+                          if k != "flash_attention_fwd"}}
+        if traced != want_traced or sorted(trace_steps) != [2, 3, 4, 5]:
+            raise AssertionError(f"trace: kernels {traced} (expected "
+                                 f"{want_traced}, names {names}), steps "
+                                 f"{sorted(trace_steps)}")
+        (metrics_csv,) = glob.glob(f"{logs}/*/version_0/metrics.csv")
+        with open(metrics_csv) as f:
+            rows = [r for r in csv.DictReader(f) if r["train_loss"]]
+        csv_pairs = sorted((k, int(r["step"])) for r in rows
+                           for k, v in r.items()
+                           if v and k not in ("epoch", "step"))
+        (events,) = glob.glob(os.path.join(os.path.dirname(metrics_csv),
+                                           "events.out.tfevents.*"))
+        scalars = read_tfevents(events)
+        if sorted((t, s) for t, s, _ in scalars) != csv_pairs:
+            raise AssertionError(f"tfevents {scalars} against the CSV's "
+                                 f"epoch rows {csv_pairs}")
+        untraced = host_ms[6:]
+        result["train"] = {
+            "launches": launches, "trace_launches": traced,
+            "trace_kernel_names": names, "trace_bytes": trace_bytes,
+            "trace_step_range_ms": trace_steps,
+            "step_host_ms": host_ms,
+            "traced_step_host_ms": float(np.median(host_ms[2:6])),
+            "untraced_step_host_ms": float(np.median(untraced)),
+            "tfevents_scalars": len(scalars),
+            "losses": [float(r["train_loss"]) for r in rows]}
+
+        # ---- 2. doctor
+        proc = subprocess.run(
+            [sys.executable, "-m", "visiontransformer_tpu_torch", "doctor"],
+            capture_output=True, text=True, timeout=600,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        report = json.loads(proc.stdout) if proc.returncode == 0 else {}
+        if (proc.returncode != 0
+                or report.get("device") != torch.cuda.get_device_name(0)
+                or set(report["kernels"].values()) != {"built"}
+                or len(report["kernels"]) != 9):
+            raise AssertionError(f"doctor: rc {proc.returncode}\n"
+                                 f"{proc.stdout}\n{proc.stderr[-2000:]}")
+        result["doctor"] = {k: report[k] for k in (
+            "device", "device_count", "torch", "cuda_runtime", "nvcc",
+            "native_lib", "device_check")}
+
+        # ---- 3. demo from the checkpoint just written
+        image_path = sorted(glob.glob(f"{data}/image_png/*.png"))[0]
+        demo_out = f"{tmp}/demo"
+        if rendering:
+            reset()
+            rc = cli_main(["demo", "--image", image_path, "--configs",
+                           REPORTS_CONFIG, "--ckpt-root", ckpt_root,
+                           "--out", demo_out, "--device", "cuda"])
+            demo_launches = read()
+            if rc != 0 or not os.path.exists(
+                    f"{demo_out}/demo_{REPORTS_CONFIG}.png"):
+                raise AssertionError(f"demo: rc {rc}")
+        image = load_image(image_path)
+        cfg16, model16 = sweep_model(entry, num_classes=17,
+                                     checkpoint_root=ckpt_root,
+                                     device="cuda")
+        if not rendering:
+            reset()
+            predict_image(model16, cfg16, image)
+            demo_launches = read()
+        want = {k: 0 for k in demo_launches}
+        want["flash_attention_fwd"] = layers
+        if demo_launches != want:
+            raise AssertionError(f"demo launches {demo_launches}, "
+                                 f"expected {want}")
+        x = torch.from_numpy(image[None]).cuda()
+        predict = make_predict_fn(cfg16)
+        demo = {"launches": demo_launches,
+                "bf16_forward": _forward_ms(lambda: predict(model16, x))}
+        del model16
+        with _no_tf32():
+            masks = {}
+            for device in ("cuda", "cpu"):
+                cfg32, model32 = sweep_model(
+                    entry, num_classes=17, checkpoint_root=ckpt_root,
+                    compute_dtype="float32", device=device)
+                masks[device] = predict_image(model32, cfg32, image)
+            with torch.no_grad():
+                cpu_logits = vitseg_apply(model32, torch.from_numpy(
+                    image[None]))[0]
+            got = torch.from_numpy(masks["cuda"]["mask"])
+            want_mask = torch.from_numpy(masks["cpu"]["mask"])
+            flips, gap = ties_explained(cpu_logits, got, want_mask,
+                                        DEMO_TIE_TOL)
+            if not flips and (masks["cuda"]["detections"]
+                              != masks["cpu"]["detections"]):
+                raise AssertionError("demo: equal masks, unequal "
+                                     "detections")
+        demo.update(fp32_flips=flips, fp32_flip_gap=gap,
+                    classes=masks["cuda"]["classes"],
+                    detections=len(masks["cuda"]["detections"]))
+        result["demo"] = demo
+
+        # ---- 4. eval-sweep --visualize, one config, two batches
+        out = f"{tmp}/sweep"
+        reset()
+        if rendering:
+            rc = cli_main(["eval-sweep", "--data", data, "--no-split",
+                           "--configs", REPORTS_CONFIG, "--ckpt-root",
+                           ckpt_root, "--num-batches", "2", "--visualize",
+                           "--out", out, "--device", "cuda"])
+        else:
+            from visiontransformer_tpu_torch.data import (
+                CESegmentationDataset,
+            )
+            from visiontransformer_tpu_torch.evaluation import run_sweep
+
+            rc = 0 if run_sweep(
+                CESegmentationDataset(f"{data}/image_png",
+                                      f"{data}/mask_png"),
+                output_dir=out, num_classes=17, checkpoint_root=ckpt_root,
+                entries=[entry], num_batches=2, device="cuda") else 1
+        sweep_launches = read()
+        pngs = sorted(os.listdir(f"{out}/{REPORTS_CONFIG}"))
+        want_pngs = ([f"result_batch{b}_img{i}.png" for b in (0, 1)
+                      for i in range(4)] if rendering else [])
+        want = {k: 0 for k in sweep_launches}
+        want["flash_attention_fwd"] = 2 * layers
+        if (rc != 0 or sweep_launches != want
+                or [p for p in pngs if p.endswith(".png")] != want_pngs):
+            raise AssertionError(f"eval-sweep: rc {rc}, launches "
+                                 f"{sweep_launches}, files {pngs}")
+        result["eval_sweep"] = {"launches": sweep_launches,
+                                "panels": len(want_pngs)}
+    result["launches"] = {k: result["train"]["launches"][k]
+                          + result["demo"]["launches"][k]
+                          + result["eval_sweep"]["launches"][k]
+                          for k in result["train"]["launches"]}
+    result["seconds"] = time.perf_counter() - t_phase
+    emit("reports_tools", **result)
+    return result
+
+
 def _forward_lines(peaks, flash_timed, flash_train):
     """One line per timed bf16 d = 64 shape: kernel 1, kernel 2 at dropout
     0 and 0.1 and SDPA's forward at both rates (device time), the bounds and
@@ -3487,6 +3840,7 @@ def main() -> int:
     optin = phase_optin(gen)
     conv = phase_conv_families()
     seg = phase_segformer_export_int8()
+    reports = phase_reports_tools()
     emit("done", seconds=time.perf_counter() - t0,
          masks_per_s=model["bfloat16"]["masks_per_s"],
          jobs_per_s=serving["jobs_per_s"],
@@ -3553,6 +3907,7 @@ def main() -> int:
     for row in kernels:  # kernels 1-9 on the paths of phases 14, 15: none
         row["conv_families_launches"] = conv["launches"][row["name"]]
         row["segformer_export_int8_launches"] = seg["launches"][row["name"]]
+        row["reports_tools_launches"] = reports["launches"][row["name"]]
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -191,13 +191,46 @@ def test_evaluate_model_matches_jax(tmp_path, datasets, kind):
         np.testing.assert_array_equal(confusion, jconfusion)
 
 
-def test_evaluate_model_refuses_visualizations(tmp_path, datasets):
-    _, tcfg_, _, model, ds = _sweep_setup("binary", datasets)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tevaluate.evaluate_model(model, tcfg_, tcfg.SweepEntry(**ENTRY), ds,
-                                 output_dir=str(tmp_path),
-                                 save_visualizations=True)
-    assert not os.listdir(tmp_path)
+def test_evaluate_model_writes_the_panels_jax_writes(tmp_path, datasets):
+    """save_visualizations: the same 5-panel PNGs, with the class names
+    and colours, as the JAX package's evaluate_model on the same weights
+    (decoded pixels equal where the predictions are)."""
+    from PIL import Image
+
+    jcfg_, tcfg_, params, model, ds = _sweep_setup("ce", datasets)
+    names = [f"class {i}" for i in range(17)]
+    colours = {(15 * i, 255 - 11 * i, (53 * i) % 256): i for i in range(17)}
+    kwargs = dict(batch_size=4, num_batches=2, save_visualizations=True,
+                  class_names=names, rgb_to_class=colours)
+    jevaluate.evaluate_model(params, jcfg_, jcfg.SweepEntry(**ENTRY), ds,
+                             output_dir=str(tmp_path / "jax"), **kwargs)
+    tevaluate.evaluate_model(model, tcfg_, tcfg.SweepEntry(**ENTRY), ds,
+                             output_dir=str(tmp_path / "port"), **kwargs)
+    pngs = sorted(f for f in os.listdir(tmp_path / "port" / "P16H64A4")
+                  if f.endswith(".png"))
+    assert pngs == sorted(f for f in os.listdir(tmp_path / "jax" / "P16H64A4")
+                          if f.endswith(".png"))
+    assert pngs == sorted(f"result_batch{b}_img{i}.png" for b, n in
+                          ((0, 4), (1, len(ds) - 4)) for i in range(n))
+    eval_batch = tevaluate._make_eval_fn(tcfg_)
+    jeval_batch = jevaluate._make_eval_fn(jcfg_)
+    compared = 0
+    for b, start in enumerate((0, 4)):
+        idx = range(start, min(start + 4, len(ds)))
+        images = np.stack([ds[i][0] for i in idx])
+        masks = np.stack([ds[i][1] for i in idx])
+        preds = eval_batch(model, _t(images), _t(masks))[0].numpy()
+        jpreds = np.asarray(jeval_batch(params, jnp.asarray(images),
+                                        jnp.asarray(masks))[0])
+        for i in range(len(idx)):
+            if not np.array_equal(preds[i], jpreds[i]):
+                continue  # a tie (test_evaluate_model_matches_jax)
+            name = f"P16H64A4/result_batch{b}_img{i}.png"
+            got = np.asarray(Image.open(tmp_path / "port" / name))
+            want = np.asarray(Image.open(tmp_path / "jax" / name))
+            np.testing.assert_array_equal(got, want)
+            compared += 1
+    assert compared >= len(ds) - 1
 
 
 def test_run_sweep_restores_a_checkpoint_written_by_fit(tmp_path, datasets):

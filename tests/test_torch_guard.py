@@ -8,6 +8,10 @@
   instead of falling back to the CPU; chip_smoke.py exits non-zero there
   and prints no result.
 - Importing the package builds no kernel.
+- tensorstore (the Orbax reader's, ``ckpt/orbax_read.py``), matplotlib and
+  pandas (the reports', ``evaluation/``) are imported only inside the
+  functions that need them, which the GPU machine may lack: importing the
+  package, parsing the CLI and ``doctor`` load none of them.
 """
 
 import ast
@@ -122,3 +126,78 @@ def test_chip_smoke_fails_without_cuda(no_cuda):
     assert proc.returncode != 0
     assert "CUDA is not available" in proc.stderr
     assert '"ok"' not in proc.stdout
+
+
+# Optional packages: module -> the port files that may import it, inside a
+# function body only.
+OPTIONAL = {"tensorstore": ("visiontransformer_tpu_torch/ckpt/orbax_read.py",),
+            "matplotlib": ("visiontransformer_tpu_torch/evaluation/",),
+            "pandas": ("visiontransformer_tpu_torch/evaluation/",)}
+
+
+def _optional_imports(tree):
+    """(module, inside a function) of each import of an OPTIONAL module."""
+    def walk(node, in_function):
+        for child in ast.iter_child_nodes(node):
+            inside = in_function or isinstance(
+                child, (ast.FunctionDef, ast.AsyncFunctionDef, ast.Lambda))
+            if isinstance(child, ast.Import):
+                names = [a.name for a in child.names]
+            elif isinstance(child, ast.ImportFrom) and child.level == 0:
+                names = [child.module or ""]
+            else:
+                names = []
+            for name in names:
+                if name.split(".")[0] in OPTIONAL:
+                    yield name.split(".")[0], inside
+            yield from walk(child, inside)
+
+    return list(walk(tree, False))
+
+
+@pytest.mark.parametrize("path", FILES)
+def test_optional_packages_only_inside_functions(path):
+    with open(os.path.join(REPO, path)) as f:
+        tree = ast.parse(f.read(), path)
+    for module, inside in _optional_imports(tree):
+        assert path.startswith(OPTIONAL[module]), f"{path} imports {module}"
+        assert inside, f"{path} imports {module} at module level"
+
+
+def test_optional_import_scan_finds_them():
+    found = {}
+    for path in FILES:
+        with open(os.path.join(REPO, path)) as f:
+            for module, _ in _optional_imports(ast.parse(f.read(), path)):
+                found.setdefault(module, set()).add(path)
+    assert set(found) == set(OPTIONAL)
+    assert _optional_imports(ast.parse("import pandas as pd")) == [
+        ("pandas", False)]
+    assert _optional_imports(ast.parse(
+        "def f():\n    from matplotlib import pyplot")) == [
+            ("matplotlib", True)]
+
+
+_IMPORT_PARSE_DOCTOR = """
+import contextlib, io, json, sys
+import visiontransformer_tpu_torch
+from visiontransformer_tpu_torch import cli
+for command in cli.COMMANDS:  # each command's parser
+    with contextlib.suppress(SystemExit), contextlib.redirect_stdout(
+            io.StringIO()):
+        cli.main([command, "--help"])
+with contextlib.redirect_stdout(io.StringIO()) as out:
+    rc = cli.main(["doctor", "--cpu"])
+json.loads(out.getvalue())
+loaded = sorted({m.split(".")[0] for m in sys.modules} &
+                {"tensorstore", "matplotlib", "pandas"})
+print(rc, loaded)
+"""
+
+
+def test_package_cli_and_doctor_load_no_optional_package():
+    proc = subprocess.run([sys.executable, "-c", _IMPORT_PARSE_DOCTOR],
+                          capture_output=True, text=True, timeout=300,
+                          cwd=REPO)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split("\n")[-2] == "0 []", proc.stdout

@@ -21,6 +21,7 @@ from visiontransformer_tpu.ops import edt as jedt_module
 from visiontransformer_tpu.ops import resize as jresize
 from visiontransformer_tpu.ops.morphology import skeletonize_np as jskeleton_np
 from visiontransformer_tpu_torch import native as tnative
+from visiontransformer_tpu_torch.ops import morphology as tmorph
 from visiontransformer_tpu_torch.losses import paed as tpaed
 from visiontransformer_tpu_torch.losses.sdf import compute_sdf_batch
 from visiontransformer_tpu_torch.metrics import segmentation as tmetrics
@@ -225,7 +226,7 @@ def test_skeletonize_matches_jax(rng, native_mode):
         got = tnative.skeletonize(mask)
         assert got.dtype == bool
         np.testing.assert_array_equal(got, jnative.skeletonize(mask))
-        np.testing.assert_array_equal(tnative.skeletonize_np(mask),
+        np.testing.assert_array_equal(tmorph.skeletonize_np(mask),
                                       jskeleton_np(mask))
 
 

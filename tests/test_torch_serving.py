@@ -24,6 +24,7 @@ from visiontransformer_tpu import configs as jcfg
 from visiontransformer_tpu.serve.worker import ModelRunner as JaxModelRunner
 from visiontransformer_tpu_torch import configs as tcfg
 from visiontransformer_tpu_torch import native
+from visiontransformer_tpu_torch.ops.morphology import connected_components_np
 from visiontransformer_tpu_torch.ckpt.convert import load_jax_params
 from visiontransformer_tpu_torch.serve.server import create_server
 from visiontransformer_tpu_torch.serve.store import JobStore
@@ -110,7 +111,7 @@ def test_detections_native_matches_fallback(rng):
     mask[5:12, 3:20] = 2
     want = native._detections_np(mask)
     assert native.detections(mask) == want
-    labels, n = native.connected_components_np(mask == 2)
+    labels, n = connected_components_np(mask == 2)
     assert n == len([d for d in want if d[0] == 2])
     assert labels.max() == n
 

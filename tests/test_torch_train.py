@@ -11,6 +11,7 @@ because the tests ask for it (``device="cpu"``).
 
 import csv
 import dataclasses
+import json
 
 import numpy as np
 import pytest
@@ -494,9 +495,28 @@ def test_trainer_rejects_what_is_not_ported(tmp_path):
     with pytest.raises(ValueError, match="divisible"):
         Trainer(t, tcfg.TrainConfig(batch_size=6), device="cpu")
     assert tcfg.TrainConfig(checkpoint_dir=str(tmp_path)).not_ported() == []
-    trainer = Trainer(t, tcfg.TrainConfig(), device="cpu")
-    with pytest.raises(NotImplementedError, match="profile_dir"):
-        trainer.fit([], profile_dir=str(tmp_path))
+
+
+def test_train_command_profile_dir_writes_a_trace(tmp_path):
+    """``train --profile-dir``: a torch.profiler trace of steps 2-5 beside
+    the CSV log and the tfevents file (tests/test_torch_tbevents.py holds
+    both against the JAX trainer's)."""
+    root = str(tmp_path / "data")
+    generate_multiclass(root, n_samples=6, image_size=40)
+    rc = cli_main(["train", "--data", root, "--config", "P16H512A8",
+                   "--image-size", "32", "--batch-size", "1",
+                   "--accumulate", "1", "--max-epochs", "1", "--no-split",
+                   "--logs", str(tmp_path / "logs"),
+                   "--profile-dir", str(tmp_path / "prof"),
+                   "--device", "cpu"])
+    assert rc == 0
+    (trace,) = (tmp_path / "prof").glob("*.pt.trace.json")
+    with open(trace) as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert {f"train_step_{i}" for i in range(8)} & names == {
+        f"train_step_{i}" for i in (2, 3, 4, 5)}
+    (events,) = (tmp_path / "logs").glob("*/version_0/events.out.tfevents.*")
+    assert events.stat().st_size > 0
 
 
 def test_trainer_defaults_to_cuda():

@@ -7,10 +7,10 @@ datasetTestViTmodel.py:38-54). A checkpoint is a directory of that name
 holding one ``torch.save`` file of plain tensors and containers: the
 trainer's tree is ``{"params": model state dict, "opt_state":
 optimizer.state_dict(), "step": int}``, every tensor on the CPU, so it
-reads back with ``weights_only=True``. The port does not read the TPU
-package's Orbax checkpoints (``orbax`` imports JAX); the two packages
-exchange weights through the reference's Lightning ``.ckpt``
-(``ckpt/torch_convert.py``).
+reads back with ``weights_only=True``. The TPU package's Orbax
+checkpoints are converted into this format by ``ckpt/orbax_read.py``
+(tensorstore, no JAX); the two packages also exchange vitseg weights
+through the reference's Lightning ``.ckpt`` (``ckpt/torch_convert.py``).
 
 ``restore_checkpoint`` keeps the TPU package's partial-restore semantics:
 keys missing on disk keep the target's values, keys on disk that the

@@ -3,20 +3,28 @@
   python -m visiontransformer_tpu_torch train --data data --task ce ...
   python -m visiontransformer_tpu_torch train --data data --model unet ...
   python -m visiontransformer_tpu_torch train --data data --task paed_binary ...
+  python -m visiontransformer_tpu_torch train --data data --profile-dir prof ...
   python -m visiontransformer_tpu_torch eval-sweep --data data --out test ...
+  python -m visiontransformer_tpu_torch demo --image IMG.png --configs P16H768A12
+  python -m visiontransformer_tpu_torch compare --dir test --out comparison
   python -m visiontransformer_tpu_torch synth --kind binary --out data
   python -m visiontransformer_tpu_torch serve --port 8000
   python -m visiontransformer_tpu_torch convert --ckpt ref.ckpt ...
+  python -m visiontransformer_tpu_torch convert-orbax --src orbax/ --out ckpts/ ...
   python -m visiontransformer_tpu_torch export --ckpt ckpts/ ...
   python -m visiontransformer_tpu_torch export-serving --ckpt ckpts/ ...
   python -m visiontransformer_tpu_torch register-model --name ...
+  python -m visiontransformer_tpu_torch doctor
 
 The TPU package's ``cli.py`` commands of the same names, with the flags
-the port implements (mesh, parallelism, multi-host and profiling wait for
-their slices). ``export-serving`` replaces ``export-hlo``: it writes a
+the port implements (mesh, parallelism and multi-host wait for their
+slice). ``export-serving`` replaces ``export-hlo``: it writes a
 ``torch.export`` program (``ckpt/export.py``) for the device it runs on.
-Commands that run a model take ``--device`` (default cuda; the CPU only
-when asked for). ``serve`` hands its arguments to ``serve/server.py`` and
+``convert-orbax`` turns a TPU-package Orbax checkpoint into one of the
+port's on a host with tensorstore (``ckpt/orbax_read.py``). ``doctor``
+reports torch, CUDA, the card, nvcc, the nine kernels' build and the
+native library. Commands that run a model take ``--device`` (default
+cuda; the CPU only when asked for). ``serve`` hands its arguments to ``serve/server.py`` and
 serves the models registered with ``register-model``, of any family the
 port has (``--family``), int8 included. ``export-serving --family`` takes
 any family (and, for segformer, an HF SegFormer directory as ``--ckpt``);
@@ -30,8 +38,9 @@ import dataclasses
 import os
 import sys
 
-COMMANDS = ("train", "eval-sweep", "serve", "convert", "export",
-            "export-serving", "register-model", "synth")
+COMMANDS = ("train", "eval-sweep", "demo", "compare", "serve", "convert",
+            "convert-orbax", "export", "export-serving", "register-model",
+            "synth", "doctor")
 # The model families of the port (models/registry.py:MODEL_FAMILIES),
 # named here so that parsing the arguments imports no model code;
 # tests/test_torch_conv_train_serve.py holds them equal.
@@ -80,6 +89,9 @@ def _train_parser() -> argparse.ArgumentParser:
                         "the run's log directory)")
     t.add_argument("--resume", default=None,
                    help="checkpoint path/dir to resume from")
+    t.add_argument("--profile-dir", default=None,
+                   help="write a torch.profiler trace of the first epoch's "
+                        "steps 2-5 here (*.pt.trace.json)")
     t.add_argument("--cache-data", action="store_true",
                    help="cache decoded+preprocessed samples in RAM "
                         "(~0.7 MB/sample at 224²)")
@@ -143,7 +155,8 @@ def cmd_train(argv) -> int:
 
     ckpt_dir = args.ckpt_dir or os.path.join(logger.log_dir, "checkpoints")
     trainer.fit(train_ds, val_dataset=val_ds, checkpoint_dir=ckpt_dir,
-                resume_from=args.resume, on_epoch_end=report)
+                resume_from=args.resume, profile_dir=args.profile_dir,
+                on_epoch_end=report)
     print(f"logs: {logger.path}\ncheckpoints: {ckpt_dir}")
     return 0
 
@@ -155,6 +168,7 @@ def cmd_eval_sweep(argv) -> int:
     from visiontransformer_tpu_torch.data import (
         CESegmentationDataset,
         PAEDBinaryDataset,
+        load_classdict,
         train_val_test_split,
     )
     from visiontransformer_tpu_torch.evaluation import run_sweep
@@ -178,7 +192,11 @@ def cmd_eval_sweep(argv) -> int:
     p.add_argument("--configs", default=None,
                    help="comma-separated subset, e.g. P16H512A8,P8H768A12")
     p.add_argument("--visualize", action="store_true",
-                   help="evaluation panels (not ported yet: raises)")
+                   help="a 5-panel PNG per image of batches 0-25 "
+                        "(needs matplotlib)")
+    p.add_argument("--classdict", default=None,
+                   help="calss_names_colors.csv path (default: "
+                        "<data>/calss_names_colors.csv when present)")
     args = p.parse_args(argv)
 
     image_dir = os.path.join(args.data, "image_png")
@@ -191,6 +209,12 @@ def cmd_eval_sweep(argv) -> int:
     test_ds = ds_cls(image_dir, mask_dir, image_size=args.image_size,
                      subset=test_files)
 
+    class_names = rgb_to_class = None
+    classdict = args.classdict or os.path.join(args.data,
+                                               "calss_names_colors.csv")
+    if not binary and os.path.exists(classdict):
+        rgb_to_class, class_names = load_classdict(classdict)
+
     entries = SWEEP_CONFIGS
     if args.configs:
         entries = [sweep_by_name(n) for n in args.configs.split(",")]
@@ -200,9 +224,186 @@ def cmd_eval_sweep(argv) -> int:
                       batch_size=args.batch_size,
                       num_batches=args.num_batches,
                       image_size=args.image_size, device=args.device,
-                      save_visualizations=args.visualize)
+                      save_visualizations=args.visualize,
+                      class_names=class_names, rgb_to_class=rgb_to_class)
     for path in paths:
         print(path)
+    return 0
+
+
+def cmd_demo(argv) -> int:
+    """Single-image inference with each of --configs: the mask, its
+    classes and boxes, and a 4-panel composite PNG per config."""
+    from visiontransformer_tpu_torch.configs import sweep_by_name
+    from visiontransformer_tpu_torch.data import load_classdict
+    from visiontransformer_tpu_torch.evaluation.demo import (
+        load_image,
+        predict_image,
+        render_demo_composite,
+    )
+    from visiontransformer_tpu_torch.evaluation.evaluate import sweep_model
+
+    p = argparse.ArgumentParser(prog="visiontransformer_tpu_torch demo",
+                                description="single-image inference demo")
+    p.add_argument("--image", required=True)
+    p.add_argument("--configs", default="P16H768A12",
+                   help="comma-separated config names")
+    p.add_argument("--classdict", default=None)
+    p.add_argument("--ckpt-root", default=None,
+                   help="directory of <config name>/epoch=N-step=M "
+                        "checkpoints of the port (default: seeded random "
+                        "weights)")
+    p.add_argument("--num-classes", type=int, default=17)
+    p.add_argument("--out", default="demo_out")
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    args = p.parse_args(argv)
+
+    class_names = rgb_to_class = None
+    if args.classdict and os.path.exists(args.classdict):
+        rgb_to_class, class_names = load_classdict(args.classdict)
+
+    os.makedirs(args.out, exist_ok=True)
+    image = load_image(args.image)
+    for name in args.configs.split(","):
+        cfg, model = sweep_model(sweep_by_name(name),
+                                 num_classes=args.num_classes,
+                                 checkpoint_root=args.ckpt_root,
+                                 device=args.device)
+        result = predict_image(model, cfg, image, class_names=class_names,
+                               rgb_to_class=rgb_to_class)
+        out_path = os.path.join(args.out, f"demo_{name}.png")
+        render_demo_composite(image, result, out_path,
+                              class_names=class_names,
+                              rgb_to_class=rgb_to_class, title=name)
+        print(f"{name}: classes={result['classes']} "
+              f"detections={len(result['detections'])} -> {out_path}")
+    return 0
+
+
+def cmd_compare(argv) -> int:
+    """The sweep's CSVs under --dir -> a summary chart and a class
+    confusion chart per model under --out."""
+    from visiontransformer_tpu_torch.evaluation.compare import (
+        plot_confusion_matrices,
+        plot_summary,
+    )
+
+    p = argparse.ArgumentParser(prog="visiontransformer_tpu_torch compare",
+                                description="aggregate sweep CSVs into "
+                                            "reports")
+    p.add_argument("--dir", required=True)
+    p.add_argument("--out", default="comparison")
+    p.add_argument("--num-classes", type=int, default=17)
+    args = p.parse_args(argv)
+    os.makedirs(args.out, exist_ok=True)
+    summary = plot_summary(args.dir, os.path.join(args.out, "summary.png"))
+    print(summary.to_string())
+    plot_confusion_matrices(args.dir, args.out, num_classes=args.num_classes)
+    print(f"reports in {args.out}/")
+    return 0
+
+
+def cmd_doctor(argv) -> int:
+    """One JSON report of the environment: Python, torch and its CUDA
+    runtime, the card, nvcc, the nine kernels' build (built here unless
+    --cpu), the native library, and a small computation on the device.
+    Exits 1 when the device cannot be reached or a check fails."""
+    import json
+    import platform
+    import subprocess
+
+    import torch
+
+    p = argparse.ArgumentParser(prog="visiontransformer_tpu_torch doctor",
+                                description="environment report")
+    p.add_argument("--cpu", action="store_true",
+                   help="check the CPU instead of the card (builds no "
+                        "kernel)")
+    args = p.parse_args(argv)
+    report = {"python": sys.version.split()[0],
+              "platform": platform.platform(), "torch": torch.__version__,
+              "cuda_runtime": torch.version.cuda}
+    failed = False
+    device = "cpu" if args.cpu else "cuda"
+    if args.cpu:
+        report["device"] = "cpu"
+    elif torch.cuda.is_available():
+        report["device"] = torch.cuda.get_device_name(0)
+        report["device_count"] = torch.cuda.device_count()
+    else:
+        report["device_error"] = "CUDA is not available"
+        failed = True
+
+    from visiontransformer_tpu_torch.ops import _build
+
+    try:
+        nvcc = _build._nvcc()
+        version = subprocess.run([nvcc, "--version"], capture_output=True,
+                                 text=True, timeout=60).stdout
+        report["nvcc"] = {"path": nvcc,
+                          "version": version.strip().splitlines()[-1]}
+    except (RuntimeError, OSError, subprocess.SubprocessError) as e:
+        report["nvcc"] = f"unavailable ({e})"
+    if device == "cuda" and not failed and isinstance(report["nvcc"], dict):
+        try:
+            report["kernel_build_dir"] = str(_build.build())
+            report["kernel_build_s"] = _build.last_build_seconds
+        except RuntimeError as e:  # the report is the diagnosis
+            report["kernel_build_error"] = str(e)[-2000:]
+            failed = True
+    report["kernels"] = {name: "built" if ok else "not built"
+                         for name, ok in _build.built().items()}
+
+    from visiontransformer_tpu_torch import native
+
+    try:
+        report["native_lib"] = (f"loaded ({native.library_path()})"
+                                if native.available() else
+                                "off (VITSEG_NATIVE=0: numpy fallbacks)")
+    except RuntimeError as e:
+        report["native_lib"] = str(e)[-2000:]
+        failed = True
+    if "device_error" not in report:
+        x = torch.arange(8.0, device=device)
+        ok = float((x * x).sum()) == 140.0
+        report["device_check"] = "ok" if ok else "WRONG RESULT"
+        failed = failed or not ok
+    print(json.dumps(report, indent=2))
+    return 1 if failed else 0
+
+
+def cmd_convert_orbax(argv) -> int:
+    """A TPU-package Orbax checkpoint (or the latest in a directory of
+    them) -> a checkpoint of the port, on a host with tensorstore."""
+    from visiontransformer_tpu_torch.ckpt.io import get_latest_checkpoint
+    from visiontransformer_tpu_torch.ckpt.orbax_read import (
+        convert_orbax_checkpoint,
+    )
+
+    p = argparse.ArgumentParser(
+        prog="visiontransformer_tpu_torch convert-orbax",
+        description="convert a TPU-package Orbax checkpoint (params, Adam "
+                    "state, step) into a checkpoint of the port; needs "
+                    "tensorstore, which the card's host may lack: convert "
+                    "where it is installed and copy the output")
+    p.add_argument("--src", required=True,
+                   help="Orbax epoch=N-step=M directory, or a directory "
+                        "of them (the latest is taken)")
+    p.add_argument("--out", required=True,
+                   help="directory the epoch=N-step=M checkpoint goes in")
+    p.add_argument("--family", default="vitseg",
+                   choices=MODEL_FAMILY_CHOICES)
+    p.add_argument("--config", default=None,
+                   help="vitseg: sweep config name or ViT size preset")
+    p.add_argument("--encoder", default=None,
+                   help="other families: encoder preset (segformer also "
+                        "mit_b0 ... mit_b5)")
+    p.add_argument("--num-classes", type=int, default=17)
+    args = p.parse_args(argv)
+    src = get_latest_checkpoint(args.src) or args.src
+    print(convert_orbax_checkpoint(
+        src, args.out, family=args.family, config=args.config,
+        num_classes=args.num_classes, encoder=args.encoder))
     return 0
 
 
@@ -419,7 +620,8 @@ def main(argv=None) -> int:
         serve_main(rest)
         return 0
     return {"train": cmd_train, "eval-sweep": cmd_eval_sweep,
-            "convert": cmd_convert, "export": cmd_export,
-            "export-serving": cmd_export_serving,
-            "register-model": cmd_register_model,
-            "synth": cmd_synth}[command](rest)
+            "demo": cmd_demo, "compare": cmd_compare,
+            "convert": cmd_convert, "convert-orbax": cmd_convert_orbax,
+            "export": cmd_export, "export-serving": cmd_export_serving,
+            "register-model": cmd_register_model, "synth": cmd_synth,
+            "doctor": cmd_doctor}[command](rest)

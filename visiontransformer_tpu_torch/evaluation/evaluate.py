@@ -15,7 +15,8 @@ reference's PAED sweep pins one config for all 9 rows,
 ViTscriptTest.py:126) and a checkpoint is a plain restore, not the
 reference's fit-to-max-epochs trick (datasetTestViTmodel.py:131-137). A
 checkpoint is the port's ``epoch=N-step=M`` directory under
-``<checkpoint_root>/<name>/``; the port does not read Orbax.
+``<checkpoint_root>/<name>/`` (a TPU-package Orbax checkpoint goes through
+``convert-orbax`` first, ``ckpt/orbax_read.py``).
 """
 
 from __future__ import annotations
@@ -95,16 +96,16 @@ def _make_eval_fn(cfg: ViTSegConfig):
 def evaluate_model(model: ViTSeg, cfg: ViTSegConfig, entry: SweepEntry,
                    dataset, *, output_dir: str, batch_size: int = 4,
                    num_batches: int = 125,
-                   save_visualizations: bool = False) -> str:
+                   save_visualizations: bool = False,
+                   class_names: Optional[List[str]] = None,
+                   rgb_to_class: Optional[dict] = None) -> str:
     """Evaluate one config over ``num_batches`` batches on the model's
     device; returns the CSV path. Inference_Time is the batch's seconds
-    per image up to the predictions' readback to the host. The TPU
-    package's evaluation panels (``save_visualizations``, with the class
-    names and colours they draw) are not ported yet."""
-    if save_visualizations:
-        raise NotImplementedError(
-            "save_visualizations: the evaluation panels (visualize.py) are "
-            "not ported yet (ROADMAP queue 1, item 4)")
+    per image up to the predictions' readback to the host.
+    save_visualizations: the 5-panel PNG of every image of batches 0-25
+    (``visualize.save_eval_panels``, drawn with ``class_names`` and the
+    classdict's colours ``rgb_to_class``), as the TPU package writes them;
+    it needs matplotlib."""
     device = next(model.parameters()).device
     model_dir = os.path.join(output_dir, entry.name)
     os.makedirs(model_dir, exist_ok=True)
@@ -149,6 +150,15 @@ def evaluate_model(model: ViTSeg, cfg: ViTSegConfig, entry: SweepEntry,
                     "|".join(map(str, missing)),
                     "|".join(map(str, false_pos)),
                 ])
+
+            if save_visualizations and batch_num <= 25:
+                from visiontransformer_tpu_torch.evaluation.visualize import (
+                    save_eval_panels,
+                )
+                save_eval_panels(
+                    model_dir, entry.name, batch_num, batch["image"],
+                    batch["mask"], preds, class_names=class_names,
+                    rgb_to_class=rgb_to_class)
 
     if confusion is not None:
         np.save(os.path.join(model_dir, f"{entry.name}_pixel_confusion.npy"),

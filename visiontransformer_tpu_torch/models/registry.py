@@ -1,7 +1,8 @@
 """Model family registry: name -> (init, apply, config type), the TPU
 package's ``models/registry.py``, with ``resolve_model``'s checkpoint
 loading (a port checkpoint directory, a reference Lightning ``.ckpt`` for
-vitseg, or a pretrained HF SegFormer directory for segformer).
+vitseg, a pretrained HF SegFormer directory for segformer, or a TPU-package
+Orbax checkpoint where tensorstore is installed).
 
 ``vitseg`` is the primary network; the ten conv families share the
 residual GroupNorm encoder of ``models/unet.py`` and differ in their
@@ -26,6 +27,12 @@ from visiontransformer_tpu_torch.ckpt.hf_dir import (
     read_hf_segformer,
 )
 from visiontransformer_tpu_torch.ckpt.io import restore_checkpoint
+from visiontransformer_tpu_torch.ckpt.orbax_read import (
+    is_orbax_dir,
+    model_from_params,
+    read_orbax_tree,
+    tree_config,
+)
 from visiontransformer_tpu_torch.ckpt.torch_convert import (
     convert_hf_segformer_seg_state,
     load_lightning_checkpoint,
@@ -84,6 +91,10 @@ from visiontransformer_tpu_torch.models.upernet import (
     upernet_init,
 )
 from visiontransformer_tpu_torch.models.vitseg import ViTSeg, vitseg_apply
+from visiontransformer_tpu_torch.ops.quant import (
+    quantize_conv_model_,
+    quantize_vit_,
+)
 
 
 class ModelFamily(NamedTuple):
@@ -201,14 +212,19 @@ def resolve_model(family: str, config_name: str, *, num_classes: int,
     ``config_name``'s and ``num_classes``, the head takes the folded
     BatchNorm (``head_norm="affine"``), as the TPU package's does. Any
     other directory is a port checkpoint (``ckpt/io.py``); its
-    ``params``, or the whole tree if it has none, load strictly. A path
+    ``params``, or the whole tree if it has none, load strictly (a W8A8
+    state dict into the model's W8A8 form). A path
     ending in ``.ckpt`` is a reference Lightning file
     (``ckpt/torch_convert.py``), for vitseg only: a conv family refuses
     it, as the TPU package does. Empty means random weights from a
     generator seeded with 0 (the same weights on every call, like the TPU
-    package's PRNGKey(0)). Any other path raises: the TPU package falls
-    through to random weights there, which would serve random masks under
-    a trained model's name. The weights load on the CPU and the model
+    package's PRNGKey(0)). A directory holding ``_METADATA`` and
+    ``manifest.ocdbt`` is a TPU-package Orbax checkpoint, converted in
+    memory where tensorstore is installed (``ckpt/orbax_read.py``;
+    segformer takes its decode width and head norm from it); without
+    tensorstore it raises ImportError naming ``convert-orbax``. Any other
+    path raises: the TPU package falls through to random weights there,
+    which would serve random masks under a trained model's name. The weights load on the CPU and the model
     moves to the device once."""
     dev = resolve_device(device)
     cfg = model_config(family, config_name, num_classes=num_classes,
@@ -222,6 +238,11 @@ def resolve_model(family: str, config_name: str, *, num_classes: int,
             embed_channels=hf_cfg["decoder_hidden_size"])
         params = conv_params_from_jax(convert_hf_segformer_seg_state(
             state, cfg))
+    elif checkpoint_path and is_orbax_dir(checkpoint_path):
+        tree = read_orbax_tree(checkpoint_path)
+        cfg = tree_config(family, tree["params"], cfg)
+        return cfg, model_from_params(family, tree["params"], cfg).to(
+            dev).eval()
     else:
         params = (_checkpoint_params(checkpoint_path, family, cfg)
                   if checkpoint_path else None)
@@ -232,6 +253,12 @@ def resolve_model(family: str, config_name: str, *, num_classes: int,
         # The weights are overwritten: vitseg skips its init's draws.
         model = (ViTSeg(cfg) if family == "vitseg" else
                  get_model_family(family).init(torch.Generator(), cfg))
+        if any(k.endswith(".kernel_q") for k in params):
+            # A W8A8 checkpoint: the model takes the form it was saved in.
+            if family == "vitseg":
+                quantize_vit_(model.backbone)
+            else:
+                quantize_conv_model_(model)
         model.load_state_dict(params, strict=True)
     return cfg, model.to(dev).eval()
 

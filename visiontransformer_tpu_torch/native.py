@@ -1,68 +1,133 @@
 """Host helpers from the repository's C++ library.
 
-``ctypes`` bindings to ``vn_detections`` (connected-component detections
-for the serving worker), ``vn_remap_u8`` and ``vn_resize_nearest_pil_u8``
-(mask LUT remap and PIL-exact nearest resize for the datasets) and
-``vn_skeletonize`` (Zhang-Suen thinning for ``paed_loss_hard``) of
-``native/vitseg_native.cpp``, built with ``make -C native`` at first use,
-each with a pure-Python/numpy/PIL fallback when the library cannot be built
-or ``VITSEG_NATIVE=0``. All are host code; a fallback is not a device
-fallback.
+``ctypes`` bindings to ``native/vitseg_native.cpp``, as the TPU package's
+``native/__init__.py`` binds it: ``vn_skeletonize`` (Zhang-Suen thinning
+for ``paed_loss_hard``), ``vn_label`` and ``vn_bounding_boxes``
+(4-connected components and their boxes), ``vn_detections`` (all classes'
+boxes in one pass, for the serving worker), ``vn_edt`` (exact EDT),
+``vn_remap_u8`` and ``vn_resize_nearest_pil_u8`` (mask LUT remap and
+PIL-exact nearest resize for the datasets).
+
+The port compiles the source itself, at first use, into the git-ignored
+``visiontransformer_tpu_torch/_build/native/`` (it reads ``native/`` and
+never writes there): under a file lock, to a temporary name that is then
+renamed, so processes that start together wait for one build and never
+load a half-written library. The library's name holds a hash of the
+source, the flags and the host's CPU (``-march=native``). A failed build
+raises on the call that needed the library; ``VITSEG_NATIVE=0`` selects
+the numpy/scipy/PIL fallbacks (``ops/morphology.py``). All are host code;
+a fallback is not a device fallback.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
+import hashlib
 import os
+import platform
 import subprocess
 import threading
+from pathlib import Path
 from typing import List, Optional, Tuple
 
 import numpy as np
 from PIL import Image
 
-_NATIVE_DIR = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "native")
-_SO_PATH = os.path.join(_NATIVE_DIR, "libvitseg_native.so")
+SOURCE = (Path(__file__).resolve().parent.parent / "native"
+          / "vitseg_native.cpp")
+BUILD_DIR = Path(__file__).resolve().parent / "_build" / "native"
+CXXFLAGS = ("-O3", "-march=native", "-fPIC", "-std=c++17", "-Wall",
+            "-shared")
 
 _LOCK = threading.Lock()
 _LIB: Optional[ctypes.CDLL] = None
 _TRIED = False
 
-_i32 = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
 _u8 = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
+_i32 = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+_f32 = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
+
+_SIGNATURES = {
+    "vn_skeletonize": ([_u8, ctypes.c_int, ctypes.c_int, ctypes.c_int],
+                       ctypes.c_int),
+    "vn_label": ([_u8, _i32, ctypes.c_int, ctypes.c_int], ctypes.c_int),
+    "vn_bounding_boxes": ([_i32, ctypes.c_int, _i32, ctypes.c_int,
+                           ctypes.c_int], None),
+    "vn_detections": ([_i32, _i32, ctypes.c_int, ctypes.c_int, _i32,
+                       ctypes.c_int], ctypes.c_int),
+    "vn_edt": ([_u8, _f32, ctypes.c_int, ctypes.c_int], None),
+    "vn_remap_u8": ([_u8, _i32, _i32, ctypes.c_long], None),
+    "vn_resize_nearest_pil_u8": ([_u8, _u8, ctypes.c_int, ctypes.c_int,
+                                  ctypes.c_int, ctypes.c_int], None),
+}
+
+
+def _cpu_identity() -> str:
+    """What ``-march=native`` compiles for: the first CPU's model and flags
+    (the machine's name where /proc/cpuinfo is absent)."""
+    try:
+        with open("/proc/cpuinfo") as f:
+            lines = [line for line in f if line.startswith(
+                ("model name", "flags", "Features"))]
+        return "".join(dict.fromkeys(lines)) or platform.machine()
+    except OSError:
+        return platform.machine()
+
+
+def library_path() -> Path:
+    digest = hashlib.sha256(" ".join(CXXFLAGS).encode())
+    digest.update(SOURCE.read_bytes())
+    digest.update(_cpu_identity().encode())
+    return BUILD_DIR / f"libvitseg_native.{digest.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """The library's path, compiled first if no process has built it yet.
+    Raises RuntimeError when the compiler fails or is absent."""
+    path = library_path()
+    if path.exists():
+        return path
+    path.parent.mkdir(parents=True, exist_ok=True)
+    with open(path.parent / ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
+        if path.exists():  # another process built it while we waited
+            return path
+        tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+        cmd = [os.environ.get("CXX", "g++"), *CXXFLAGS, "-o", str(tmp),
+               str(SOURCE)]
+        try:
+            proc = subprocess.run(cmd, capture_output=True, text=True,
+                                  timeout=300)
+        except (OSError, subprocess.SubprocessError) as e:
+            raise RuntimeError(
+                f"building the native library failed ({e}); set "
+                f"VITSEG_NATIVE=0 for the numpy fallbacks") from e
+        if proc.returncode:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(
+                f"building the native library failed: {' '.join(cmd)}\n"
+                f"{proc.stderr}\nset VITSEG_NATIVE=0 for the numpy "
+                f"fallbacks")
+        os.replace(tmp, path)
+    return path
 
 
 def _load() -> Optional[ctypes.CDLL]:
+    """The library, or None when VITSEG_NATIVE=0. Nothing is remembered
+    from a failed build: the next call tries again."""
     global _LIB, _TRIED
     with _LOCK:
         if _TRIED:
             return _LIB
-        _TRIED = True
         if os.environ.get("VITSEG_NATIVE") == "0":
+            _TRIED = True
             return None
-        if not os.path.exists(_SO_PATH):
-            try:
-                subprocess.run(["make", "-C", _NATIVE_DIR], check=True,
-                               capture_output=True, timeout=120)
-            except (OSError, subprocess.SubprocessError):
-                return None
-        try:
-            lib = ctypes.CDLL(_SO_PATH)
-        except OSError:
-            return None
-        lib.vn_skeletonize.argtypes = [_u8, ctypes.c_int, ctypes.c_int,
-                                       ctypes.c_int]
-        lib.vn_skeletonize.restype = ctypes.c_int
-        lib.vn_detections.argtypes = [_i32, _i32, ctypes.c_int, ctypes.c_int,
-                                      _i32, ctypes.c_int]
-        lib.vn_detections.restype = ctypes.c_int
-        lib.vn_remap_u8.argtypes = [_u8, _i32, _i32, ctypes.c_long]
-        lib.vn_remap_u8.restype = None
-        lib.vn_resize_nearest_pil_u8.argtypes = [
-            _u8, _u8, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int]
-        lib.vn_resize_nearest_pil_u8.restype = None
-        _LIB = lib
+        lib = ctypes.CDLL(str(build()))
+        for fn, (argtypes, restype) in _SIGNATURES.items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = restype
+        _LIB, _TRIED = lib, True
         return _LIB
 
 
@@ -70,95 +135,55 @@ def available() -> bool:
     return _load() is not None
 
 
-def _neighbours(padded: np.ndarray):
-    """P2..P9 clockwise from north, for the interior view of a padded image."""
-    return (padded[0:-2, 1:-1], padded[0:-2, 2:], padded[1:-1, 2:],
-            padded[2:, 2:], padded[2:, 1:-1], padded[2:, 0:-2],
-            padded[1:-1, 0:-2], padded[0:-2, 0:-2])
-
-
-def skeletonize_np(mask: np.ndarray, max_iters: int = 10000) -> np.ndarray:
-    """Zhang-Suen thinning of a binary (H, W) mask to a 1-px skeleton,
-    first-party numpy (replaces the reference's skimage skeletonize,
-    reference model/PAED/segmentation.py:89-111)."""
-    img = (np.asarray(mask) > 0).astype(np.uint8)
-    for _ in range(max_iters):
-        changed = False
-        for step in (0, 1):
-            p2, p3, p4, p5, p6, p7, p8, p9 = _neighbours(np.pad(img, 1))
-            ring = np.stack([p2, p3, p4, p5, p6, p7, p8, p9, p2], axis=0)
-            # A: 0 -> 1 transitions around the ring; B: nonzero neighbours.
-            a = np.sum((ring[:-1] == 0) & (ring[1:] == 1), axis=0)
-            b = np.sum(ring[:-1], axis=0)
-            if step == 0:
-                cond = (p2 * p4 * p6 == 0) & (p4 * p6 * p8 == 0)
-            else:
-                cond = (p2 * p4 * p8 == 0) & (p2 * p6 * p8 == 0)
-            delete = (img == 1) & (a == 1) & (b >= 2) & (b <= 6) & cond
-            if delete.any():
-                img[delete] = 0
-                changed = True
-        if not changed:
-            break
-    return img.astype(bool)
-
-
 def skeletonize(mask: np.ndarray, max_iters: int = 10000) -> np.ndarray:
     """Zhang-Suen thinning of a binary (H, W) mask; bool skeleton."""
     lib = _load()
     img = np.ascontiguousarray((np.asarray(mask) > 0).astype(np.uint8))
     if lib is None:
+        from visiontransformer_tpu_torch.ops.morphology import skeletonize_np
         return skeletonize_np(img, max_iters)
     h, w = img.shape
     lib.vn_skeletonize(img, h, w, max_iters)
     return img.astype(bool)
 
 
-def connected_components_np(mask: np.ndarray) -> Tuple[np.ndarray, int]:
-    """4-connected labelling of a binary mask (scipy.ndimage.label default
-    structure): (int32 labels, count). Union-find, first-party Python."""
-    mask = np.asarray(mask) > 0
-    h, w = mask.shape
-    labels = np.zeros((h, w), dtype=np.int32)
-    parent: List[int] = [0]
+def label(mask: np.ndarray) -> Tuple[np.ndarray, int]:
+    """4-connected labeling (scipy.ndimage.label default semantics)."""
+    lib = _load()
+    img = np.ascontiguousarray((np.asarray(mask) > 0).astype(np.uint8))
+    if lib is None:
+        from visiontransformer_tpu_torch.ops.morphology import (
+            connected_components_np,
+        )
+        return connected_components_np(img)
+    h, w = img.shape
+    labels = np.empty((h, w), np.int32)
+    n = lib.vn_label(img, labels, h, w)
+    return labels, n
 
-    def find(x: int) -> int:
-        root = x
-        while parent[root] != root:
-            root = parent[root]
-        while parent[x] != root:
-            parent[x], x = root, parent[x]
-        return root
 
-    next_label = 1
-    for i in range(h):
-        for j in range(w):
-            if not mask[i, j]:
-                continue
-            up = labels[i - 1, j] if i > 0 else 0
-            left = labels[i, j - 1] if j > 0 else 0
-            if up == 0 and left == 0:
-                parent.append(next_label)
-                labels[i, j] = next_label
-                next_label += 1
-            elif up != 0 and left != 0:
-                ru, rl = find(up), find(left)
-                labels[i, j] = min(ru, rl)
-                if ru != rl:
-                    parent[max(ru, rl)] = min(ru, rl)
-            else:
-                labels[i, j] = up or left
-
-    remap = {}
-    flat = labels.reshape(-1)
-    roots = np.zeros_like(flat)
-    for idx, lab in enumerate(flat):
-        if lab:
-            roots[idx] = remap.setdefault(find(int(lab)), len(remap) + 1)
-    return roots.reshape(h, w), len(remap)
+def bounding_boxes(mask: np.ndarray) -> List[Tuple[int, int, int, int]]:
+    """Per-region (y_min, x_min, y_max, x_max) boxes."""
+    lib = _load()
+    if lib is None:
+        from visiontransformer_tpu_torch.ops.morphology import (
+            bounding_boxes_np,
+        )
+        return bounding_boxes_np(mask)
+    labels, n = label(mask)
+    if n == 0:
+        return []
+    boxes = np.empty((n, 4), np.int32)
+    h, w = labels.shape
+    lib.vn_bounding_boxes(np.ascontiguousarray(labels), n, boxes, h, w)
+    return [tuple(int(v) for v in row) for row in boxes]
 
 
 def _detections_np(mask: np.ndarray) -> List[Tuple[int, int, int, int, int]]:
+    from visiontransformer_tpu_torch.ops.morphology import (
+        connected_components_np,
+    )
+
     out = []
     for cls in np.unique(mask):
         if cls == 0:
@@ -187,6 +212,19 @@ def detections(class_mask: np.ndarray) -> List[Tuple[int, int, int, int, int]]:
         if n <= capacity:
             return sorted(tuple(int(v) for v in row) for row in boxes[:n])
         capacity = n  # the first pass counted them all; one retry at most
+
+
+def edt(mask: np.ndarray) -> np.ndarray:
+    """Exact EDT: distance of nonzero pixels to the nearest zero pixel."""
+    lib = _load()
+    img = np.ascontiguousarray((np.asarray(mask) > 0).astype(np.uint8))
+    if lib is None:
+        from scipy.ndimage import distance_transform_edt
+        return distance_transform_edt(img).astype(np.float32)
+    h, w = img.shape
+    out = np.empty((h, w), np.float32)
+    lib.vn_edt(img, out, h, w)
+    return out
 
 
 def remap_u8(values: np.ndarray, lut: np.ndarray) -> np.ndarray:

@@ -28,6 +28,20 @@ BUILD_ROOT = _PKG_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+# The nine kernels (the TPU package's Pallas kernels, PERF.md's table) by
+# the wrapper that counts their launches, and the source each is built from.
+KERNELS = {
+    "flash_attention_fwd": "flash_attention_fwd",
+    "flash_attention_fwd_train": "flash_attention_fwd",
+    "flash_attention_bwd_dq": "flash_attention_bwd_dq",
+    "flash_attention_bwd_dkv": "flash_attention_bwd_dkv",
+    "upsample_argmax": "upsample_argmax",
+    "flash_variant": "flash_variants",
+    "flash_multiq": "flash_chains",
+    "flash_pvt": "flash_chains",
+    "flash_dualq_pvt": "flash_chains",
+}
+
 _LOCK = threading.RLock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
 # Seconds the last build took (0.0 when every library was already built).
@@ -87,6 +101,13 @@ def _build_all(out_dir: Path) -> None:
     if failed:
         logs = "\n".join((out_dir / f"{n}.log").read_text() for n in failed)
         raise RuntimeError(f"nvcc failed for {failed}:\n{logs}")
+
+
+def built() -> Dict[str, bool]:
+    """Whether each of ``KERNELS`` is built for the sources as they are."""
+    out_dir = build_dir()
+    return {name: (out_dir / f"lib{src}.so").exists()
+            for name, src in KERNELS.items()}
 
 
 def build() -> Path:

@@ -33,6 +33,10 @@ from PIL import Image
 import torch
 
 from visiontransformer_tpu_torch.device import resolve_device
+from visiontransformer_tpu_torch.evaluation.visualize import (
+    class_color_table,
+    colorize,
+)
 from visiontransformer_tpu_torch.models.registry import resolve_model
 from visiontransformer_tpu_torch.models.vitseg import (
     set_token_merge_r,
@@ -45,7 +49,6 @@ from visiontransformer_tpu_torch.ops.quant import (
     quantize_vit_,
 )
 from visiontransformer_tpu_torch.serve.store import JobStore
-from visiontransformer_tpu_torch.visualize import class_color_table, colorize
 
 BUCKETS = (1, 2, 4, 8, 16, 32)
 

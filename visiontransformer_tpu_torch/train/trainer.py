@@ -25,14 +25,24 @@ activation checkpointing, ``models/vit.py``) for vitseg and is ignored for
 the other families, as the TPU package's trainer does. A
 W8A8-quantized model (``ops/quant.py``) is refused: rounding has no
 gradient, so it would learn nothing. Not ported yet, and rejected when
-asked for: mesh, FSDP, sequence and pipeline parallelism, multi-host, the
-profiler trace (ROADMAP queue 1). No tfevents file is written.
+asked for: mesh, FSDP, sequence and pipeline parallelism, multi-host
+(ROADMAP queue 1).
+
+Beside the CSV log, each epoch's metrics go to a tfevents file in the
+logger's directory at the same global step (``utils/tbevents.py``), as the
+TPU package's trainer writes them. ``fit(profile_dir=)`` traces global
+steps 2-5 of the first epoch with ``torch.profiler`` (CPU, and CUDA on
+the card) into a Chrome trace ``*.pt.trace.json`` under ``profile_dir``,
+each step a ``train_step_<n>`` range; where the epoch ends before step 6,
+the trace stops and is written at the epoch's end (the TPU package's stays
+open there). Only the last traced step waits for the card.
 Metrics stay 0-dim device tensors until a log line or the epoch's mean
 needs them, so a step does not wait for the card.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Callable, Dict, Iterable, Optional, Union
@@ -61,6 +71,7 @@ from visiontransformer_tpu_torch.train.optim import (
 from visiontransformer_tpu_torch.train.state import TrainState
 from visiontransformer_tpu_torch.train.tasks import get_task
 from visiontransformer_tpu_torch.utils.csvlog import CSVLogger
+from visiontransformer_tpu_torch.utils.tbevents import EventFileWriter
 
 _MASK63 = (1 << 63) - 1
 
@@ -105,6 +116,7 @@ class Trainer:
         self.logger = logger
         self.attn_impl = attn_impl
         self._checked_model = None  # the model train_step last accepted
+        self._tb_writer = None
 
     # ------------------------------------------------------------------ init
     def init_state(self, params=None) -> TrainState:
@@ -198,9 +210,8 @@ class Trainer:
         resume_from: a checkpoint, or a directory of them (the latest is
         taken); training goes on from the epoch after the checkpoint's, the
         replacement for Lightning's fit(ckpt_path=...) (reference
-        model/CE/trainCurrentViTmodel.py:67-73)."""
-        if profile_dir:
-            raise NotImplementedError("fit(profile_dir=...) is not ported yet")
+        model/CE/trainCurrentViTmodel.py:67-73). profile_dir: a
+        torch.profiler trace of the first epoch's global steps 2-5."""
         cfg = self.train_cfg
         max_epochs = max_epochs if max_epochs is not None else cfg.max_epochs
         checkpoint_dir = checkpoint_dir or cfg.checkpoint_dir
@@ -230,6 +241,7 @@ class Trainer:
                                        factor=cfg.plateau_factor,
                                        patience=cfg.plateau_patience)
 
+        profiler = None
         for epoch in range(start_epoch, max_epochs):
             # ---- train ----
             t0 = time.time()
@@ -237,14 +249,25 @@ class Trainer:
             for batch in prefetch(batch_iterator(
                     train_dataset, cfg.batch_size, shuffle=True,
                     seed=cfg.seed, epoch=epoch)):
-                state, metrics = self.train_step(
-                    state, batch, fold_seed(cfg.seed, state.step))
+                if profile_dir and epoch == start_epoch and state.step == 2:
+                    profiler = self._start_trace(profile_dir)
+                with (torch.profiler.record_function(
+                        f"train_step_{state.step}") if profiler
+                      else contextlib.nullcontext()):
+                    state, metrics = self.train_step(
+                        state, batch, fold_seed(cfg.seed, state.step))
                 train_metrics.append(metrics)
+                if profiler and state.step == 6:
+                    self._stop_trace(profiler)
+                    profiler = None
                 if self.logger and state.step % cfg.log_every_n_steps == 0:
                     self.logger.log(
                         {f"train_{k}_step": float(v) for k, v in metrics.items()},
                         epoch=epoch, step=state.step)
 
+            if profiler:  # the epoch ended before step 6
+                self._stop_trace(profiler)
+                profiler = None
             epoch_metrics = _mean_metrics(train_metrics, prefix="train_")
             epoch_metrics["epoch_time_s"] = time.time() - t0
 
@@ -263,6 +286,13 @@ class Trainer:
 
             if self.logger:
                 self.logger.log(epoch_metrics, epoch=epoch, step=state.step)
+                # tfevents sibling of the CSV log, like the reference's
+                # Lightning runs (tfevents next to metrics.csv).
+                if self._tb_writer is None:
+                    self._tb_writer = EventFileWriter(self.logger.log_dir)
+                for key, value in epoch_metrics.items():
+                    self._tb_writer.add_scalar(key, value, state.step)
+                self._tb_writer.flush()
             if on_epoch_end:
                 on_epoch_end(epoch, epoch_metrics)
             if checkpoint_dir:
@@ -282,6 +312,23 @@ class Trainer:
                 if monitored is not None and stopper.step(monitored):
                     break
         return state
+
+    def _start_trace(self, profile_dir: str):
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        profiler = torch.profiler.profile(
+            activities=activities,
+            on_trace_ready=torch.profiler.tensorboard_trace_handler(
+                profile_dir))
+        profiler.start()
+        return profiler
+
+    def _stop_trace(self, profiler) -> None:
+        """Wait for the traced steps' kernels, then write the trace."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        profiler.stop()
 
     def evaluate(self, dataset, model: torch.nn.Module, *,
                  batch_size: Optional[int] = None) -> Dict[str, float]:
