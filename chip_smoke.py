@@ -212,14 +212,42 @@ failure:
              config, two batches: 2 x 12 launches of kernel 1 and the 8
              panel PNGs. Without matplotlib, predict_image and
              evaluate_model run without drawing, and the line says so.
+17. parallel  ViT-B/16 (17 classes, full width and depth, 224^2, the CE
+             defaults: batch 16 = 4 x 4) on a 2-rank job (parallel/
+             launch.py): the two ranks share the one card over gloo (NCCL,
+             a card each, where there are two), and one rank group runs
+             every mode in turn: dp (mesh 2), tp (mesh 1,2: 6 heads a
+             rank), FSDP (mesh 2, FSDP2), sequence parallelism (mesh 1,2:
+             99/98 tokens) and the pipeline (2 stages of 6 layers, 2
+             pipeline microbatches). Each mode's fp32 step (TF32 off,
+             dropout off) against the single-rank step on the card: loss
+             1e-5, every gathered gradient 5e-5 / 5e-4 (and
+             step_grads_agree); dp's and FSDP's updated parameters at the
+             JAX multihost test's tolerance (rtol 2e-5, atol 2e-6). Each
+             mode's bf16 step with dropout 0.1: finite loss, 48 launches of
+             each of kernels 2, 3 and 4 a rank (a pipeline stage: 6 layers
+             x 4 micro-batches x 2 pipeline microbatches), images/s, the
+             device-busy share, the backend and transport (the shared card
+             stages point-to-point sends through host memory:
+             "gloo-host"). FSDP's (gathered) and the pipeline's (stacked)
+             checkpoints restored on one rank: the plain model's fp32
+             logits against the trainer's sharded forward. ModelRunner
+             over a dp = 2 serving mesh (both replicas on the card) at
+             batch 32: its predict at the row's 224^2 and the bench
+             workload (512^2 -> 224^2 -> 512^2, phase 4's front end) on
+             each replica's rows: fp32 masks equal the single replica's
+             but on logit ties, bf16 agreement recorded, 8 jobs over HTTP.
+             train --multihost as two OS processes at
+             --coordinator 127.0.0.1:<port>: both exit 0, only process 0
+             writes metrics.csv.
 
 Then it prints the card's name and power limit as nvidia-smi gives them,
 one JSON line describing every kernel (launches of the serving kernels
 counted during the serving run, of the training kernels during the train
 run, of the sweep kernels during the two sweeps; kernels 1-5 also with
 their launches on the paths of phases 10, 11, 12 and 13; kernels 1-9 with
-their launches in phases 14 and 15, which must be 0, and in phase 16),
-and, last,
+their launches in phases 14 and 15, which must be 0, in phase 16, and
+in phase 17, summed over its ranks and its serving mesh), and, last,
 {"ok": true, "device": {...}}.
 Without CUDA it exits with code 1 and prints no result.
 
@@ -1562,14 +1590,15 @@ def _decoded(png: bytes, size: int = 224) -> np.ndarray:
 
 
 @contextlib.contextmanager
-def _http_server(store, buckets):
-    """The port's HTTP server with an InferenceWorker on cuda, a user
-    registered and logged in: yields (client, CSRF header, startup s)."""
+def _http_server(store, buckets, **runner):
+    """The port's HTTP server with an InferenceWorker on cuda (``runner``:
+    its serving mesh), a user registered and logged in: yields (client,
+    CSRF header, startup s)."""
     from visiontransformer_tpu_torch.serve.server import create_server
     from visiontransformer_tpu_torch.serve.worker import InferenceWorker
 
     t0 = time.perf_counter()
-    worker = InferenceWorker(store, device="cuda", buckets=buckets)
+    worker = InferenceWorker(store, device="cuda", buckets=buckets, **runner)
     worker.start()
     server, _ = create_server(store, worker=worker)
     thread = threading.Thread(target=server.serve_forever, daemon=True)
@@ -3775,6 +3804,399 @@ def phase_reports_tools():
     return result
 
 
+# ------------------------------------------------------------- parallel
+PARALLEL_MODES = (
+    ("dp", {"mesh_shape": (2,)}),
+    ("tp", {"mesh_shape": (1, 2)}),
+    ("fsdp", {"mesh_shape": (2,), "fsdp": True}),
+    ("seq_parallel", {"mesh_shape": (1, 2), "seq_parallel": True}),
+    ("pipeline", {"mesh_shape": (1, 2), "pipeline_stages": 2,
+                  "pipeline_microbatches": 2}),
+)
+PARALLEL_PARAM_TOL = (2e-6, 2e-5)  # atol, rtol (tests/test_multihost.py)
+PARALLEL_CHECKPOINTS = ("fsdp", "pipeline")
+PARALLEL_TIMED_STEPS = 1
+
+
+def _parallel_batch(seed: int, n: int = 16) -> dict:
+    rng = np.random.default_rng(seed)
+    return {"image": rng.random((n, 224, 224, 3), np.float32),
+            "mask": rng.integers(0, 17, (n, 256, 256), dtype=np.int32)}
+
+
+def _parallel_cfg(dtype: str, dropout: bool):
+    from visiontransformer_tpu_torch.models.registry import vitseg_config
+
+    cfg = vitseg_config("P16H768A12", num_classes=17, compute_dtype=dtype)
+    if dropout:
+        return cfg
+    return dataclasses.replace(cfg, vit=dataclasses.replace(
+        cfg.vit, hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0))
+
+
+def _parallel_reference(path: str) -> dict:
+    """The single-rank fp32 step (dropout off) of phase 17 on the card:
+    loss, gradients and updated parameters, saved to ``path``."""
+    from visiontransformer_tpu_torch.configs import CE_TRAIN_DEFAULTS
+    from visiontransformer_tpu_torch.train.trainer import Trainer
+
+    trainer = Trainer(_parallel_cfg("float32", False), CE_TRAIN_DEFAULTS,
+                      device="cuda")
+    state = trainer.init_state()
+    _, metrics = trainer.train_step(state, _parallel_batch(0), seed=0)
+    ref = {"loss": float(metrics["loss"]),
+           "grads": {n: p.grad.detach().cpu()
+                     for n, p in state.model.named_parameters()},
+           "params": {n: p.detach().cpu()
+                      for n, p in state.model.named_parameters()}}
+    torch.save(ref, path)
+    return ref
+
+
+def _parallel_mode_fp32(name, mode, ref, out_dir, images):
+    """One mode's fp32 step against the single-rank step (rank 0 checks);
+    FSDP and the pipeline also write a checkpoint and the sharded forward's
+    logits."""
+    import torch.distributed as dist
+
+    from visiontransformer_tpu_torch.configs import CE_TRAIN_DEFAULTS
+    from visiontransformer_tpu_torch.train.trainer import Trainer
+
+    tcfg = dataclasses.replace(CE_TRAIN_DEFAULTS, **mode)
+    trainer = Trainer(_parallel_cfg("float32", False), tcfg, device="cuda")
+    state = trainer.init_state()
+    _, metrics = trainer.train_step(state, _parallel_batch(0), seed=0)
+    loss = float(metrics["loss"])
+    grads = trainer.plan.gathered(state.model, lambda p: p.grad)
+    params = (trainer.plan.gathered(state.model, lambda p: p)
+              if name in ("dp", "fsdp") else None)
+    row = {}
+    if name in PARALLEL_CHECKPOINTS:
+        row["checkpoint"] = trainer.save(state, f"{out_dir}/{name}",
+                                         epoch=0)
+        state.model.eval()
+        with torch.no_grad():
+            logits = state.model(images.cuda(), attn_impl="flash")
+        if dist.get_rank() == 0:
+            torch.save(logits.cpu(), f"{out_dir}/{name}_logits.pt")
+    if ref is None:
+        return None
+    checks = {n: close(grads[n], ref["grads"][n], *GRAD_TOL[torch.float32])
+              for n in ref["grads"]}
+    bad = [n for n, (ok, _) in checks.items() if not ok]
+    worst = max(checks, key=lambda n: checks[n][1])
+    norm_bad, norms, _ = step_grads_agree(grads, ref["grads"])
+    row.update(loss=loss, loss_ref=ref["loss"],
+               loss_rel_diff=abs(loss - ref["loss"]) / abs(ref["loss"]),
+               grads=len(grads), grads_failed=bad + norm_bad,
+               worst_grad={"name": worst, "max_abs_err": checks[worst][1],
+                           "rel_err_norm": norms[worst]})
+    if params is not None:
+        pchecks = {n: close(params[n], ref["params"][n], *PARALLEL_PARAM_TOL)
+                   for n in ref["params"]}
+        row["params_failed"] = [n for n, (ok, _) in pchecks.items() if not ok]
+        row["params_max_abs_err"] = max(e for _, e in pchecks.values())
+    return row
+
+
+def _parallel_mode_bf16(name, mode, reset_read):
+    """One mode's bf16 step with the CE defaults' dropout: its launches of
+    kernels 2-4 a rank, then images/s and the device-busy share."""
+    import torch.distributed as dist
+
+    from visiontransformer_tpu_torch.configs import CE_TRAIN_DEFAULTS
+    from visiontransformer_tpu_torch.train.trainer import Trainer
+
+    _, read = reset_read
+    tcfg = dataclasses.replace(CE_TRAIN_DEFAULTS, **mode)
+    trainer = Trainer(_parallel_cfg("bfloat16", True), tcfg, device="cuda")
+    state = trainer.init_state()
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in _parallel_batch(1).items()}
+    before = read()
+    _, metrics = trainer.train_step(state, batch, seed=0)
+    after = read()
+    launches = {k: after[k] - before[k] for k in after}
+    loss = float(metrics["loss"])
+    count = [1]
+
+    def step():
+        trainer.train_step(state, batch, seed=count[0])
+        count[0] += 1
+
+    torch.cuda.synchronize()
+    dist.barrier()
+    t0 = time.perf_counter()
+    for _ in range(PARALLEL_TIMED_STEPS):
+        step()
+    torch.cuda.synchronize()
+    images_per_s = (PARALLEL_TIMED_STEPS * tcfg.batch_size
+                    / (time.perf_counter() - t0))
+    prof = profile_steps(step, tcfg.batch_size, steps=1, top=3)
+    return {"loss": loss, "launches": launches,
+            "images_per_s": images_per_s,
+            "device_busy_share": prof["device_busy_share"],
+            "wall_ms_per_step": prof["wall_ms_per_step"],
+            "plan": trainer.plan.describe()}
+
+
+def _parallel_rank(ref_path: str, out_dir: str) -> dict:
+    """One rank of phase 17: every mode in turn; rank 0 returns the
+    rows."""
+    import torch.distributed as dist
+
+    from visiontransformer_tpu_torch.parallel import launch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank = dist.get_rank()
+    ref = torch.load(ref_path, weights_only=True) if rank == 0 else None
+    images = torch.from_numpy(_parallel_batch(2, n=2)["image"])
+    reset, read = _kernel_launch_counts()
+    reset()
+    rows = {}
+    for name, mode in PARALLEL_MODES:
+        t0 = time.perf_counter()
+        staged = launch.staged_transfers()
+        row = {"fp32": _parallel_mode_fp32(name, mode, ref, out_dir, images),
+               "bf16": _parallel_mode_bf16(name, mode, (reset, read)),
+               "backend": dist.get_backend()}
+        # "gloo-host" where this mode's transfers went through host memory.
+        staged = launch.staged_transfers() - staged
+        row.update(transport=launch.transport() if staged
+                   else dist.get_backend(), host_staged_transfers=staged,
+                   seconds=time.perf_counter() - t0)
+        rows[name] = row
+    return {"rank": rank, "rows": rows, "launches": read()}
+
+
+def _mesh_bench_masks(runner, raw: torch.Tensor, compute: int,
+                      attn_impl: str = "flash") -> torch.Tensor:
+    """The bench workload over a ModelRunner's replicas, split as its
+    dispatch splits a bucket: each replica's rows of the raw (B, S, S, 3)
+    fp32 batch resized to compute^2 and ImageNet-normalized on the card
+    (phase 4's front end), then predicted at S^2 in uint8 on the replica's
+    own stream; the masks gathered in row order."""
+    from visiontransformer_tpu_torch.models.vitseg import vitseg_predict
+    from visiontransformer_tpu_torch.ops.resize import resize_bilinear_mm
+
+    size = raw.shape[1]
+    mean = torch.tensor(MEAN, device=raw.device)
+    std = torch.tensor(STD, device=raw.device)
+    per = raw.shape[0] // len(runner.replicas)
+    torch.cuda.synchronize()
+    parts = []
+    with torch.inference_mode():
+        for i, (_, model, stream) in enumerate(runner.replicas):
+            with torch.cuda.stream(stream or torch.cuda.current_stream()):
+                x = resize_bilinear_mm(raw[i * per:(i + 1) * per],
+                                       (compute, compute))
+                parts.append(vitseg_predict(
+                    model, (x - mean) / std, out_size=(size, size),
+                    attn_impl=attn_impl, mask_dtype=torch.uint8))
+        torch.cuda.synchronize()
+    return torch.cat(parts)
+
+
+def _parallel_serving(n_jobs: int = 8) -> tuple:
+    """ModelRunner over a dp = 2 serving mesh whose replicas share the
+    card, against one replica: ModelRunner.predict at the row's 224^2,
+    then the bench workload (batch 32, 512^2 -> 224^2 -> 512^2); then jobs
+    over HTTP through it."""
+    from visiontransformer_tpu_torch.models.vitseg import vitseg_head_logits
+    from visiontransformer_tpu_torch.ops.resize import resize_bilinear_mm
+    from visiontransformer_tpu_torch.serve.store import JobStore
+    from visiontransformer_tpu_torch.serve.worker import ModelRunner
+
+    batch, compute, size = 32, 224, 512
+    rng = np.random.default_rng(3)
+    images = rng.integers(0, 256, (batch, compute, compute, 3), np.uint8)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    raw = torch.rand(batch, size, size, 3, generator=gen, device="cuda")
+    devices = [torch.device("cuda", 0)] * 2
+    out = {"batch": batch, "size": compute, "bench_in_out": size,
+           "replicas": 2}
+    with tempfile.TemporaryDirectory() as media:
+        store = JobStore(":memory:", media_root=media)
+        model_id = store.register_model("vit-b16-damage", num_classes=17,
+                                        config_name="P16H768A12")
+        row = store.get_model(model_id)
+        for dtype in ("float32", "bfloat16"):
+            one = ModelRunner(row, compute_dtype=dtype, device="cuda",
+                              buckets=(batch,))
+            two = ModelRunner(row, compute_dtype=dtype, buckets=(batch,),
+                              mesh_shape=(2,), devices=devices)
+            with _no_tf32():
+                got, want = two.predict(images), one.predict(images)
+                bench = _mesh_bench_masks(two, raw, compute).cpu()
+                bench_one = _mesh_bench_masks(one, raw, compute).cpu()
+                if dtype == "float32":
+                    x = torch.from_numpy(images).cuda().float() / 255.0
+                    plain_x = resize_bilinear_mm(raw, (compute, compute))
+                    plain_x = ((plain_x - torch.tensor(MEAN, device="cuda"))
+                               / torch.tensor(STD, device="cuda"))
+                    with torch.inference_mode():
+                        plain = resize_bilinear_mm(vitseg_head_logits(
+                            one.model, x, attn_impl="eager").float(),
+                            (compute, compute))
+                        plain_bench = resize_bilinear_mm(vitseg_head_logits(
+                            one.model, plain_x, attn_impl="eager").float(),
+                            (size, size))
+                    flips, gap = ties_explained(
+                        plain.cpu(), torch.from_numpy(got),
+                        torch.from_numpy(want), DEMO_TIE_TOL)
+                    bflips, bgap = ties_explained(
+                        plain_bench.cpu(), bench, bench_one, DEMO_TIE_TOL)
+                    del plain_bench
+                    out["fp32"] = {"flips": flips, "flip_max_logit_gap": gap,
+                                   "bench_flips": bflips,
+                                   "bench_flip_max_logit_gap": bgap}
+                else:
+                    out["bf16_agreement"] = float((got == want).mean())
+                    out["bf16_bench_agreement"] = float(
+                        (bench == bench_one).float().mean())
+            t0 = time.perf_counter()
+            for _ in range(3):
+                _mesh_bench_masks(two, raw, compute)
+            out[f"{dtype}_bench_masks_per_s"] = 3 * batch / (
+                time.perf_counter() - t0)
+            del one, two
+        pngs = _job_pngs(n_jobs, seed=4)
+        with _http_server(store, (n_jobs,), mesh_shape=(2,),
+                          devices=devices) as (client, csrf, _):
+            jobs, done, elapsed = _run_jobs(client, csrf, model_id, pngs)
+            # Each job's mask against the same mesh's predict of its image
+            # alone (a replica's rows at the same shape).
+            runner = ModelRunner(row, buckets=(n_jobs,), mesh_shape=(2,),
+                                 devices=devices)
+            equal = sum(int(np.array_equal(m, runner.predict(
+                _decoded(p)[None])[0])) for m, p in zip(
+                    _served_masks(client, jobs, done), pngs))
+        out["http"] = {"jobs": n_jobs, "jobs_per_s": n_jobs / elapsed,
+                       "masks_equal_runner": equal}
+        if equal != n_jobs:
+            raise AssertionError(f"serving mesh: {n_jobs - equal} job masks "
+                                 f"differ from ModelRunner.predict")
+    return out
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _parallel_multihost(tmp: str) -> dict:
+    """train --multihost as two OS processes on this host."""
+    data = f"{tmp}/mh_data"
+    _synthetic_ce_set(data, 32)
+    port = _free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "visiontransformer_tpu_torch", "train",
+         "--data", data, "--config", "P16H768A12", "--image-size", "224",
+         "--batch-size", "16", "--accumulate", "4", "--max-epochs", "1",
+         "--no-split", "--logs", f"{tmp}/mh_logs{pid}",
+         "--ckpt-dir", f"{tmp}/mh_ckpt", "--multihost",
+         "--coordinator", f"127.0.0.1:{port}", "--num-processes", "2",
+         "--process-id", str(pid)],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for pid in range(2)]
+    t0 = time.perf_counter()
+    outs = []
+    try:
+        outs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    csvs = [os.path.exists(f"{tmp}/mh_logs{pid}/vit-model/version_0/"
+                           "metrics.csv") for pid in range(2)]
+    result = {"returncodes": [p.returncode for p in procs],
+              "metrics_csv": csvs, "seconds": time.perf_counter() - t0,
+              "checkpoints": sorted(os.listdir(f"{tmp}/mh_ckpt"))
+              if os.path.isdir(f"{tmp}/mh_ckpt") else []}
+    if result["returncodes"] != [0, 0] or csvs != [True, False] \
+            or not result["checkpoints"]:
+        raise AssertionError(f"train --multihost: {result}\n"
+                             + "\n".join(o[-3000:] for o in outs))
+    return result
+
+
+def phase_parallel():
+    """Phase 17: every parallel mode on a 2-rank job, checkpoints, the
+    serving mesh and multi-host training."""
+    from visiontransformer_tpu_torch.models.registry import resolve_model
+    from visiontransformer_tpu_torch.models.vitseg import vitseg_apply
+    from visiontransformer_tpu_torch.parallel import launch
+
+    t_phase = time.perf_counter()
+    cards = torch.cuda.device_count()
+    result = {"ranks": 2, "cards": cards, "share_card": cards < 2,
+              "config": "P16H768A12", "classes": 17, "size": 224}
+    with tempfile.TemporaryDirectory() as tmp, _no_tf32():
+        ref = _parallel_reference(f"{tmp}/ref.pt")
+        del ref["grads"], ref["params"]
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ranks = launch.spawn(_parallel_rank, 2, (f"{tmp}/ref.pt", tmp),
+                             share_device=cards < 2, timeout=900)
+        result["job_s"] = time.perf_counter() - t0
+        rows = ranks[0]["rows"]
+        stage1 = ranks[1]["rows"]["pipeline"]["bf16"]["launches"]
+        failed = []
+        for name, row in rows.items():
+            fp32, bf16 = row["fp32"], row["bf16"]
+            want = {"flash_attention_fwd_train": 48,
+                    "flash_attention_bwd_dq": 48,
+                    "flash_attention_bwd_dkv": 48}
+            for rank in ranks:
+                got = rank["rows"][name]["bf16"]["launches"]
+                if any(got[k] != v for k, v in want.items()):
+                    failed.append(f"{name}: rank {rank['rank']} launches "
+                                  f"{got}")
+            if (fp32["loss_rel_diff"] > LOSS_RTOL or fp32["grads_failed"]
+                    or fp32.get("params_failed")
+                    or not np.isfinite(bf16["loss"])):
+                failed.append(f"{name}: {fp32} {bf16['loss']}")
+            emit("parallel_mode", mode=name, **row)
+        result["pipeline_stage1_launches"] = stage1
+        # The checkpoints, restored on this one rank.
+        images = torch.from_numpy(_parallel_batch(2, n=2)["image"]).cuda()
+        restored = {}
+        for name in PARALLEL_CHECKPOINTS:
+            path = rows[name]["fp32"]["checkpoint"]
+            _, model = resolve_model("vitseg", "P16H768A12",
+                                     num_classes=17, input_size=224,
+                                     compute_dtype="float32",
+                                     checkpoint_path=path, device="cuda")
+            with torch.no_grad():
+                got = vitseg_apply(model, images, attn_impl="flash").cpu()
+            want = torch.load(f"{tmp}/{name}_logits.pt", weights_only=True)
+            ok, err = close(got, want, *LOGITS_TOL)
+            restored[name] = {"path": os.path.basename(path),
+                              "logits_max_abs_err": err}
+            if not ok:
+                failed.append(f"restored {name} checkpoint: logits {err}")
+            del model
+        result["checkpoints"] = restored
+        reset, read = _kernel_launch_counts()
+        reset()
+        result["serving"] = _parallel_serving()
+        serving_launches = read()
+        result["multihost"] = _parallel_multihost(tmp)
+    result["launches"] = {k: ranks[0]["launches"][k] + ranks[1]["launches"][k]
+                          + serving_launches[k] for k in serving_launches}
+    result["seconds"] = time.perf_counter() - t_phase
+    emit("parallel", **result)
+    if failed:
+        raise AssertionError(f"parallel: {failed}")
+    return result
+
+
 def _forward_lines(peaks, flash_timed, flash_train):
     """One line per timed bf16 d = 64 shape: kernel 1, kernel 2 at dropout
     0 and 0.1 and SDPA's forward at both rates (device time), the bounds and
@@ -3841,6 +4263,7 @@ def main() -> int:
     conv = phase_conv_families()
     seg = phase_segformer_export_int8()
     reports = phase_reports_tools()
+    parallel = phase_parallel()
     emit("done", seconds=time.perf_counter() - t0,
          masks_per_s=model["bfloat16"]["masks_per_s"],
          jobs_per_s=serving["jobs_per_s"],
@@ -3908,6 +4331,11 @@ def main() -> int:
         row["conv_families_launches"] = conv["launches"][row["name"]]
         row["segformer_export_int8_launches"] = seg["launches"][row["name"]]
         row["reports_tools_launches"] = reports["launches"][row["name"]]
+        row["parallel_launches"] = parallel["launches"][row["name"]]
+    for row in variants:  # the sweeps' kernels stay off the parallel path
+        if row["parallel_launches"]:
+            raise AssertionError(f"{row['name']} launched on the parallel "
+                                 f"path")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -339,10 +339,12 @@ def test_restore_refuses_what_it_cannot_read(tmp_path):
                                epoch=0, step=0)
     with pytest.raises(ValueError, match="dict-rooted"):
         tio.restore_checkpoint(path, {"params": ViTSeg(t).state_dict()})
+    # A stacked (pipeline) checkpoint is unstacked onto a per-layer target
+    # (tests/test_torch_parallel_ckpt.py); one missing leaves still fails.
     stacked = {"backbone.layers.qkv.kernel": torch.zeros(2, 64, 192)}
     path = tio.save_checkpoint(str(tmp_path / "stacked"),
                                {"params": stacked}, epoch=0, step=0)
-    with pytest.raises(ValueError, match="pipeline"):
+    with pytest.raises(ValueError, match="different model configuration"):
         tio.restore_checkpoint(path, {"params": ViTSeg(t).state_dict()})
     with pytest.raises(FileNotFoundError):
         tio.restore_checkpoint(str(tmp_path))

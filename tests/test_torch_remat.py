@@ -128,7 +128,12 @@ def test_trainer_remat_step_equals_plain_step(jax_params):
     for name, (grad, value) in results[0][1].items():
         assert torch.equal(grad, results[1][1][name][0]), name
         assert torch.equal(value, results[1][1][name][1]), name
-    assert tcfg.TrainConfig(remat=True).not_ported() == []
+    # remat composes with the mesh fields; a pipeline whose stages do not
+    # divide the layers is refused as the TPU package refuses it.
+    with pytest.raises(ValueError, match="2 encoder layers must divide "
+                                         "over 3 pipeline stages"):
+        Trainer(cfg, tcfg.TrainConfig(remat=True, pipeline_stages=3),
+                device="cpu")
 
 
 @pytest.mark.parametrize("attn_impl", ["eager", "flash"])

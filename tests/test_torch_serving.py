@@ -86,7 +86,7 @@ def test_dispatch_masks_come_from_the_epilogue(monkeypatch, tiny_registry,
     monkeypatch.setattr(worker, "vitseg_predict", predict)
     pending = runner.dispatch(np.zeros((1, 32, 32, 3), np.uint8))
     assert seen[0]["mask_dtype"] == mask_dtype == runner.mask_dtype
-    assert pending._host is seen[1]
+    assert pending._parts[0][0] is seen[1]  # (host masks, event) a replica
     assert pending.resolve().shape == (1, 32, 32)
 
 

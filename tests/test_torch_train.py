@@ -115,9 +115,16 @@ def test_train_config_fields_and_defaults_match():
     for name in ("CE_TRAIN_DEFAULTS", "PAED_TRAIN_DEFAULTS"):
         assert (dataclasses.asdict(getattr(jcfg, name))
                 == dataclasses.asdict(getattr(tcfg, name)))
-    assert tcfg.CE_TRAIN_DEFAULTS.not_ported() == []
-    assert tcfg.TrainConfig(fsdp=True, mesh_shape=(2,)).not_ported() == [
-        "mesh_shape", "fsdp"]
+    # The parallelism fields are real: a composition the TPU package
+    # refuses, the port refuses with its message.
+    kw = dict(pipeline_stages=2, seq_parallel=True)
+    j, t = _configs()
+    with pytest.raises(ValueError) as want:
+        JaxTrainer(j, jcfg.TrainConfig(**kw), use_mesh=False)
+    with pytest.raises(ValueError) as got:
+        Trainer(t, tcfg.TrainConfig(**kw), device="cpu")
+    assert str(got.value) == str(want.value) == (
+        "pipeline_stages does not compose with fsdp/seq_parallel")
 
 
 # ------------------------------------------------------------------- losses
@@ -489,12 +496,26 @@ def test_train_command_on_cpu(tmp_path):
 
 
 def test_trainer_rejects_what_is_not_ported(tmp_path):
-    _, t = _configs()
-    with pytest.raises(NotImplementedError, match="fsdp"):
-        Trainer(t, tcfg.TrainConfig(fsdp=True), device="cpu")
+    """The trainer's refusals are the TPU package's shape errors: the
+    batch against the accumulation, a mesh larger than the job (one process
+    here, as JAX's one CPU device would be), a pipeline for a conv family;
+    a checkpoint directory alone starts no job."""
+    j, t = _configs()
+    cases = [dict(batch_size=6), dict(mesh_shape=(2, 1))]
+    for kw in cases:
+        with pytest.raises(ValueError) as got:
+            Trainer(t, tcfg.TrainConfig(**kw), device="cpu")
+        assert "divisible" in str(got.value) or "!= 1 devices" in str(
+            got.value), kw
     with pytest.raises(ValueError, match="divisible"):
-        Trainer(t, tcfg.TrainConfig(batch_size=6), device="cpu")
-    assert tcfg.TrainConfig(checkpoint_dir=str(tmp_path)).not_ported() == []
+        JaxTrainer(j, jcfg.TrainConfig(batch_size=6), use_mesh=False)
+    with pytest.raises(ValueError, match="pipeline parallelism is "
+                                         "implemented for the vitseg"):
+        Trainer(t, tcfg.TrainConfig(pipeline_stages=2), model="unet",
+                device="cpu")
+    trainer = Trainer(t, tcfg.TrainConfig(checkpoint_dir=str(tmp_path)),
+                      device="cpu")
+    assert trainer.plan is None
 
 
 def test_train_command_profile_dir_writes_a_trace(tmp_path):

@@ -15,8 +15,13 @@ through the reference's Lightning ``.ckpt`` (``ckpt/torch_convert.py``).
 ``restore_checkpoint`` keeps the TPU package's partial-restore semantics:
 keys missing on disk keep the target's values, keys on disk that the
 target lacks are ignored, params that do not fit raise, an optimizer state
-that does not fit warns and keeps the fresh one. The pipeline-stacked
-layer forms wait for the parallelism slice.
+that does not fit warns and keeps the fresh one. A pipeline checkpoint
+stores ``backbone.layers`` stacked, one tensor per leaf with a leading
+layer axis, and its optimizer state in the same form
+(``parallel/state.py``); a restore onto a per-layer target unstacks both,
+one onto a stacked target stacks them, so a checkpoint resumes and serves
+across modes with its Adam moments. A checkpoint written under a mesh
+holds the gathered full state in this same format (``parallel/plan.py``).
 """
 
 from __future__ import annotations
@@ -72,13 +77,6 @@ def _check_params(disk, target, path: str) -> None:
     if not isinstance(disk, Mapping):
         raise ValueError(f"checkpoint at {path}: params are a "
                          f"{type(disk).__name__}, not a state dict")
-    stacked = sorted({k.split(".")[2] for k in disk
-                      if k.startswith("backbone.layers.")
-                      and not k.split(".")[2].isdigit()})
-    if stacked:
-        raise ValueError(
-            f"checkpoint at {path} stores backbone.layers stacked "
-            f"({stacked}): pipeline-mode checkpoints are not ported yet")
     missing, extra = sorted(set(target) - set(disk)), sorted(
         set(disk) - set(target))
     shapes = [f"{k}: {tuple(disk[k].shape)} vs {tuple(t.shape)}"
@@ -92,23 +90,29 @@ def _check_params(disk, target, path: str) -> None:
             f"{shapes[:4]})")
 
 
-def _check_optimizer(disk, optimizer: torch.optim.Optimizer) -> None:
+def check_optimizer(disk, optimizer: torch.optim.Optimizer,
+                    shapes=None) -> None:
     """Raise ValueError unless ``disk`` is a state dict of ``optimizer``'s
     kind: the same groups with the same hyperparameters but the learning
     rate (which the plateau schedule lowers during a run; Adam and AdamW
-    differ in their weight decay), over parameters of the same shapes."""
+    differ in their weight decay), over parameters of the same shapes.
+    ``shapes``: the full model's parameter shapes in order, where the
+    optimizer holds this rank's parts of them (one group)."""
     groups = optimizer.param_groups
     if (not isinstance(disk, Mapping) or set(disk) != {"state", "param_groups"}
             or len(disk["param_groups"]) != len(groups)):
         raise ValueError("not a state dict of this optimizer's groups")
     params = []
+    skip = ("params", "lr", "foreach")  # foreach: torch's implementation
     for saved, group in zip(disk["param_groups"], groups):
-        hyper = {k: v for k, v in group.items() if k not in ("params", "lr")}
-        if ({k: v for k, v in saved.items() if k not in ("params", "lr")}
-                != hyper or len(saved["params"]) != len(group["params"])):
+        hyper = {k: v for k, v in group.items() if k not in skip}
+        targets = (group["params"] if shapes is None else
+                   [torch.empty(s, device="meta") for s in shapes])
+        if ({k: v for k, v in saved.items() if k not in skip}
+                != hyper or len(saved["params"]) != len(targets)):
             raise ValueError(f"parameter group {sorted(saved)} does not "
                              f"match {hyper}")
-        params += zip(saved["params"], group["params"])
+        params += zip(saved["params"], targets)
     for index, param in params:
         for key, value in disk["state"].get(index, {}).items():
             if (isinstance(value, torch.Tensor) and value.dim()
@@ -125,7 +129,7 @@ def _restore_key(key: str, disk, target, path: str):
     step) takes the value on disk."""
     if isinstance(target, torch.optim.Optimizer):
         try:
-            _check_optimizer(disk, target)
+            check_optimizer(disk, target)
         except ValueError as e:
             warnings.warn(
                 f"checkpoint key {key!r} at {path} does not match the "
@@ -168,9 +172,27 @@ def restore_checkpoint(path: str, target: Optional[Mapping] = None, *,
     if not partial and set(disk) != set(target):
         raise ValueError(f"checkpoint at {path} holds keys {sorted(disk)}, "
                          f"the target {sorted(target)}")
+    disk = _match_layer_form(disk, target.get("params"))
     return {key: (_restore_key(key, disk[key], value, path)
                   if key in disk else value)
             for key, value in target.items()}
+
+
+def _match_layer_form(disk: Mapping, target_params) -> Mapping:
+    """``disk`` with its params and optimizer state in the layer form of
+    ``target_params`` (stacked or per-layer)."""
+    from visiontransformer_tpu_torch.parallel.pipeline import is_stacked
+    from visiontransformer_tpu_torch.parallel.state import match_layer_form
+
+    if not (isinstance(target_params, Mapping)
+            and isinstance(disk.get("params"), Mapping)):
+        return disk
+    params, opt = match_layer_form(disk["params"], disk.get("opt_state"),
+                                   is_stacked(target_params))
+    out = {**disk, "params": params}
+    if "opt_state" in disk:
+        out["opt_state"] = opt
+    return out
 
 
 def get_latest_checkpoint(directory: str) -> Optional[str]:

@@ -4,6 +4,10 @@
   python -m visiontransformer_tpu_torch train --data data --model unet ...
   python -m visiontransformer_tpu_torch train --data data --task paed_binary ...
   python -m visiontransformer_tpu_torch train --data data --profile-dir prof ...
+  python -m visiontransformer_tpu_torch train --data data --mesh 4,2 --fsdp ...
+  python -m visiontransformer_tpu_torch train --data data --pipeline 2 --mesh 2,2 ...
+  python -m visiontransformer_tpu_torch train --data data --multihost \
+      --coordinator HOST:PORT --num-processes 2 --process-id 0 ...
   python -m visiontransformer_tpu_torch eval-sweep --data data --out test ...
   python -m visiontransformer_tpu_torch demo --image IMG.png --configs P16H768A12
   python -m visiontransformer_tpu_torch compare --dir test --out comparison
@@ -16,9 +20,12 @@
   python -m visiontransformer_tpu_torch register-model --name ...
   python -m visiontransformer_tpu_torch doctor
 
-The TPU package's ``cli.py`` commands of the same names, with the flags
-the port implements (mesh, parallelism and multi-host wait for their
-slice). ``export-serving`` replaces ``export-hlo``: it writes a
+The TPU package's ``cli.py`` commands of the same names and flags, but
+``--compilation-cache`` (an XLA cache, with no counterpart here).
+``train --mesh``/``--pipeline`` outside a torch.distributed job starts
+one rank per device of the mesh on this host (``parallel/launch.py``);
+``--multihost`` runs this host's ranks of a job that meets at
+``--coordinator`` (``parallel/multihost.py``). ``export-serving`` replaces ``export-hlo``: it writes a
 ``torch.export`` program (``ckpt/export.py``) for the device it runs on.
 ``convert-orbax`` turns a TPU-package Orbax checkpoint into one of the
 port's on a host with tensorstore (``ckpt/orbax_read.py``). ``doctor``
@@ -83,6 +90,36 @@ def _train_parser() -> argparse.ArgumentParser:
     t.add_argument("--max-epochs", type=int, default=100)
     t.add_argument("--accumulate", type=int, default=4)
     t.add_argument("--dtype", default="bfloat16")
+    t.add_argument("--mesh", default=None,
+                   help="dp or dp,tp mesh shape, e.g. 8 or 4,2")
+    t.add_argument("--fsdp", action="store_true",
+                   help="fully-sharded data parallelism (ZeRO-3): shard "
+                        "params/grads/optimizer moments over the mesh's "
+                        "data axis too")
+    t.add_argument("--seq-parallel", action="store_true",
+                   help="sequence parallelism: token-shard the residual "
+                        "stream over the tensor-parallel axis (needs a "
+                        "dp,tp mesh with tp > 1)")
+    t.add_argument("--pipeline", type=int, default=1, metavar="S",
+                   help="GPipe pipeline parallelism (vitseg): run the "
+                        "encoder as S stages over a (data,stage) mesh; "
+                        "each stage stores 1/S of the weights and Adam "
+                        "moments. --mesh is then read as dp,S "
+                        "(default: 1,S)")
+    t.add_argument("--pipeline-microbatches", type=int, default=None,
+                   help="in-flight microbatches per pipelined forward "
+                        "(default: S; bubble = (S-1)/(M+S-1))")
+    t.add_argument("--multihost", action="store_true",
+                   help="join a multi-host torch.distributed job and train "
+                        "over the pod-wide mesh (pass --coordinator/"
+                        "--num-processes/--process-id)")
+    t.add_argument("--coordinator", default=None,
+                   help="host:port of process 0 (multihost)")
+    t.add_argument("--num-processes", type=int, default=None)
+    t.add_argument("--process-id", type=int, default=None)
+    t.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel axis size of the pod mesh "
+                        "(multihost; dp = device_count / tp)")
     t.add_argument("--logs", default="logs")
     t.add_argument("--ckpt-dir", default=None,
                    help="checkpoint directory (default: checkpoints/ in "
@@ -98,7 +135,51 @@ def _train_parser() -> argparse.ArgumentParser:
     return t
 
 
+def _parse_mesh(arg):
+    if not arg:
+        return None
+    return tuple(int(x) for x in arg.split(","))
+
+
+def _job_size(args) -> int:
+    """The ranks ``train --mesh``/``--pipeline`` asks for."""
+    shape = _parse_mesh(args.mesh)
+    if args.pipeline > 1 and shape is None:
+        return args.pipeline
+    n = 1
+    for d in shape or ():
+        n *= d
+    return n
+
+
 def cmd_train(argv) -> int:
+    import torch
+
+    from visiontransformer_tpu_torch.parallel import launch
+
+    args = _train_parser().parse_args(argv)
+    device_type = torch.device(args.device).type
+    if args.multihost:
+        from visiontransformer_tpu_torch.parallel.multihost import (
+            run_multihost,
+        )
+
+        if (args.coordinator is None or args.num_processes is None
+                or args.process_id is None):
+            raise SystemExit("train --multihost needs --coordinator, "
+                             "--num-processes and --process-id")
+        return run_multihost(_train, (args,), coordinator=args.coordinator,
+                             num_processes=args.num_processes,
+                             process_id=args.process_id,
+                             device_type=device_type)
+    world = _job_size(args)
+    if world > 1 and not launch.in_job():
+        return launch.spawn(_train, world, (args,),
+                            device_type=device_type)[0]
+    return _train(args)
+
+
+def _train(args) -> int:
     from visiontransformer_tpu_torch.configs import (
         CE_TRAIN_DEFAULTS,
         PAED_TRAIN_DEFAULTS,
@@ -110,10 +191,14 @@ def cmd_train(argv) -> int:
         train_val_test_split,
     )
     from visiontransformer_tpu_torch.models.registry import model_config
+    from visiontransformer_tpu_torch.parallel import launch
     from visiontransformer_tpu_torch.train.trainer import Trainer
     from visiontransformer_tpu_torch.utils.csvlog import CSVLogger
 
-    args = _train_parser().parse_args(argv)
+    mesh = None
+    if args.multihost:
+        from visiontransformer_tpu_torch.parallel.multihost import pod_mesh
+        mesh, _ = pod_mesh(tp=args.tp)
     image_dir = os.path.join(args.data, "image_png")
     mask_dir = os.path.join(args.data, "mask_png")
     binary = args.task == "paed_binary"
@@ -143,21 +228,35 @@ def cmd_train(argv) -> int:
         PAED_TRAIN_DEFAULTS if binary else CE_TRAIN_DEFAULTS,
         batch_size=args.batch_size, max_epochs=args.max_epochs,
         accumulate_grad_batches=args.accumulate,
+        mesh_shape=_parse_mesh(args.mesh), fsdp=args.fsdp,
+        seq_parallel=args.seq_parallel, pipeline_stages=args.pipeline,
+        pipeline_microbatches=args.pipeline_microbatches,
         **({"learning_rate": args.lr} if args.lr else {}))
 
-    logger = CSVLogger(args.logs)
+    # Only the primary rank writes logs; every rank takes part in a
+    # checkpoint, so a job's checkpoint directory is the same path on every
+    # rank, not one derived from the primary's versioned log directory.
+    primary = launch.is_primary()
+    logger = CSVLogger(args.logs) if primary else None
     trainer = Trainer(seg_cfg, tcfg, task=args.task, model=args.model,
-                      device=args.device, logger=logger)
+                      device=args.device, logger=logger, mesh=mesh)
 
     def report(epoch, metrics):
-        line = " ".join(f"{k}={v:.4f}" for k, v in sorted(metrics.items()))
-        print(f"epoch {epoch}: {line}", flush=True)
+        if primary:
+            line = " ".join(f"{k}={v:.4f}"
+                            for k, v in sorted(metrics.items()))
+            print(f"epoch {epoch}: {line}", flush=True)
 
-    ckpt_dir = args.ckpt_dir or os.path.join(logger.log_dir, "checkpoints")
+    if launch.in_job():
+        ckpt_dir = args.ckpt_dir or os.path.join(args.logs, "checkpoints")
+    else:
+        ckpt_dir = args.ckpt_dir or os.path.join(logger.log_dir,
+                                                 "checkpoints")
     trainer.fit(train_ds, val_dataset=val_ds, checkpoint_dir=ckpt_dir,
                 resume_from=args.resume, profile_dir=args.profile_dir,
                 on_epoch_end=report)
-    print(f"logs: {logger.path}\ncheckpoints: {ckpt_dir}")
+    if primary:
+        print(f"logs: {logger.path}\ncheckpoints: {ckpt_dir}")
     return 0
 
 
@@ -484,8 +583,12 @@ def cmd_export(argv) -> int:
         "PyTorch-Lightning .ckpt (inverse of convert)",
         "output .ckpt file path").parse_args(argv)
     path = get_latest_checkpoint(args.ckpt) or args.ckpt
+    from visiontransformer_tpu_torch.parallel.pipeline import (
+        maybe_unstack_params,
+    )
+
     restored = restore_checkpoint(path)
-    params = restored.get("params", restored)
+    params = maybe_unstack_params(restored.get("params", restored))
     cfg = sweep_by_name(args.config).seg_config(num_classes=args.num_classes)
     print(save_lightning_checkpoint(
         args.out, params, cfg, epoch=parse_epoch(path) or 0,

@@ -3,17 +3,15 @@
 A copy of the TPU package's ``configs.py`` (``ViTConfig``, ``ViTSegConfig``,
 the 9-config sweep table, the named size presets, ``TrainConfig`` and the
 CE/PAED training defaults) with the same field names and defaults;
-``ViTSegConfig.dtype`` is a ``torch.dtype``. Fields the port does not use
-yet (the mesh and parallelism fields of ``TrainConfig``) are kept so that
-one configuration means the same model and schedule in both packages;
-``not_ported`` names those set away from their defaults, and the port's
-entry points reject them.
+``ViTSegConfig.dtype`` is a ``torch.dtype``. The mesh and parallelism
+fields of ``TrainConfig`` mean what they mean there; the port's trainer
+applies them over a torch.distributed job (``parallel/plan.py``).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -196,22 +194,13 @@ class TrainConfig:
     seed: int = 42
     log_every_n_steps: int = 50
     checkpoint_dir: Optional[str] = None
-    # Mesh, FSDP, sequence and pipeline parallelism: fields of the TPU
-    # package kept for parity; not ported yet (ROADMAP §1 item 8).
+    # Mesh, FSDP, sequence and pipeline parallelism (parallel/plan.py).
     mesh_shape: Optional[Tuple[int, ...]] = None
     fsdp: bool = False
     fsdp_min_size: Optional[int] = None
     seq_parallel: bool = False
     pipeline_stages: int = 1
     pipeline_microbatches: Optional[int] = None
-
-    def not_ported(self) -> List[str]:
-        """Fields set away from their defaults that the port does not
-        implement yet: parallelism (ROADMAP queue 1)."""
-        default = TrainConfig()
-        names = ("mesh_shape", "fsdp", "fsdp_min_size",
-                 "seq_parallel", "pipeline_stages", "pipeline_microbatches")
-        return [n for n in names if getattr(self, n) != getattr(default, n)]
 
 
 CE_TRAIN_DEFAULTS = TrainConfig()

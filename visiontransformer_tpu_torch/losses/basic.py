@@ -8,12 +8,15 @@ package's ``losses/basic.py``).
   (reference model/PAED/classes.py:679), including torch's clamp of each log
   term at -100.
 - ``dice_loss``: PAEDTrainer.dice_loss (reference model/PAED/classes.py:608-620):
-  flatten everything, 1 - (2I + s)/(sum_p + sum_t + s).
+  flatten everything, 1 - (2I + s)/(sum_p + sum_t + s). Under data
+  parallelism (``data_group``) the sums are the global batch's.
 """
 
 from __future__ import annotations
 
 import torch
+
+from visiontransformer_tpu_torch.parallel.launch import global_sum
 
 
 def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
@@ -33,10 +36,15 @@ def binary_cross_entropy(probs: torch.Tensor, targets: torch.Tensor) -> torch.Te
 
 
 def dice_loss(preds: torch.Tensor, targets: torch.Tensor,
-              smooth: float = 1e-6) -> torch.Tensor:
+              smooth: float = 1e-6, *, data_group=None) -> torch.Tensor:
     """Global (all pixels, all batch) soft Dice loss
-    (reference model/PAED/classes.py:608-620)."""
+    (reference model/PAED/classes.py:608-620); ``data_group``: sum over
+    the data-parallel ranks' rows too."""
     preds = preds.float().reshape(-1)
     targets = targets.float().reshape(-1)
     inter = torch.sum(preds * targets)
-    return 1.0 - (2.0 * inter + smooth) / (preds.sum() + targets.sum() + smooth)
+    p_sum, t_sum = preds.sum(), targets.sum()
+    if data_group is not None:
+        inter, p_sum, t_sum = global_sum(torch.stack([inter, p_sum, t_sum]),
+                                         data_group)
+    return 1.0 - (2.0 * inter + smooth) / (p_sum + t_sum + smooth)

@@ -26,6 +26,7 @@ from visiontransformer_tpu_torch.losses.basic import (
     dice_loss,
 )
 from visiontransformer_tpu_torch.ops.resize import resize_bilinear
+from visiontransformer_tpu_torch.parallel.launch import global_mean
 
 _SOBEL_X = ((1.0, 0.0, -1.0),
             (2.0, 0.0, -2.0),
@@ -33,14 +34,15 @@ _SOBEL_X = ((1.0, 0.0, -1.0),
 
 
 def paed_loss_soft(gt_sdf_ext: torch.Tensor, gt_sdf_int: torch.Tensor,
-                   preds: torch.Tensor) -> torch.Tensor:
+                   preds: torch.Tensor, *, data_group=None) -> torch.Tensor:
     """Soft PAED loss (reference model/PAED/classes.py:623-661).
 
     preds: (B, H, W, 1) probabilities in [0, 1]; gt_sdf_ext / gt_sdf_int:
     (B, Hs, Ws) normalised SDFs, resized here with the gather-form bilinear
     resize (align_corners=False, as the reference at :635-636). The edge
     map is normalised by its max per image with ``amax``, whose gradient
-    splits evenly among tied maxima, as ``jnp.max``'s does."""
+    splits evenly among tied maxima, as ``jnp.max``'s does. ``data_group``:
+    the two batch means over the data-parallel ranks' rows too."""
     preds = preds.float()
     b, h, w, _ = preds.shape
     sdf_ext = resize_bilinear(gt_sdf_ext.float(), (h, w))[..., None]
@@ -53,18 +55,22 @@ def paed_loss_soft(gt_sdf_ext: torch.Tensor, gt_sdf_int: torch.Tensor,
     max_per_image = torch.amax(edge_map, dim=(1, 2), keepdim=True)
     edge_map = (edge_map / (max_per_image + 1e-6))[..., None]  # (B, H, W, 1)
 
-    external_term = torch.mean(sdf_ext * edge_map)
-    internal_term = torch.mean(sdf_int * preds)
+    external_term = global_mean(torch.mean(sdf_ext * edge_map), data_group)
+    internal_term = global_mean(torch.mean(sdf_int * preds), data_group)
     return 1.0 * external_term - 0.5 * internal_term
 
 
 def paed_binary_total_loss(preds: torch.Tensor, masks: torch.Tensor,
-                           sdf_ext: torch.Tensor, sdf_int: torch.Tensor):
+                           sdf_ext: torch.Tensor, sdf_int: torch.Tensor, *,
+                           data_group=None):
     """BCE + 0.1·dice + 5.0·|paed| (reference model/PAED/classes.py:
-    679-681). Returns (total, {"bce", "dice", "paed"})."""
-    paed = paed_loss_soft(sdf_ext, sdf_int, preds)
+    679-681). Returns (total, {"bce", "dice", "paed"}). ``data_group``:
+    the dice's sums and the PAED term's means are the global batch's (the
+    BCE is a mean of rows, which the data-parallel average makes
+    global)."""
+    paed = paed_loss_soft(sdf_ext, sdf_int, preds, data_group=data_group)
     bce = binary_cross_entropy(preds, masks)
-    dce = dice_loss(preds, masks)
+    dce = dice_loss(preds, masks, data_group=data_group)
     total = bce + 0.1 * dce + 5.0 * torch.abs(paed)
     return total, {"bce": bce, "dice": dce, "paed": paed}
 

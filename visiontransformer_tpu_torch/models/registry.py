@@ -265,8 +265,14 @@ def resolve_model(family: str, config_name: str, *, num_classes: int,
 
 def _checkpoint_params(path: str, family: str, cfg):
     if os.path.isdir(path):
+        from visiontransformer_tpu_torch.parallel.pipeline import (
+            maybe_unstack_params,
+        )
+
         tree = restore_checkpoint(path)
-        return tree["params"] if "params" in tree else tree
+        # A pipeline checkpoint's layers are stacked: serve them per layer.
+        return maybe_unstack_params(tree["params"] if "params" in tree
+                                    else tree)
     if path.endswith(".ckpt"):
         if family != "vitseg":
             raise ValueError(

@@ -21,7 +21,12 @@ Two options of ``ViTConfig`` shape the encoder trunk (``vit_encode``):
   remat bit for bit (the TPU package passes ``fold_in(rng, i)`` into its
   checkpointed block instead).
 
-Sharding is not ported.
+Tensor and sequence parallelism (``parallel/tensor.py``): a block whose
+``tp`` attribute is set runs on its local heads and MLP slice, with the
+"model" collectives around its row- and column-parallel products; under
+sequence parallelism ``vit_encode`` token-shards the residual stream
+between the embedding and the final LayerNorm. ``vit_apply_pipelined``
+runs the encoder as a GPipe pipeline (``parallel/pipeline.py``).
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ from visiontransformer_tpu_torch.nn.layers import (
     Linear,
     dropout,
     gelu_exact,
+    linear,
 )
 from visiontransformer_tpu_torch.ops.attention import multi_head_attention
 from visiontransformer_tpu_torch.ops.token_merge import (
@@ -57,6 +63,12 @@ class EncoderLayer(nn.Module):
         self.ln2 = LayerNorm(h, eps)
         self.mlp_in = Linear(h, cfg.intermediate_size)
         self.mlp_out = Linear(cfg.intermediate_size, h)
+
+    def forward(self, x: torch.Tensor, cfg: ViTConfig, **kwargs
+                ) -> torch.Tensor:
+        """``encoder_layer``; called as a module, so that FSDP2 gathers
+        the block's weights around it."""
+        return encoder_layer(self, x, cfg, **kwargs)
 
 
 class ViT(nn.Module):
@@ -113,50 +125,80 @@ def _embed_patch_tokens(model: ViT, x: torch.Tensor, *, dtype: torch.dtype,
 
 def encoder_layer(layer: EncoderLayer, x: torch.Tensor, cfg: ViTConfig, *,
                   attn_impl: str, deterministic: bool = True,
-                  generator: Optional[torch.Generator] = None
-                  ) -> torch.Tensor:
-    b, n, h = x.shape
-    nh, hd = cfg.num_attention_heads, cfg.head_dim
+                  generator: Optional[torch.Generator] = None,
+                  tp_generator: Optional[torch.Generator] = None,
+                  n_tokens: Optional[int] = None) -> torch.Tensor:
+    """One pre-LN block. Under tensor parallelism (``layer.tp``) the
+    attention draws its dropout from ``tp_generator``, this "model" rank's
+    generator, as does the hidden dropout under sequence parallelism,
+    where x is a token shard of a sequence of ``n_tokens``."""
+    tp = getattr(layer, "tp", None)
+    b, n, _ = x.shape
+    hd = cfg.head_dim
     rate = cfg.hidden_dropout_prob
+    attn_generator, hidden_generator = generator, generator
+    if tp is not None:
+        attn_generator = tp_generator
+        n = n if n_tokens is None else n_tokens
+        if tp.seq_parallel:
+            hidden_generator = tp_generator
 
     y = layer.ln1(x)
-    qkv = layer.qkv(y).reshape(b, n, 3, nh, hd).permute(2, 0, 3, 1, 4)
+    if tp is not None:
+        y = tp.enter(y, n)
+    qkv = layer.qkv(y).reshape(b, n, 3, -1, hd).permute(2, 0, 3, 1, 4)
     attn = multi_head_attention(
         qkv[0], qkv[1], qkv[2], implementation=attn_impl,
-        dropout_rate=cfg.attention_probs_dropout_prob, generator=generator,
-        deterministic=deterministic)
-    attn = attn.transpose(1, 2).reshape(b, n, h)
-    x = x + dropout(layer.attn_out(attn), rate, generator=generator,
-                    deterministic=deterministic)
+        dropout_rate=cfg.attention_probs_dropout_prob,
+        generator=attn_generator, deterministic=deterministic)
+    attn = attn.transpose(1, 2).reshape(b, n, -1)
+    x = x + dropout(_row_parallel(layer.attn_out, attn, tp, n), rate,
+                    generator=hidden_generator, deterministic=deterministic)
 
     y = layer.ln2(x)
-    y = layer.mlp_out(gelu_exact(layer.mlp_in(y)))
-    return x + dropout(y, rate, generator=generator,
+    if tp is not None:
+        y = tp.enter(y, n)
+    y = _row_parallel(layer.mlp_out, gelu_exact(layer.mlp_in(y)), tp, n)
+    return x + dropout(y, rate, generator=hidden_generator,
                        deterministic=deterministic)
+
+
+def _row_parallel(module, x: torch.Tensor, tp, n: int) -> torch.Tensor:
+    """``module(x)``; under tensor parallelism the partial products are
+    reduced over "model" before the bias is added, once."""
+    if tp is None:
+        return module(x)
+    y = tp.exit(linear(x, module.kernel), n)
+    return y if module.bias is None else y + module.bias.to(y.dtype)
 
 
 def _remat_layer(layer: EncoderLayer, x: torch.Tensor, cfg: ViTConfig, *,
                  attn_impl: str, deterministic: bool,
-                 generator: Optional[torch.Generator]) -> torch.Tensor:
+                 generator: Optional[torch.Generator],
+                 tp_generator: Optional[torch.Generator] = None,
+                 n_tokens: Optional[int] = None) -> torch.Tensor:
     """encoder_layer under activation checkpointing. The first run draws
-    from the generator as usual; a recompute rewinds it to the state the
-    block started from, draws the same masks, and puts it back."""
-    start = None if generator is None else generator.get_state()
+    from the generators as usual; a recompute rewinds them to the states
+    the block started from, draws the same masks, and puts them back."""
+    generators = [g for g in (generator, tp_generator) if g is not None]
+    start = [g.get_state() for g in generators]
     runs = [0]
 
     def run(x):
         runs[0] += 1
-        replay = runs[0] > 1 and start is not None
+        replay = runs[0] > 1 and generators
         if replay:
-            now = generator.get_state()
-            generator.set_state(start)
+            now = [g.get_state() for g in generators]
+            for g, state in zip(generators, start):
+                g.set_state(state)
         try:
-            return encoder_layer(layer, x, cfg, attn_impl=attn_impl,
-                                 deterministic=deterministic,
-                                 generator=generator)
+            return layer(x, cfg, attn_impl=attn_impl,
+                         deterministic=deterministic, generator=generator,
+                         tp_generator=tp_generator, n_tokens=n_tokens)
         finally:  # also when the recompute stops early
             if replay:
-                generator.set_state(now)
+                for g, state in zip(generators, now):
+                    g.set_state(state)
 
     return checkpoint(run, x, use_reentrant=False)
 
@@ -166,17 +208,33 @@ def vit_encode(model: ViT, x: torch.Tensor, *, attn_impl: str,
                generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """Encoder blocks + final LayerNorm over embedded tokens, with the
     config's token merging (merge after each block, final LayerNorm, then
-    unmerge) and remat (only where a gradient is taken)."""
+    unmerge) and remat (only where a gradient is taken), and the blocks'
+    tensor and sequence parallelism."""
     cfg = model.cfg
     remat = cfg.remat and torch.is_grad_enabled()
+    tp = getattr(model.layers[0], "tp", None) if len(model.layers) else None
+    sp = tp is not None and tp.seq_parallel
+    if sp and cfg.token_merge_r:
+        raise ValueError("token merging needs every token of the sequence; "
+                         "it does not compose with sequence parallelism")
+    tp_generator = None
+    if tp is not None and not deterministic:
+        tp_generator = tp.fork(generator)
+    n = x.shape[1]
+    if sp:
+        x = tp.scatter(x)
     state = (init_merge_state(x.shape[0], x.shape[1], x.device)
              if cfg.token_merge_r else None)
     for layer in model.layers:
-        x = (_remat_layer if remat else encoder_layer)(
-            layer, x, cfg, attn_impl=attn_impl, deterministic=deterministic,
-            generator=generator)
+        kwargs = dict(attn_impl=attn_impl, deterministic=deterministic,
+                      generator=generator, tp_generator=tp_generator,
+                      n_tokens=n)
+        x = (_remat_layer(layer, x, cfg, **kwargs) if remat
+             else layer(x, cfg, **kwargs))
         if state is not None:
             x, state = merge_step(x, state, cfg.token_merge_r)
+    if sp:
+        x = tp.gather(x, n)
     x = model.final_ln(x)
     return x if state is None else unmerge(x, state)
 
@@ -204,3 +262,42 @@ def vit_apply_from_patch_tokens(model: ViT, patch_tokens: torch.Tensor, *,
                             deterministic=deterministic, generator=generator)
     return vit_encode(model, x, attn_impl=attn_impl,
                       deterministic=deterministic, generator=generator)
+
+
+def vit_apply_pipelined(model: ViT, images: torch.Tensor, pipe, *,
+                        attn_impl: str = "auto",
+                        dtype: torch.dtype = torch.float32,
+                        deterministic: bool = True,
+                        generator: Optional[torch.Generator] = None
+                        ) -> torch.Tensor:
+    """vit_apply with the encoder run as a GPipe pipeline over the mesh's
+    "stage" axis (``parallel/pipeline.py``); ``model.layers`` holds this
+    stage's layers. The embedding and the final LayerNorm run outside the
+    pipeline, on every stage. With dropout, each layer of each microbatch
+    draws from a generator seeded from (the step's generator's seed,
+    global layer, microbatch, data shard), as the TPU package folds its
+    keys: the same distribution as without the pipeline, the bits of this
+    schedule's own."""
+    from visiontransformer_tpu_torch.parallel.pipeline import pipeline_apply
+    from visiontransformer_tpu_torch.train.trainer import fold_seed
+
+    cfg = model.cfg
+    if cfg.token_merge_r:
+        raise ValueError("token merging does not compose with the pipeline")
+    x = vit_embed(model, images, dtype=dtype, deterministic=deterministic,
+                  generator=generator)
+    base = None if deterministic else generator.initial_seed()
+
+    def layer_fn(y: torch.Tensor, microbatch: int) -> torch.Tensor:
+        for j, layer in enumerate(model.layers):
+            g = None
+            if base is not None:
+                seed = fold_seed(fold_seed(fold_seed(
+                    base, pipe.first_layer + j), microbatch), pipe.data_rank)
+                g = torch.Generator(device=y.device).manual_seed(seed)
+            y = layer(y, cfg, attn_impl=attn_impl,
+                      deterministic=deterministic, generator=g)
+        return y
+
+    return model.final_ln(pipeline_apply(x, layer_fn, pipe,
+                                         list(model.layers.parameters())))

@@ -8,7 +8,9 @@ the output size. Activations are NHWC throughout, as in the TPU package.
 training forward (dropout in the backbone, fp32 logits at the input size).
 ``vitseg_predict_fused`` is the serving forward from raw images with the
 resize and normalize folded into the patch embedding
-(``ops/fused_preproc.py``).
+(``ops/fused_preproc.py``). ``vitseg_apply_pipelined`` runs the backbone's
+encoder as a GPipe pipeline (``parallel/pipeline.py``); a model whose
+``pipeline`` attribute the trainer set takes that forward.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from visiontransformer_tpu_torch.models.vit import (
     ViT,
     vit_apply,
     vit_apply_from_patch_tokens,
+    vit_apply_pipelined,
 )
 from visiontransformer_tpu_torch.nn.layers import Conv2d
 from visiontransformer_tpu_torch.ops.fused_preproc import (
@@ -46,10 +49,15 @@ class ViTSeg(nn.Module):
         self.backbone = ViT(cfg.vit)
         self.head_conv1 = Conv2d(cfg.vit.hidden_size, cfg.head_channels, 3)
         self.head_conv2 = Conv2d(cfg.head_channels, cfg.num_classes, 1)
+        self.pipeline = None  # a parallel.pipeline.Pipeline in that mode
 
     def forward(self, images: torch.Tensor, *, attn_impl: str = "auto",
                 deterministic: bool = True,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if self.pipeline is not None:
+            return vitseg_apply_pipelined(
+                self, images, self.pipeline, attn_impl=attn_impl,
+                deterministic=deterministic, generator=generator)
         return vitseg_apply(self, images, attn_impl=attn_impl,
                             deterministic=deterministic, generator=generator)
 
@@ -94,6 +102,21 @@ def vitseg_apply(model: ViTSeg, images: torch.Tensor, *,
     the input size by ``resize_bilinear_mm`` in fp32."""
     x = vitseg_head_logits(model, images, attn_impl=attn_impl,
                            deterministic=deterministic, generator=generator)
+    return resize_bilinear_mm(x.float(), (images.shape[1], images.shape[2]))
+
+
+def vitseg_apply_pipelined(model: ViTSeg, images: torch.Tensor, pipe, *,
+                           attn_impl: str = "auto",
+                           deterministic: bool = True,
+                           generator: Optional[torch.Generator] = None
+                           ) -> torch.Tensor:
+    """vitseg_apply with the encoder as stage ``pipe.stage`` of a GPipe
+    pipeline (``vit_apply_pipelined``); the head runs on every stage."""
+    tokens = vit_apply_pipelined(model.backbone, images, pipe,
+                                 attn_impl=attn_impl, dtype=model.cfg.dtype,
+                                 deterministic=deterministic,
+                                 generator=generator)
+    x = vitseg_head_from_tokens(model, tokens)
     return resize_bilinear_mm(x.float(), (images.shape[1], images.shape[2]))
 
 

@@ -617,6 +617,9 @@ def build_arg_parser():
     parser.add_argument("--device", default="cuda",
                         help="torch device of the inference worker; the CPU "
                              "runs only when asked for (--device cpu)")
+    parser.add_argument("--mesh", default=None,
+                        help="shard inference batches over a dp device "
+                             "mesh, e.g. --mesh 8 (multi-card serving)")
     return parser
 
 
@@ -632,8 +635,19 @@ def main(argv=None):  # pragma: no cover - manual entry point
                              description="ViT-B/16 multiclass damage model")
     worker = None
     if not args.no_worker:
+        mesh_shape = (tuple(int(x) for x in args.mesh.split(","))
+                      if args.mesh else None)
+        worker_kwargs = {}
+        if mesh_shape:
+            # every bucket must divide the dp axis; keep the ladder rungs
+            # that do (or synthesize dp-multiples)
+            from visiontransformer_tpu_torch.serve.worker import BUCKETS
+            dp = mesh_shape[0]
+            buckets = tuple(b for b in BUCKETS if b % dp == 0)
+            worker_kwargs["buckets"] = buckets or (dp, 2 * dp, 4 * dp)
         worker = InferenceWorker(store, warmup=not args.no_warmup,
-                                 device=args.device)
+                                 device=args.device, mesh_shape=mesh_shape,
+                                 **worker_kwargs)
         worker.start()
     server, _ = create_server(store, host=args.host, port=args.port,
                               worker=worker, orch_url=args.orch_url,

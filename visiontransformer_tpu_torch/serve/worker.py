@@ -17,10 +17,17 @@ in-process worker loop:
 
 Bucketing: batch sizes pad up to the next of BUCKETS, so each model sees
 only len(BUCKETS) input shapes.
+
+Serving mesh: ``ModelRunner(mesh_shape=(dp,))`` splits each bucket's rows
+over dp model replicas in this one process, one per device, each on its
+own CUDA stream, and gathers their uint8 masks (the TPU runner shards the
+batch over a dp mesh in one process too). Every bucket must divide by dp.
 """
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import json
 import os
 import threading
@@ -66,10 +73,26 @@ class ModelRunner:
     ``token_merge_r`` (ToMe merging, vitseg only) and ``quantize ==
     "int8"`` (W8A8: vitseg's encoder linears, the tree quantizer's linears
     and interior convs for every other family). ``device=None`` means
-    CUDA and raises without it."""
+    CUDA and raises without it.
+
+    mesh_shape=(dp,) (or (dp, 1)) serves over dp replicas on ``devices``
+    (default cuda:0 ... cuda:dp-1, which the host must have; an explicit
+    list may name a device twice, as the single-card check does): each
+    bucket's rows split into dp contiguous parts, one a replica, and the
+    masks gathered in row order. A 1-device mesh is plain placement."""
 
     def __init__(self, model_row: Dict, *, compute_dtype: str = "bfloat16",
-                 buckets: Sequence[int] = BUCKETS, device=None):
+                 buckets: Sequence[int] = BUCKETS, device=None,
+                 mesh_shape: Optional[Sequence[int]] = None,
+                 devices: Optional[Sequence] = None):
+        devices = _mesh_devices(mesh_shape, devices, device)
+        if devices is not None:
+            device = devices[0]
+            dp = len(devices)
+            if any(b % dp for b in buckets):
+                raise ValueError(
+                    f"every bucket size {tuple(sorted(buckets))} must be "
+                    f"divisible by the data-parallel axis ({dp})")
         self.device = resolve_device(device)
         self.buckets = tuple(sorted(buckets))
         self.input_size = model_row["input_size"]
@@ -100,6 +123,22 @@ class ModelRunner:
         # epilogue kernel writes them in that type.
         self.mask_dtype = (torch.uint8 if self.cfg.num_classes <= 256
                            else torch.int32)
+        # (device, model, stream) of each replica: one without a mesh.
+        self.replicas = [(self.device, self.model, None)]
+        if devices is not None:
+            self.replicas = [
+                (d, self.model if i == 0 else copy.deepcopy(self.model).to(d),
+                 torch.cuda.Stream(d) if d.type == "cuda" else None)
+                for i, d in enumerate(resolve_device(d) for d in devices)]
+
+    def _forward(self, model, images: np.ndarray, device) -> torch.Tensor:
+        x = torch.from_numpy(np.array(images, copy=True)).to(device)
+        x = x.float() / 255.0
+        if self.family == "vitseg":
+            return vitseg_predict(
+                model, x, out_size=(self.input_size, self.input_size),
+                mask_dtype=self.mask_dtype)
+        return torch.argmax(model(x), dim=-1).to(self.mask_dtype)
 
     @torch.inference_mode()
     def dispatch(self, images: np.ndarray):
@@ -117,15 +156,17 @@ class ModelRunner:
         if b < bucket:
             pad = np.zeros((bucket - b,) + images.shape[1:], images.dtype)
             images = np.concatenate([images, pad])
-        x = torch.from_numpy(np.array(images, copy=True)).to(self.device)
-        x = x.float() / 255.0
-        if self.family == "vitseg":
-            masks = vitseg_predict(
-                self.model, x, out_size=(self.input_size, self.input_size),
-                mask_dtype=self.mask_dtype)
-        else:
-            masks = torch.argmax(self.model(x), dim=-1).to(self.mask_dtype)
-        return _PendingMasks(masks, b)
+        if len(self.replicas) == 1:
+            return _PendingMasks([_to_host(self._forward(
+                self.model, images, self.device))], b)
+        parts = []
+        per = len(images) // len(self.replicas)
+        for i, (dev, model, stream) in enumerate(self.replicas):
+            rows = images[i * per:(i + 1) * per]
+            with (torch.cuda.stream(stream) if stream is not None
+                  else contextlib.nullcontext()):
+                parts.append(_to_host(self._forward(model, rows, dev)))
+        return _PendingMasks(parts, b)
 
     def predict(self, images: np.ndarray) -> np.ndarray:
         return self.dispatch(images).resolve()
@@ -139,28 +180,57 @@ class ModelRunner:
             self.predict(dummy)
 
 
-class _PendingMasks:
-    """Handle for an in-flight forward. On CUDA the masks copy to pinned
-    host memory without blocking and an event marks the copy's end;
-    resolve() waits for that event only, so a later batch can already be
-    running on the device."""
+def _mesh_devices(mesh_shape, devices, device) -> Optional[list]:
+    """The replicas' devices of a serving mesh, or None without one."""
+    if not mesh_shape:
+        return None
+    shape = tuple(mesh_shape)
+    if len(shape) > 2 or (len(shape) == 2 and shape[1] != 1):
+        raise ValueError(f"a serving mesh is (dp,) or (dp, 1); got {shape}")
+    dp = shape[0]
+    if devices is None:
+        if dp == 1:
+            return None
+        kind = torch.device("cuda" if device is None else device).type
+        if kind == "cuda" and dp > torch.cuda.device_count():
+            raise ValueError(f"mesh shape {shape} != "
+                             f"{torch.cuda.device_count()} devices")
+        devices = ([torch.device("cpu")] * dp if kind == "cpu"
+                   else [torch.device("cuda", i) for i in range(dp)])
+    if len(devices) != dp:
+        raise ValueError(f"mesh shape {shape} != {len(devices)} devices")
+    return None if dp == 1 else [torch.device(d) for d in devices]
 
-    def __init__(self, masks: torch.Tensor, n: int):
+
+def _to_host(masks: torch.Tensor):
+    """(host tensor, event or None): on CUDA the masks copy to pinned host
+    memory without blocking, on the current stream, and an event marks the
+    copy's end."""
+    if not masks.is_cuda:
+        return masks, None
+    host = torch.empty(masks.shape, dtype=masks.dtype, pin_memory=True)
+    host.copy_(masks, non_blocking=True)
+    event = torch.cuda.Event()
+    event.record()
+    return host, event
+
+
+class _PendingMasks:
+    """Handle for an in-flight forward: one (host masks, event) pair a
+    replica (``_to_host``). resolve() waits for those events only, so a
+    later batch can already be running on the device."""
+
+    def __init__(self, parts, n: int):
         self._n = n
-        self._event = None
-        if masks.is_cuda:
-            self._host = torch.empty(masks.shape, dtype=masks.dtype,
-                                     pin_memory=True)
-            self._host.copy_(masks, non_blocking=True)
-            self._event = torch.cuda.Event()
-            self._event.record()
-        else:
-            self._host = masks
+        self._parts = parts
 
     def resolve(self) -> np.ndarray:
-        if self._event is not None:
-            self._event.synchronize()
-        return self._host.numpy()[:self._n]
+        for _, event in self._parts:
+            if event is not None:
+                event.synchronize()
+        hosts = [host for host, _ in self._parts]
+        host = hosts[0] if len(hosts) == 1 else torch.cat(hosts)
+        return host.numpy()[:self._n]
 
 
 class InferenceWorker:
@@ -168,9 +238,12 @@ class InferenceWorker:
                  max_batch: int = BUCKETS[-1], linger: float = 0.005,
                  compute_dtype: str = "bfloat16", warmup: bool = True,
                  io_threads: int = 8, buckets: Sequence[int] = BUCKETS,
-                 device=None):
+                 device=None, mesh_shape: Optional[Sequence[int]] = None,
+                 devices: Optional[Sequence] = None):
         # None means CUDA; raises on a host without it (device.py).
         self.device = resolve_device(device)
+        # The serving mesh of every runner (ModelRunner's mesh_shape).
+        self.mesh_shape, self.devices = mesh_shape, devices
         self.warmup = warmup
         # Fewer buckets = fewer shapes to warm (faster cold start) at the
         # price of more batch padding; the full ladder minimizes padding.
@@ -290,7 +363,9 @@ class InferenceWorker:
             if row is None:
                 raise KeyError(f"unknown vision model {model_id}")
             runner = ModelRunner(row, compute_dtype=self.compute_dtype,
-                                 buckets=self.buckets, device=self.device)
+                                 buckets=self.buckets, device=self.device,
+                                 mesh_shape=self.mesh_shape,
+                                 devices=self.devices)
             if self.warmup:
                 runner.warmup()
             self._runners[model_id] = runner

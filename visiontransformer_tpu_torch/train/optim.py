@@ -26,15 +26,21 @@ from visiontransformer_tpu_torch.configs import TrainConfig
 
 
 def build_optimizer(cfg: TrainConfig,
-                    params: Iterable[torch.nn.Parameter]
+                    params: Iterable[torch.nn.Parameter], *,
+                    foreach: Optional[bool] = None
                     ) -> torch.optim.Optimizer:
     """Gradient accumulation is the trainer's (summed micro-batch
-    gradients, scaled by 1/accum before the step), not the optimizer's."""
+    gradients, scaled by 1/accum before the step), not the optimizer's.
+    ``foreach``: torch's implementation flag (False where FSDP's sharded
+    parameters and plain ones share the group, which the multi-tensor
+    kernels refuse)."""
     if cfg.optimizer == "adam":
-        return torch.optim.Adam(params, lr=cfg.learning_rate)
+        return torch.optim.Adam(params, lr=cfg.learning_rate,
+                                foreach=foreach)
     if cfg.optimizer == "adamw":
         return torch.optim.AdamW(params, lr=cfg.learning_rate,
-                                 weight_decay=cfg.weight_decay)
+                                 weight_decay=cfg.weight_decay,
+                                 foreach=foreach)
     raise ValueError(f"unknown optimizer {cfg.optimizer!r}")
 
 

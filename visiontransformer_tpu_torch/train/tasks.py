@@ -24,6 +24,15 @@ takes binary masks and makes its SDF targets on that device
 (``losses/sdf.py``); the reference computes them with scipy in its
 dataloader workers (model/PAED/classes.py:69). The metric dicts carry the
 TPU package's keys.
+
+Under data parallelism each rank holds its rows of the batch, and
+``data_group`` is the group of the data ranks: sums over the batch that a
+loss or metric divides (smp_multiclass's tp/fp/fn/tn, paed_anchored's hard
+IoU, paed_binary's dice, |PAED| and counts) are then reduced over it
+(``parallel/launch.py:global_sum``), so every rank computes the global
+batch's value, as the TPU package's mesh computes it over the global
+array; a mean over rows needs no reduction here (the trainer averages
+those over the ranks).
 """
 
 from __future__ import annotations
@@ -51,6 +60,7 @@ from visiontransformer_tpu_torch.metrics.segmentation import (
     soft_iou_score,
 )
 from visiontransformer_tpu_torch.ops.resize import resize_nearest_torch
+from visiontransformer_tpu_torch.parallel.launch import global_sum
 
 
 def _resize_target(y: torch.Tensor, size: int) -> torch.Tensor:
@@ -62,7 +72,8 @@ def _resize_target(y: torch.Tensor, size: int) -> torch.Tensor:
 
 def ce_loss_fn(model, batch, cfg, *,
                generator: Optional[torch.Generator] = None,
-               deterministic: bool = False, attn_impl: str = "auto"):
+               deterministic: bool = False, attn_impl: str = "auto",
+               data_group=None):
     """Multiclass CE training step body. batch: images (B,H,W,3) float,
     masks (B,Hm,Wm) int class indices."""
     images, masks = batch["image"], batch["mask"]
@@ -76,7 +87,7 @@ def ce_loss_fn(model, batch, cfg, *,
 def smp_multiclass_loss_fn(model, batch, cfg, *,
                            generator: Optional[torch.Generator] = None,
                            deterministic: bool = False,
-                           attn_impl: str = "auto"):
+                           attn_impl: str = "auto", data_group=None):
     """CE loss + smp-style aggregate metrics, the StructuralDamageModel
     training contract (reference model/CE/classes.py:133-198): per-step
     tp/fp/fn/tn -> micro / micro-imagewise IoU, accuracy, recall, F1."""
@@ -88,7 +99,8 @@ def smp_multiclass_loss_fn(model, batch, cfg, *,
     preds = torch.argmax(logits, dim=-1)
     tp, fp, fn, tn = multiclass_confusion_stats(preds, target,
                                                 cfg.num_classes)
-    tp_s, fp_s, fn_s, tn_s = (x.sum().float() for x in (tp, fp, fn, tn))
+    tp_s, fp_s, fn_s, tn_s = global_sum(torch.stack(
+        [x.sum().float() for x in (tp, fp, fn, tn)]), data_group)
     zero = torch.zeros((), device=loss.device)
     accuracy = (tp_s + tn_s) / (tp_s + fp_s + fn_s + tn_s)
     recall = torch.where(tp_s + fn_s > 0,
@@ -101,7 +113,8 @@ def smp_multiclass_loss_fn(model, batch, cfg, *,
     return loss, {
         "loss": loss,
         "per_image_iou": smp_iou_micro_imagewise(tp, fp, fn, tn),
-        "dataset_iou": smp_iou_micro(tp, fp, fn, tn),
+        "dataset_iou": (smp_iou_micro(tp, fp, fn, tn) if data_group is None
+                        else tp_s / (tp_s + fp_s + fn_s)),
         "accuracy": accuracy,
         "recall": recall,
         "f1_score": f1,
@@ -122,7 +135,7 @@ def _softmax_and_one_hot(model, batch, cfg, generator, deterministic,
 def paed_multiclass_loss_fn(model, batch, cfg, *,
                             generator: Optional[torch.Generator] = None,
                             deterministic: bool = False,
-                            attn_impl: str = "auto"):
+                            attn_impl: str = "auto", data_group=None):
     """Multiclass PAED flavor: softmax probabilities against the one-hot
     target under the Gaussian-smoothed PAED loss, plus the monitoring IoU
     (reference model/PAED/classes.py:448-467)."""
@@ -136,7 +149,7 @@ def paed_multiclass_loss_fn(model, batch, cfg, *,
 def paed_anchored_loss_fn(model, batch, cfg, *,
                           generator: Optional[torch.Generator] = None,
                           deterministic: bool = False,
-                          attn_impl: str = "auto"):
+                          attn_impl: str = "auto", data_group=None):
     """CE-anchored multiclass PAED: loss = CE + paed_multiclass_soft. The
     reference's pure-PAED multiclass objective collapses (blurred-space
     match at chance argmax accuracy), so the TPU package anchors it with
@@ -150,9 +163,12 @@ def paed_anchored_loss_fn(model, batch, cfg, *,
     tp, fp, fn, _ = multiclass_confusion_stats(preds, target,
                                                cfg.num_classes)
     union = tp + fp + fn
-    hard_iou = (torch.where(union > 0, tp / torch.clamp(union, min=1),
-                            0.0).sum()
-                / torch.clamp((union > 0).sum(), min=1))
+    ious = torch.where(union > 0, tp / torch.clamp(union, min=1), 0.0).sum()
+    present = (union > 0).sum()
+    if data_group is not None:
+        ious, present = global_sum(torch.stack([ious, present.float()]),
+                                   data_group)
+    hard_iou = ious / torch.clamp(present, min=1)
     return loss, {"loss": loss, "ce": ce, "paed": paed,
                   "iou": soft_iou_score(preds, target, cfg.num_classes),
                   "hard_iou": hard_iou}
@@ -161,7 +177,7 @@ def paed_anchored_loss_fn(model, batch, cfg, *,
 def paed_binary_loss_fn(model, batch, cfg, *,
                         generator: Optional[torch.Generator] = None,
                         deterministic: bool = False,
-                        attn_impl: str = "auto"):
+                        attn_impl: str = "auto", data_group=None):
     """Binary crack task: BCE + 0.1·dice + 5·|paed| with SDF targets made
     on the model's device. batch: images (B,H,W,3), masks (B,H,W) binary
     float; the model has one output class."""
@@ -174,20 +190,44 @@ def paed_binary_loss_fn(model, batch, cfg, *,
                    deterministic=deterministic, generator=generator)
     preds = torch.sigmoid(logits)  # (B, H, W, 1)
     loss, parts = paed_binary_total_loss(preds, masks[..., None].float(),
-                                         sdf_ext, sdf_int)
+                                         sdf_ext, sdf_int,
+                                         data_group=data_group)
     bin_preds = (preds > 0.5).int()[..., 0]
     gt = masks.int()
-    return loss, {
+    metrics = {
         "loss": loss,
         "bce": parts["bce"],
         "dice_loss": parts["dice"],
         "paed": parts["paed"],
         "acc": pixel_accuracy_binary(gt, bin_preds),
-        "IoU": iou_binary(gt, bin_preds),
-        "dice": dice_score_binary(gt, bin_preds),
-        "precision": precision_binary(gt, bin_preds),
-        "recall": recall_binary(gt, bin_preds),
     }
+    if data_group is None:
+        metrics.update(IoU=iou_binary(gt, bin_preds),
+                       dice=dice_score_binary(gt, bin_preds),
+                       precision=precision_binary(gt, bin_preds),
+                       recall=recall_binary(gt, bin_preds))
+    else:
+        metrics.update(_binary_metrics_global(gt, bin_preds, data_group))
+    return loss, metrics
+
+
+def _binary_metrics_global(gt: torch.Tensor, pred: torch.Tensor,
+                           data_group) -> dict:
+    """IoU, dice, precision and recall of ``metrics/segmentation.py`` from
+    the global batch's pixel counts."""
+    g, p = gt.bool(), pred.bool()
+    inter, union, n_gt, n_pred, fp, fn = global_sum(torch.stack([
+        torch.sum(g & p), torch.sum(g | p), torch.sum(g), torch.sum(p),
+        torch.sum(p & ~g), torch.sum(~p & g)]).float(), data_group)
+    eps = 1e-6
+
+    def ratio_or_zero(num, denom):
+        return torch.where(denom == 0, 0.0, num / torch.clamp(denom, min=1.0))
+
+    return {"IoU": (inter + eps) / (union + eps),
+            "dice": (2.0 * inter + eps) / (n_gt + n_pred + eps),
+            "precision": ratio_or_zero(inter, inter + fp),
+            "recall": ratio_or_zero(inter, inter + fn)}
 
 
 TASKS = {

@@ -24,9 +24,22 @@ package's does. ``TrainConfig.remat`` turns on ``ViTConfig.remat`` (per-block
 activation checkpointing, ``models/vit.py``) for vitseg and is ignored for
 the other families, as the TPU package's trainer does. A
 W8A8-quantized model (``ops/quant.py``) is refused: rounding has no
-gradient, so it would learn nothing. Not ported yet, and rejected when
-asked for: mesh, FSDP, sequence and pipeline parallelism, multi-host
-(ROADMAP queue 1).
+gradient, so it would learn nothing.
+
+Inside a torch.distributed job (``parallel/launch.py``; ``train --mesh``
+starts one), or with ``TrainConfig.mesh_shape`` or ``pipeline_stages``
+set, the trainer lays the model out over the job's ranks
+(``parallel/plan.py``): data parallelism with a DDP-style gradient
+average, Megatron tensor parallelism, FSDP2, sequence parallelism and the
+GPipe pipeline, with the TPU package's shape errors. Every rank builds the
+same global batch and takes its rows; micro-batch i of data rank d draws
+its dropout from ``fold_seed(fold_seed(seed, i), d)``; validation reduces
+its counts over "data", so ``fit``'s metrics are the global batch's; only
+rank 0 writes the CSV and tfevents logs and the profiler trace; every rank
+takes part in a checkpoint, which rank 0 writes with the gathered full
+state in the single-device format (stacked layers in pipeline mode) while
+the others wait at a barrier; a resume reads the full state on every rank
+and keeps each rank's part of it.
 
 Beside the CSV log, each epoch's metrics go to a tfevents file in the
 logger's directory at the same global step (``utils/tbevents.py``), as the
@@ -45,6 +58,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import time
+import warnings
 from typing import Callable, Dict, Iterable, Optional, Union
 
 import numpy as np
@@ -52,6 +66,7 @@ import torch
 
 from visiontransformer_tpu_torch.ckpt.convert import load_jax_params
 from visiontransformer_tpu_torch.ckpt.io import (
+    check_optimizer,
     get_latest_checkpoint,
     parse_epoch,
     restore_checkpoint,
@@ -62,6 +77,8 @@ from visiontransformer_tpu_torch.data.pipeline import batch_iterator, prefetch
 from visiontransformer_tpu_torch.device import resolve_device
 from visiontransformer_tpu_torch.models.registry import get_model_family
 from visiontransformer_tpu_torch.ops.quant import is_quantized
+from visiontransformer_tpu_torch.parallel import launch
+from visiontransformer_tpu_torch.parallel.plan import Plan, wants_plan
 from visiontransformer_tpu_torch.train.optim import (
     EarlyStopping,
     PlateauScheduler,
@@ -89,22 +106,26 @@ class Trainer:
                  task: str = "ce", *, model: str = "vitseg",
                  device: Optional[Union[str, torch.device]] = None,
                  logger: Optional[CSVLogger] = None,
-                 attn_impl: str = "auto"):
+                 attn_impl: str = "auto", mesh=None):
         """seg_cfg: the config of ``model``'s family (ViTSegConfig for
         vitseg, e.g. UNetConfig for unet). device: None means CUDA (raises
-        without it). attn_impl: the attention implementation of every step
-        ("auto" = the kernels on CUDA; the conv families have none)."""
-        self.device = resolve_device(device)
-        not_ported = train_cfg.not_ported()
-        if not_ported:
-            raise NotImplementedError(
-                f"TrainConfig fields not ported yet: {not_ported}")
+        without it); inside a job, the rank's own device
+        (``parallel/launch.py:device``). attn_impl: the
+        attention implementation of every step ("auto" = the kernels on
+        CUDA; the conv families have none). mesh: a ``DeviceMesh`` to train
+        over (``parallel/multihost.py:pod_mesh``); by default the job's
+        ranks in ``TrainConfig.mesh_shape``."""
+        planned = wants_plan(train_cfg, mesh)
+        self.device = (launch.device(device) if planned
+                       else resolve_device(device))
         if train_cfg.batch_size % train_cfg.accumulate_grad_batches != 0:
             raise ValueError(
                 f"batch_size={train_cfg.batch_size} must be divisible by "
                 f"accumulate_grad_batches={train_cfg.accumulate_grad_batches} "
                 f"(the step splits it into that many micro-batches)")
         self.model_family = get_model_family(model)
+        self.plan = (Plan(seg_cfg, train_cfg, model, mesh,
+                          device_type=self.device.type) if planned else None)
         if (train_cfg.remat and model == "vitseg"
                 and hasattr(seg_cfg, "vit") and not seg_cfg.vit.remat):
             seg_cfg = dataclasses.replace(
@@ -113,7 +134,8 @@ class Trainer:
         self.train_cfg = train_cfg
         self.task_name = task
         self.task_fn = get_task(task)
-        self.logger = logger
+        # Only the primary rank writes logs.
+        self.logger = logger if launch.is_primary() else None
         self.attn_impl = attn_impl
         self._checked_model = None  # the model train_step last accepted
         self._tb_writer = None
@@ -128,8 +150,12 @@ class Trainer:
         if params is not None:
             load_jax_params(model, params)
         model.to(self.device).train()
+        foreach = None
+        if self.plan is not None:
+            self.plan.build(model)
+            foreach = self.plan.foreach(model)
         return TrainState(model=model, optimizer=build_optimizer(
-            self.train_cfg, model.parameters()))
+            self.train_cfg, model.parameters(), foreach=foreach))
 
     # ----------------------------------------------------------------- steps
     def _place(self, batch) -> Dict[str, torch.Tensor]:
@@ -166,34 +192,57 @@ class Trainer:
                 f"accumulate_grad_batches={accum}; the trailing "
                 f"{total % accum} samples would be silently dropped")
         micro = total // accum
-        batch = self._place(batch)
+        plan = self.plan
         state.optimizer.zero_grad(set_to_none=True)
         metric_list = []
         for i in range(accum):
             part = {k: v[i * micro:(i + 1) * micro] for k, v in batch.items()}
+            micro_seed = fold_seed(seed, i)
+            if plan is not None:
+                part = plan.local_rows(part)
+                if plan.dp > 1:
+                    micro_seed = fold_seed(micro_seed, plan.data_rank)
             generator = torch.Generator(device=self.device).manual_seed(
-                fold_seed(seed, i))
+                micro_seed)
             loss, metrics = self.task_fn(
-                state.model, part, self.seg_cfg, generator=generator,
-                deterministic=False, attn_impl=self.attn_impl)
+                state.model, self._place(part), self.seg_cfg,
+                generator=generator, deterministic=False,
+                attn_impl=self.attn_impl, **self._reduce_kwargs())
             loss.backward()
             metric_list.append({k: v.detach() for k, v in metrics.items()})
+        if plan is not None:
+            plan.sync_grads(state.model)
         if accum > 1:
             grads = [p.grad for p in state.model.parameters()
                      if p.grad is not None]
-            torch._foreach_mul_(grads, 1.0 / accum)
+            # FSDP's sharded gradients and plain ones in separate calls.
+            for kind in {type(g) for g in grads}:
+                torch._foreach_mul_([g for g in grads if type(g) is kind],
+                                    1.0 / accum)
         state.optimizer.step()
         state.step += 1
-        return state, {k: torch.stack([m[k] for m in metric_list]).mean()
-                       for k in metric_list[0]}
+        metrics = {k: torch.stack([m[k] for m in metric_list]).mean()
+                   for k in metric_list[0]}
+        return state, (metrics if plan is None
+                       else plan.mean_metrics(metrics))
+
+    def _reduce_kwargs(self) -> dict:
+        """The tasks' batch-global sums reduce over "data" under a
+        mesh."""
+        group = None if self.plan is None else self.plan.reduce_group
+        return {} if group is None else {"data_group": group}
 
     def eval_step(self, model: torch.nn.Module,
                   batch) -> Dict[str, torch.Tensor]:
+        if self.plan is not None:
+            batch = self.plan.local_rows(batch)
         with torch.no_grad():
             _, metrics = self.task_fn(model, self._place(batch), self.seg_cfg,
                                       deterministic=True,
-                                      attn_impl=self.attn_impl)
-        return metrics
+                                      attn_impl=self.attn_impl,
+                                      **self._reduce_kwargs())
+        return metrics if self.plan is None else self.plan.mean_metrics(
+            metrics)
 
     # ------------------------------------------------------------------- fit
     def fit(self, train_dataset, val_dataset=None, *,
@@ -220,13 +269,16 @@ class Trainer:
         start_epoch = 0
         if resume_from:
             path = get_latest_checkpoint(resume_from) or resume_from
-            # Params-only checkpoints keep the fresh Adam moments (partial
-            # restore); the optimizer's state lands on the parameters'
-            # device.
-            restored = restore_checkpoint(
-                path, {"params": state.model.state_dict(),
-                       "opt_state": state.optimizer, "step": state.step})
-            state.step = int(restored["step"])
+            if self.plan is not None:
+                state.step = self._resume_parallel(state, path)
+            else:
+                # Params-only checkpoints keep the fresh Adam moments
+                # (partial restore); the optimizer's state lands on the
+                # parameters' device.
+                restored = restore_checkpoint(
+                    path, {"params": state.model.state_dict(),
+                           "opt_state": state.optimizer, "step": state.step})
+                state.step = int(restored["step"])
             ckpt_epoch = parse_epoch(path)
             start_epoch = ckpt_epoch + 1 if ckpt_epoch is not None else 0
 
@@ -249,7 +301,8 @@ class Trainer:
             for batch in prefetch(batch_iterator(
                     train_dataset, cfg.batch_size, shuffle=True,
                     seed=cfg.seed, epoch=epoch)):
-                if profile_dir and epoch == start_epoch and state.step == 2:
+                if (profile_dir and epoch == start_epoch and state.step == 2
+                        and launch.is_primary()):
                     profiler = self._start_trace(profile_dir)
                 with (torch.profiler.record_function(
                         f"train_step_{state.step}") if profiler
@@ -296,11 +349,7 @@ class Trainer:
             if on_epoch_end:
                 on_epoch_end(epoch, epoch_metrics)
             if checkpoint_dir:
-                save_checkpoint(checkpoint_dir,
-                                {"params": state.model.state_dict(),
-                                 "opt_state": state.optimizer.state_dict(),
-                                 "step": state.step},
-                                epoch=epoch, step=state.step)
+                self.save(state, checkpoint_dir, epoch=epoch)
 
             # ---- schedules (host-side) ----
             if plateau is not None:
@@ -312,6 +361,54 @@ class Trainer:
                 if monitored is not None and stopper.step(monitored):
                     break
         return state
+
+    def save(self, state: TrainState, checkpoint_dir: str, *,
+             epoch: int) -> Optional[str]:
+        """Write ``epoch=N-step=M`` with the model, optimizer and step;
+        under a mesh every rank takes part, rank 0 writes the gathered full
+        state and returns its path (None elsewhere), the others wait."""
+        if self.plan is None:
+            return save_checkpoint(
+                checkpoint_dir, {"params": state.model.state_dict(),
+                                 "opt_state": state.optimizer.state_dict(),
+                                 "step": state.step},
+                epoch=epoch, step=state.step)
+        full = self.plan.gather_state(state.model, state.optimizer)
+        path = None
+        if full is not None:
+            path = save_checkpoint(
+                checkpoint_dir, {"params": full[0], "opt_state": full[1],
+                                 "step": state.step},
+                epoch=epoch, step=state.step)
+        launch.barrier()
+        return path
+
+    def _resume_parallel(self, state: TrainState, path: str) -> int:
+        """Every rank reads the full checkpoint and keeps its parts: the
+        params (which must fit, in either layer form) and, where it fits
+        the optimizer, the optimizer state."""
+        from visiontransformer_tpu_torch.ckpt.io import _check_params
+        from visiontransformer_tpu_torch.parallel.state import (
+            match_layer_form,
+        )
+
+        disk = restore_checkpoint(path)
+        params, opt = match_layer_form(disk["params"], disk.get("opt_state"),
+                                       stacked=False)
+        plan = self.plan
+        _check_params(params, {n: torch.empty(s, device="meta")
+                               for n, s in plan.full_shapes.items()}, path)
+        if opt is not None:
+            try:
+                check_optimizer(opt, state.optimizer, shapes=[
+                    plan.full_shapes[n] for n in plan.full_names])
+            except ValueError as e:
+                warnings.warn(f"the optimizer state at {path} does not "
+                              f"match the target optimizer; keeping the "
+                              f"freshly-initialized state ({e})")
+                opt = None
+        plan.load_state(state.model, state.optimizer, params, opt)
+        return int(disk.get("step", state.step))
 
     def _start_trace(self, profile_dir: str):
         activities = [torch.profiler.ProfilerActivity.CPU]
