@@ -28,9 +28,14 @@ failure:
              vs its plain version (kernel 6's bf16exp mode also vs a plain
              version that rounds its exp as the card does), bf16, at
              (B*H, N, d) = (192, 1025, 64), (384, 197, 64) and
-             (24, 3137, 64), strided views of a fused QKV; one
-             configuration per kernel timed at the first two against its
-             plain version, kernel 1 and SDPA;
+             (24, 3137, 64), strided views of a fused QKV; at the first
+             two, every instantiation of kernels 6 and 8 (redesigned on
+             wgmma, "wgmma_tma") and one configuration each of 7 and 9
+             ("mma_sync") timed against kernel 1, SDPA and the bound,
+             one configuration per kernel against its plain version; each
+             line names its design (variant_path, chains_path), and one
+             line gives the registers and blocks an SM of each
+             "wgmma_tma" instantiation;
 3. upsample  fused upsample+argmax kernel (kernel 5), fp32 and bf16
              logits into int32 and uint8 masks, on every instantiation
              (epilogue_path) at the timed shapes and the edges of its row
@@ -628,9 +633,10 @@ VARIANT_SHAPES = ((16, 12, 1025), (32, 12, 197), (2, 12, 3137))
 
 
 def _variant_cases():
-    """(kernel, "config", kernel call, checks) for every instantiation of
-    kernels 6-9; checks are (label, plain call, flash_agrees tol), the
-    first against the kernel's own plain version, each at its block_k."""
+    """(kernel, "config", kernel call, checks, design) for every
+    instantiation of kernels 6-9; checks are (label, plain call,
+    flash_agrees tol), the first against the kernel's own plain version,
+    each at its block_k; design is variant_path's or chains_path's name."""
     from functools import partial
 
     from visiontransformer_tpu_torch.ops import flash_variants as fv
@@ -645,27 +651,43 @@ def _variant_cases():
                 checks.append((f"{config} card", partial(
                     fv.bf16exp_card_plain, block_k=bk), BF16EXP_CARD_TOL))
             cases.append(("flash_variant", config, partial(
-                fv.flash_variant, mode=mode, block_k=bk), checks))
+                fv.flash_variant, mode=mode, block_k=bk), checks,
+                fv.variant_path(mode, bk)))
     for bk in fv.CHAIN_BLOCK_KS:
-        for name, config, kernel, plain in (
+        for name, config, kernel, plain, chains, transposed in (
                 ("flash_multiq", "dualq", partial(fv.flash_multiq, chains=2),
-                 fv.multiq_plain),
+                 fv.multiq_plain, 2, False),
                 ("flash_multiq", "quadq", partial(fv.flash_multiq, chains=4),
-                 fv.multiq_plain),
-                ("flash_pvt", "pvT", fv.flash_pvt, fv.pvt_plain),
+                 fv.multiq_plain, 4, False),
+                ("flash_pvt", "pvT", fv.flash_pvt, fv.pvt_plain, 1, True),
                 ("flash_dualq_pvt", "dualq_pvT", fv.flash_dualq_pvt,
-                 fv.dualq_pvt_plain)):
+                 fv.dualq_pvt_plain, 2, True)):
             config = f"{config}/{bk}"
             cases.append((name, config, partial(kernel, block_k=bk),
-                          [(config, partial(plain, block_k=bk), None)]))
+                          [(config, partial(plain, block_k=bk), None)],
+                          fv.chains_path(chains, transposed, bk)))
     return cases
+
+
+def _variant_resources():
+    """Registers a thread, blocks an SM, threads, shared memory and spilled
+    bytes of every "wgmma_tma" instantiation (kernels 6 and 8), as the
+    card's runtime reports them."""
+    from visiontransformer_tpu_torch.ops import flash_variants as fv
+
+    out = {f"{mode}/{bk}": fv.variant_info(mode, bk)
+           for mode in fv.MODES for bk in fv.VARIANT_BLOCK_KS}
+    out.update({f"pvT/{bk}": fv.pvt_info(bk) for bk in fv.CHAIN_BLOCK_KS})
+    return out
 
 
 def phase_flash_variants(peaks, gen):
     """Kernels 6-9: both tuning sweeps at their defaults (the path that
     launches them and kernel 1, counted), then every instantiation and
-    kernel 1 against its plain version at VARIANT_SHAPES, and the listed
-    configurations timed. Returns the kernels-line entries."""
+    kernel 1 against its plain version at VARIANT_SHAPES, every
+    instantiation of kernels 6 and 8 and the listed configurations of 7
+    and 9 timed, each line naming its design. Returns the kernels-line
+    entries."""
     from visiontransformer_tpu_torch.ops import flash_variants as fv
     from visiontransformer_tpu_torch.ops.flash_attention import (
         flash_attention,
@@ -688,6 +710,8 @@ def phase_flash_variants(peaks, gen):
         raise AssertionError(f"sweeps missed a kernel: {launches_all}")
 
     cases = _variant_cases()
+    resources = _variant_resources()
+    emit("flash_variants_resources", **resources)
     entries = {}
     for b, h, n in VARIANT_SHAPES:
         qkv = torch.randn(b, n, 3, h, 64, generator=gen, device="cuda")
@@ -696,8 +720,9 @@ def phase_flash_variants(peaks, gen):
         checks, failed = {}, []
         # Kernel 1, the sweeps' production kernel, at the same shape.
         production = ("flash_attention", "flash_attention", flash_attention,
-                      [("flash_attention", flash_attention_plain, None)])
-        for _, _, kernel, kernel_checks in [production, *cases]:
+                      [("flash_attention", flash_attention_plain, None)],
+                      "wgmma")
+        for _, _, kernel, kernel_checks, _ in [production, *cases]:
             got = kernel(q, k, v)
             for label, plain, tol in kernel_checks:
                 want = plain(q, k, v)
@@ -716,7 +741,8 @@ def phase_flash_variants(peaks, gen):
                                  f"{row['shape']}: {checks}")
         if n == 1025:
             entries = {name: {**row["timing"][config],
-                              "max_abs_err": checks[config]["max_abs_err"]}
+                              "max_abs_err": checks[config]["max_abs_err"],
+                              "resources": resources.get(config)}
                        for name, (_, _, config) in VARIANT_KERNELS.items()}
         elif n == 197:
             for name, (_, _, config) in VARIANT_KERNELS.items():
@@ -727,31 +753,42 @@ def phase_flash_variants(peaks, gen):
              **{k: entries[name][k] for k in (
                  "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                  "library_ms")},
-             "config": config, "shape": [192, 1025, 64], "dtype": "bfloat16",
+             "config": config, "design": entries[name]["design"],
+             "resources": entries[name]["resources"],
+             "shape": [192, 1025, 64], "dtype": "bfloat16",
              "call_ms": entries[name]["call_ms"],
              "serving_shape": entries[name]["serving_shape"]}
             for name, (source, replaces, config) in VARIANT_KERNELS.items()]
 
 
+# The kernels whose every instantiation is timed (the redesigned ones).
+VARIANT_TIMED_ALL = ("flash_variant", "flash_pvt")
+
+
 def _time_variants(peaks, q, k, v, cases):
-    """Device time (``device_ms``) of each listed configuration and of
-    SDPA on the same inputs, with call_ms and plain_ms (CUDA events, back
-    to back) and the bound."""
+    """Device time (``device_ms``) of every instantiation of kernels 6 and
+    8, of the listed configurations of 7 and 9 and of SDPA on the same
+    inputs, with the bound and each case's design; call_ms and plain_ms
+    (CUDA events, back to back) of the listed configurations."""
     b, h, n, d = q.shape
     bound = bound_ms(peaks, 4 * b * h * n * d * q.element_size(),
                      4 * b * h * n * n * d, "bf16")
     library = device_ms(lambda: F.scaled_dot_product_attention(q, k, v))
     listed = {config for _, _, config in VARIANT_KERNELS.values()}
     timing = {}
-    for _, config, kernel, checks in cases:
+    for name, config, kernel, checks, design in cases:
+        if config not in listed and name not in VARIANT_TIMED_ALL:
+            continue
+        fn = lambda: kernel(q, k, v)
+        timing[config] = {"design": design, "ms": device_ms(fn),
+                          "library_ms": library, "bound_ms": bound[0],
+                          "bound_by": bound[1]}
+        timing[config]["ratio"] = timing[config]["ms"] / library
         if config in listed:
             plain = checks[0][1]  # the kernel's own plain version
-            fn = lambda: kernel(q, k, v)
-            timing[config] = {
-                "ms": device_ms(fn), "call_ms": time_ms(fn),
-                "plain_ms": time_ms(lambda: plain(q, k, v), 3, 1),
-                "library_ms": library, "bound_ms": bound[0],
-                "bound_by": bound[1]}
+            timing[config].update(
+                call_ms=time_ms(fn),
+                plain_ms=time_ms(lambda: plain(q, k, v), 3, 1))
     return timing
 
 

@@ -7,6 +7,9 @@ TPU. The port's plain versions of kernels 6-9 are held against them on the
 same numpy inputs at N = 200 (padded by the JAX call to 256, so keys past N
 are masked) and the JAX call's own ``block_k``. The CUDA kernels themselves
 are held against these plain versions on the card by chip_smoke.py.
+The names of the designs each instantiation runs on the card and the
+layout rules the wrappers check before a launch (TMA's, for the
+"wgmma_tma" kernels) are pure Python and are held here.
 
 The ``bf16exp`` mode's reference runs in a subprocess with XLA's excess
 precision off: by default XLA on the CPU skips the mode's bf16 roundings,
@@ -202,6 +205,103 @@ def test_wrappers_reject():
     m = torch.zeros(2, 8, 64, device="meta", dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="device"):
         fv.flash_dualq_pvt(m, m, m)
+
+
+@pytest.mark.parametrize("mode", fv.MODES)
+@pytest.mark.parametrize("block_k", fv.VARIANT_BLOCK_KS)
+def test_variant_path_names_every_instantiation(mode, block_k):
+    # Kernel 6 runs one design at every mode and key tile, so that the
+    # sweep's cases differ by the one lever.
+    assert fv.variant_path(mode, block_k) == "wgmma_tma"
+
+
+@pytest.mark.parametrize("block_k", fv.CHAIN_BLOCK_KS)
+@pytest.mark.parametrize("chains,transposed,design", [
+    (2, False, "mma_sync"), (4, False, "mma_sync"), (1, True, "wgmma_tma"),
+    (2, True, "mma_sync")])
+def test_chains_path_names_every_instantiation(chains, transposed, design,
+                                               block_k):
+    # Kernel 8 (one chain, transposed) moved to warpgroup products; kernels
+    # 7 and 9 are still on the mma.sync template.
+    assert fv.chains_path(chains, transposed, block_k) == design
+
+
+def test_design_names_refuse_what_no_kernel_runs():
+    with pytest.raises(ValueError, match="mode"):
+        fv.variant_path("exp10", 64)
+    with pytest.raises(ValueError, match="block_k"):
+        fv.variant_path("base", 48)
+    with pytest.raises(ValueError, match="block_k"):
+        fv.chains_path(1, True, 128)
+    for chains, transposed in ((1, False), (4, True), (3, False)):
+        with pytest.raises(ValueError, match="no kernel"):
+            fv.chains_path(chains, transposed, 64)
+
+
+def _fused_qkv(b=2, n=70, h=3):
+    """q, k, v as the model passes them: slices of one (B, N, 3, H, 64)
+    projection, (B, H, N, 64) views read in place."""
+    qkv = torch.zeros(b, n, 3, h, 64, dtype=torch.bfloat16)
+    return tuple(qkv.permute(2, 0, 3, 1, 4))
+
+
+@pytest.mark.parametrize("path", ["wgmma_tma", "mma_sync"])
+def test_kernel_views_take_strided_slices(path):
+    q, k, v = _fused_qkv()
+    views = fv.kernel_views("test", q, k, v, path)
+    assert [t.data_ptr() for t in views] == [q.data_ptr(), k.data_ptr(),
+                                            v.data_ptr()]
+    # (BH, N, d) gains the batch axis of length 1.
+    flat = torch.zeros(6, 70, 64, dtype=torch.bfloat16)
+    assert fv.kernel_views("test", flat, flat, flat, path)[0].shape == (
+        1, 6, 70, 64)
+
+
+@pytest.mark.parametrize("path", ["wgmma_tma", "mma_sync"])
+@pytest.mark.parametrize("bad", ["misaligned base", "odd row stride",
+                                 "strided last dim"])
+def test_kernel_views_refuse_unreadable_layouts(path, bad):
+    # Every design reads 16-byte rows: a base off a 16-byte boundary, a row
+    # stride that is not a multiple of 16 bytes, or a strided last
+    # dimension raise ValueError before any launch.
+    buf = torch.zeros(2 * 3 * 70 * 128 + 8, dtype=torch.bfloat16)
+    x = {"misaligned base": lambda: buf[1:1 + 2 * 3 * 70 * 64].view(
+             2, 3, 70, 64),
+         "odd row stride": lambda: buf[:2 * 3 * 70 * 68].view(
+             2, 3, 70, 68)[..., :64],
+         "strided last dim": lambda: buf[:2 * 3 * 70 * 128].view(
+             2, 3, 70, 128)[..., ::2]}[bad]()
+    y = torch.zeros(2, 3, 70, 64, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte"):
+        fv.kernel_views("test", x, y, y, path)
+
+
+@pytest.mark.parametrize("expand", ["heads", "batch"])
+def test_kernel_views_refuse_what_tma_cannot_read(expand):
+    # A key shared across heads (or batches) by a stride of 0: the mma_sync
+    # kernels read it in place, TMA takes no stride of 0 on a dimension
+    # longer than 1, so the wgmma_tma kernels refuse it before a launch.
+    q = torch.zeros(2, 3, 70, 64, dtype=torch.bfloat16)
+    k = (torch.zeros(2, 1, 70, 64, dtype=torch.bfloat16).expand(2, 3, 70, 64)
+         if expand == "heads" else
+         torch.zeros(1, 3, 70, 64, dtype=torch.bfloat16).expand(2, 3, 70, 64))
+    assert fv.kernel_views("test", q, k, q, "mma_sync")[1].data_ptr() == (
+        k.data_ptr())
+    with pytest.raises(ValueError, match="TMA"):
+        fv.kernel_views("test", q, k, q, "wgmma_tma")
+    # On the CPU the wrapper runs the plain version, whatever the layout.
+    assert torch.equal(fv.flash_pvt(q, k, q), fv.pvt_plain(q, k, q))
+
+
+def test_launch_strides_give_tma_a_stride_for_length_one_axes():
+    # A length-1 axis may carry any stride (0 after expand); the kernels
+    # never step along it, and TMA is given 8 elements (16 bytes) there.
+    q = torch.zeros(2, 3, 70, 64, dtype=torch.bfloat16)
+    one = torch.zeros(1, 64, dtype=torch.bfloat16).expand(1, 1, 1, 64)
+    assert fv._launch_strides(q) == [3 * 70 * 64, 70 * 64, 64]
+    assert fv._launch_strides(q[:1]) == [8, 70 * 64, 64]
+    assert fv._launch_strides(one) == [8, 8, 8]
+    assert fv.kernel_views("test", one, one, one, "wgmma_tma")[0] is one
 
 
 @pytest.mark.parametrize("sweep,cases", [

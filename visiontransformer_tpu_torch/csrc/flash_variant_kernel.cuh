@@ -1,19 +1,19 @@
-// The kernels behind the flash-attention tuning sweeps (flash_variants.cu,
-// flash_chains.cu): inference attention, softmax(Q K^T * d^-1/2) V, at
-// d = 64 in bf16, computed online over key tiles of kBlockK keys, one
-// template per lever the sweeps pull:
+// The kernels behind two of the flash-attention tuning sweeps' kernels
+// (flash_chains.cu): inference attention, softmax(Q K^T * d^-1/2) V, at
+// d = 64 in bf16, base mode (p = expf(s - m)), computed online over key
+// tiles of kBlockK keys, one template per lever:
 //
-//   kMode        the softmax form (kernel 6, scripts/tune_flash2.py:
-//                _variant_kernel): kBase exp, kBf16Exp exp in bf16, kExp2
-//                exp2((s - m) * log2 e);
 //   kBlockK      the key-tile width, which is also how often the running
 //                max is updated (once per tile, as the TPU kernels update
 //                it once per block_k keys);
 //   kChains      independent 16-row online-softmax chains per warp
 //                (kernel 7, scripts/tune_flash3.py:_multiq_kernel);
 //   kTransposed  S^T = K Q^T and O^T = V^T P^T, the softmax reducing down
-//                the keys of each column (kernels 8 and 9, _pvt_kernel and
-//                _dualq_pvt_kernel).
+//                the keys of each column (kernel 9, _dualq_pvt_kernel).
+//
+// This is the mma.sync design ("mma_sync", ops/flash_variants.py:
+// chains_path). Kernels 6 and 8 moved to warpgroup products
+// (flash_variant_wgmma.cuh); kernels 7 and 9 follow on the same base.
 //
 // What bounds them: at the sweeps' shape (B*H = 192, N = 1025, d = 64,
 // bf16) the function needs 4 * B*H*N^2*d = 51.6 GFLOP (0.052 ms at
@@ -21,8 +21,7 @@
 // 3.35 TB/s): the tensor cores, and the exponentials and reductions
 // between the two products, not memory.
 //
-// Design, shared by every variant so that the sweeps compare one lever at a
-// time:
+// Design, shared by both so that the sweeps compare one lever at a time:
 //   - every block owns 128 query rows of one (batch, head) and walks all of
 //     its keys; a warp owns kChains tiles of 16 rows, so a block has
 //     8 / kChains warps and the K/V traffic per row is the same for every
@@ -66,8 +65,6 @@ constexpr int kRowStride = kD + kPad;   // bf16 per K/V row in shared memory
 constexpr int kSteps = kD / 16;         // k-steps of a product over d
 constexpr int kOutTiles = kD / 8;       // n-tiles of O
 
-enum Mode : int { kBase = 0, kBf16Exp = 1, kExp2 = 2 };
-
 template <int kBlockK, int kChains>
 struct Config {
   static_assert(kBlockK % 16 == 0, "key tiles are whole k-steps of P V");
@@ -87,26 +84,6 @@ __device__ __forceinline__ uint32_t movmatrix_trans(uint32_t x) {
   asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n"
                : "=r"(y) : "r"(x));
   return y;
-}
-
-// 2^x of a bf16 pair, in bf16 (sm_90: one instruction for two values).
-__device__ __forceinline__ uint32_t ex2_bf16x2(uint32_t x) {
-  uint32_t y;
-  asm("ex2.approx.ftz.bf16x2 %0, %1;\n" : "=r"(y) : "r"(x));
-  return y;
-}
-
-// exp of x0, x1 as the TPU kernel's bf16 mode takes it: x rounded to bf16,
-// then exp computed in bf16, here as the bf16 ex2 of x * log2(e) with the
-// product rounded to bf16 (in fp32 first: log2(e) itself would lose 2^-9 in
-// bf16). On sm_90a the ex2 is MUFU.EX2.BF16, which rounds 2^y toward zero.
-// torch's bf16 exp computes in fp32 and rounds to nearest, so the kernel
-// differs from its plain version by the product's rounding and the
-// truncation (chip_smoke.py, BF16EXP_TOL); bf16exp_card_plain
-// (ops/flash_variants.py) rounds as the kernel does (BF16EXP_CARD_TOL).
-__device__ __forceinline__ uint32_t exp_bf16x2(float x0, float x1) {
-  const float2 x = unpack2(pack2f(x0, x1));
-  return ex2_bf16x2(pack2f(x.x * kLog2e, x.y * kLog2e));
 }
 
 // Issue the copies of one K and one V tile (keys key0 .. key0 + kBlockK - 1)
@@ -134,7 +111,7 @@ __device__ __forceinline__ void stage_tile(bf16* ks, bf16* vs, const bf16* kb,
 
 // ------------------------------------------------------------- row layout
 // S = Q K^T with queries on the rows of the C fragment (kernel 1's layout).
-template <int kMode, int kBlockK, int kChains>
+template <int kBlockK, int kChains>
 __global__ void __launch_bounds__(Config<kBlockK, kChains>::kThreads)
 rows_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
             const bf16* __restrict__ v, bf16* __restrict__ o, Strides sq,
@@ -237,18 +214,8 @@ rows_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int c = 0; c < kChains; ++c) {
         const float m_new[2] = {fmaxf(m[c][0], mx[c][0]),
                                 fmaxf(m[c][1], mx[c][1])};
-        if constexpr (kMode == kBf16Exp) {
-          const float2 a = unpack2(
-              exp_bf16x2(m[c][0] - m_new[0], m[c][1] - m_new[1]));
-          alpha[c][0] = a.x;
-          alpha[c][1] = a.y;
-        } else if constexpr (kMode == kExp2) {
-          alpha[c][0] = exp2f((m[c][0] - m_new[0]) * kLog2e);
-          alpha[c][1] = exp2f((m[c][1] - m_new[1]) * kLog2e);
-        } else {
-          alpha[c][0] = expf(m[c][0] - m_new[0]);
-          alpha[c][1] = expf(m[c][1] - m_new[1]);
-        }
+        alpha[c][0] = expf(m[c][0] - m_new[0]);
+        alpha[c][1] = expf(m[c][1] - m_new[1]);
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
           l[c][r] *= alpha[c][r];
@@ -260,19 +227,11 @@ rows_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           for (int r = 0; r < 2; ++r) {
             const float x0 = s[c][nt][2 * r] - m_new[r];
             const float x1 = s[c][nt][2 * r + 1] - m_new[r];
-            if constexpr (kMode == kBf16Exp) {
-              p[c][nt][r] = exp_bf16x2(x0, x1);
-              const float2 pf = unpack2(p[c][nt][r]);
-              l[c][r] += pf.x + pf.y;
-            } else {
-              // base: the full-accuracy expf (no -use_fast_math), the
-              // function the TPU kernel computes, so that base against exp2
-              // prices exactly the lever "exp vs exp2".
-              const float p0 = kMode == kExp2 ? exp2f(x0 * kLog2e) : expf(x0);
-              const float p1 = kMode == kExp2 ? exp2f(x1 * kLog2e) : expf(x1);
-              l[c][r] += p0 + p1;
-              p[c][nt][r] = pack2f(p0, p1);
-            }
+            // The full-accuracy expf (no -use_fast_math), the function
+            // the TPU kernel computes.
+            const float p0 = expf(x0), p1 = expf(x1);
+            l[c][r] += p0 + p1;
+            p[c][nt][r] = pack2f(p0, p1);
           }
         }
       }
@@ -338,7 +297,7 @@ rows_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 // -------------------------------------------------------- transposed layout
 // S^T = K Q^T with keys on the rows and queries on the columns of the C
-// fragment; O^T = V^T P^T. Base mode (the TPU kernels 8 and 9 use exp).
+// fragment; O^T = V^T P^T (kernel 9; the TPU kernel uses exp).
 template <int kBlockK, int kChains>
 __global__ void __launch_bounds__(Config<kBlockK, kChains>::kThreads)
 cols_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -569,16 +528,14 @@ cudaError_t run(Kernel kernel, int threads, int smem_bytes, const void* q,
 
 // Launch one variant. Above 48 KB of shared memory a kernel must opt in,
 // once per instantiation.
-template <int kMode, int kBlockK, int kChains, bool kTransposed>
+template <int kBlockK, int kChains, bool kTransposed>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    Strides sq, Strides sk, Strides sv, Strides so, int batch,
                    int heads, int n, float scale, cudaStream_t stream) {
   using Cfg = Config<kBlockK, kChains>;
-  static_assert(!kTransposed || kMode == kBase,
-                "the transposed kernels compute base mode");
   auto kernel = [] {
     if constexpr (kTransposed) return cols_kernel<kBlockK, kChains>;
-    else return rows_kernel<kMode, kBlockK, kChains>;
+    else return rows_kernel<kBlockK, kChains>;
   }();
   static const cudaError_t opt_in =
       Cfg::kSmemBytes > 48 * 1024

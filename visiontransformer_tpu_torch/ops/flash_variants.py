@@ -17,7 +17,11 @@ over key tiles of ``block_k`` keys:
 
 They feed the redesign of kernel 1 (``flash_attention``) and are run by the
 sweeps ``visiontransformer_tpu_torch.scripts.tune_flash2`` and
-``tune_flash3``, not by the model.
+``tune_flash3``, not by the model. ``variant_path`` and ``chains_path``
+name the design each instantiation runs on the card: "wgmma_tma"
+(kernels 6 and 8: warpgroup products fed by a TMA ring,
+``csrc/flash_variant_wgmma.cuh``) or "mma_sync" (kernels 7 and 9,
+``csrc/flash_variant_kernel.cuh``).
 
 Inputs are (BH, N, 64) as the JAX scripts take them, or (B, H, N, 64);
 the output has the input's shape. ``block_k`` is the kernel's key-tile
@@ -26,7 +30,10 @@ at the same keys and round at the same places; rows per block, chains and
 the transpose only schedule the work, and the plain versions ignore them.
 A CPU tensor runs the plain version (fp32 or bf16); a CUDA tensor (bf16,
 last dimension contiguous, rows 16-byte aligned, strided views allowed)
-launches the kernel or raises. Head dims other than 64 raise everywhere.
+launches the kernel or raises. The "wgmma_tma" kernels read through TMA,
+which also needs every stride of a dimension longer than 1 to be a
+positive multiple of 16 bytes below 2^40 bytes; other views raise
+``ValueError`` before a launch. Head dims other than 64 raise everywhere.
 """
 
 from __future__ import annotations
@@ -40,7 +47,6 @@ from visiontransformer_tpu_torch.ops import _build
 from visiontransformer_tpu_torch.ops.flash_attention import (
     _kernel_layout,
     _stream,
-    _strides,
 )
 
 NEG_INF = -1e30
@@ -49,16 +55,24 @@ HEAD_DIM = 64
 MODES = ("base", "bf16exp", "exp2")
 VARIANT_BLOCK_KS = (32, 64, 128)  # key tiles kernel 6 is built for
 CHAIN_BLOCK_KS = (32, 64)         # key tiles kernels 7-9 are built for
+# (chains, transposed) of kernels 7 (2 or 4 chains), 8 and 9.
+CHAIN_SCHEDULES = ((2, False), (4, False), (1, True), (2, True))
 _MODE_CODES = {"base": 0, "bf16exp": 1, "exp2": 2}
+_TMA_MAX_STRIDE = 2 ** 39  # elements: a TMA stride stays below 2^40 bytes
 
 _ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 3
          + [ctypes.c_float, ctypes.c_void_p])
+_INFO = ctypes.POINTER(ctypes.c_int)
 _SIGNATURES = {
-    "flash_variants": {"vt_flash_variant": ([ctypes.c_int] * 2 + _ARGS,
-                                            ctypes.c_int)},
-    "flash_chains": {"vt_flash_chains": ([ctypes.c_int] * 3 + _ARGS,
-                                         ctypes.c_int)},
+    "flash_variants": {
+        "vt_flash_variant": ([ctypes.c_int] * 2 + _ARGS, ctypes.c_int),
+        "vt_flash_variant_info": ([ctypes.c_int] * 2 + [_INFO], ctypes.c_int)},
+    "flash_chains": {
+        "vt_flash_chains": ([ctypes.c_int] * 3 + _ARGS, ctypes.c_int),
+        "vt_flash_chains_info": ([ctypes.c_int] * 3 + [_INFO], ctypes.c_int)},
 }
+_INFO_FIELDS = ("registers", "blocks_per_sm", "threads", "smem_bytes",
+                "spill_bytes")
 
 
 # ----------------------------------------------------------- plain versions
@@ -85,7 +99,7 @@ def bf16exp_card_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Kernel 6's ``bf16exp`` mode as the CUDA kernel rounds it: exp of the
     bf16 x taken as the bf16 exp2 of y = x·log2 e, y rounded to bf16, and
     2^y rounded toward zero to bf16, as the card's bf16 exp2 instruction
-    (``exp_bf16x2`` in ``csrc/flash_variant_kernel.cuh``) rounds it. (The
+    (``exp_bf16x2`` in ``csrc/flash_variant_wgmma.cuh``) rounds it. (The
     instruction also flushes a subnormal 2^y to zero and returns 1 for some
     y next to 0 but not 0; on standard-normal inputs such p and x are
     vanishingly rare, and such p add nothing.)
@@ -165,6 +179,55 @@ def dualq_pvt_plain(q, k, v, *, block_k: int = 64) -> torch.Tensor:
     return variant_plain(q, k, v, mode="base", block_k=block_k)
 
 
+# ------------------------------------------------------------ design names
+def variant_path(mode: str, block_k: int) -> str:
+    """Which design kernel 6 runs on the card for (mode, block_k):
+    "wgmma_tma" at every mode and key tile (consumer warpgroups of 64
+    query rows on ``wgmma`` products, two a block or three at 64-key
+    tiles, K/V by TMA from a producer warp;
+    ``csrc/flash_variant_wgmma.cuh``)."""
+    _check_mode(mode)
+    _check_block_k(block_k, VARIANT_BLOCK_KS)
+    return "wgmma_tma"
+
+
+def chains_path(chains: int, transposed: bool, block_k: int) -> str:
+    """Which design kernels 7-9 run on the card for (chains, transposed,
+    block_k): "wgmma_tma" for kernel 8 (chains 1, transposed: Oᵀ = Vᵀ·Pᵀ
+    with the features on wgmma's M and a warpgroup's 64 queries on its N),
+    "mma_sync" for kernels 7 (2 or 4 chains) and 9 (2 chains,
+    transposed), on the earlier ``mma.sync`` template."""
+    _check_block_k(block_k, CHAIN_BLOCK_KS)
+    if (chains, bool(transposed)) not in CHAIN_SCHEDULES:
+        raise ValueError(f"no kernel for chains={chains}, "
+                         f"transposed={transposed}")
+    return "wgmma_tma" if (chains, bool(transposed)) == (1, True) \
+        else "mma_sync"
+
+
+def _info(lib_name: str, fn_name: str, *codes) -> dict:
+    lib = _build.load(lib_name, _SIGNATURES[lib_name])
+    out = (ctypes.c_int * len(_INFO_FIELDS))()
+    _build.check(lib, getattr(lib, fn_name)(*codes, out), fn_name)
+    return dict(zip(_INFO_FIELDS, out))
+
+
+def variant_info(mode: str, block_k: int) -> dict:
+    """What the card's runtime reports of kernel 6's (mode, block_k)
+    instantiation: registers a thread, blocks an SM, threads a block,
+    dynamic shared memory and spilled bytes a thread. Needs CUDA."""
+    _check_mode(mode)
+    _check_block_k(block_k, VARIANT_BLOCK_KS)
+    return _info("flash_variants", "vt_flash_variant_info",
+                 _MODE_CODES[mode], block_k)
+
+
+def pvt_info(block_k: int) -> dict:
+    """``variant_info`` of kernel 8 at ``block_k``. Needs CUDA."""
+    _check_block_k(block_k, CHAIN_BLOCK_KS)
+    return _info("flash_chains", "vt_flash_chains_info", 1, 1, block_k)
+
+
 # ----------------------------------------------------------------- wrappers
 def _check_shapes(q, k, v) -> None:
     if q.dim() not in (3, 4) or k.shape != q.shape or v.shape != q.shape:
@@ -185,7 +248,32 @@ def _check_block_k(block_k: int, allowed) -> None:
         raise ValueError(f"block_k must be one of {allowed}, got {block_k}")
 
 
-def _cuda_views(name: str, q, k, v):
+def _tma_layout(t: torch.Tensor) -> bool:
+    """Whether TMA can read the (B, H, N, 64) view t, besides
+    ``_kernel_layout``: every stride of a dimension longer than 1 is a
+    positive multiple of 16 bytes below 2^40 bytes."""
+    return all(size == 1 or (0 < stride < _TMA_MAX_STRIDE and stride % 8 == 0)
+               for size, stride in zip(t.shape[:3], t.stride()[:3]))
+
+
+def kernel_views(name: str, q, k, v, path: str):
+    """(B, H, N, 64) views of q, k, v as the design ``path`` reads them;
+    ``ValueError`` for a layout it cannot read, before any launch."""
+    views = [t if t.dim() == 4 else t.unsqueeze(0) for t in (q, k, v)]
+    b, h = views[0].shape[:2]
+    if b * h > 65535:
+        raise ValueError(f"{name}: B*H = {b * h} exceeds 65535")
+    if not all(_kernel_layout(t) for t in views):
+        raise ValueError(f"{name}: the last dimension must be contiguous and "
+                         f"rows must start on 16-byte boundaries")
+    if path == "wgmma_tma" and not all(_tma_layout(t) for t in views):
+        raise ValueError(f"{name}: TMA reads strides that are positive "
+                         f"multiples of 16 bytes below 2^40 bytes, got "
+                         f"{[t.stride()[:3] for t in views]}")
+    return views
+
+
+def _cuda_views(name: str, q, k, v, path: str):
     """(B, H, N, 64) views of CUDA q, k, v as the kernels take them."""
     if q.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {q.device}")
@@ -194,14 +282,14 @@ def _cuda_views(name: str, q, k, v):
     if any(t.dtype != torch.bfloat16 for t in (q, k, v)):
         raise TypeError(f"{name}: the kernels take bfloat16, got "
                         f"{[t.dtype for t in (q, k, v)]}")
-    views = [t if t.dim() == 4 else t.unsqueeze(0) for t in (q, k, v)]
-    b, h = views[0].shape[:2]
-    if b * h > 65535:
-        raise ValueError(f"{name}: B*H = {b * h} exceeds 65535")
-    if not all(_kernel_layout(t) for t in views):
-        raise ValueError(f"{name}: the last dimension must be contiguous and "
-                         f"rows must start on 16-byte boundaries")
-    return views
+    return kernel_views(name, q, k, v, path)
+
+
+def _launch_strides(*tensors):
+    """``_strides``, with 8 (16 bytes, a stride TMA takes) for a dimension
+    of length 1, whose stride the kernels never multiply by more than 0."""
+    return [s if size > 1 else 8 for t in tensors
+            for size, s in zip(t.shape[:3], t.stride()[:3])]
 
 
 def _launch(lib_name: str, fn_name: str, codes, q, k, v, out) -> None:
@@ -211,7 +299,7 @@ def _launch(lib_name: str, fn_name: str, codes, q, k, v, out) -> None:
     with torch.cuda.device(q.device):
         err = getattr(lib, fn_name)(
             *codes, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            *_strides(q, k, v, out), b, h, n, 1.0 / math.sqrt(d),
+            *_launch_strides(q, k, v, out), b, h, n, 1.0 / math.sqrt(d),
             _stream(q.device))
     _build.check(lib, err, fn_name)
 
@@ -225,7 +313,8 @@ def flash_variant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _check_block_k(block_k, VARIANT_BLOCK_KS)
     if q.device.type == "cpu":
         return variant_plain(q, k, v, mode=mode, block_k=block_k)
-    q4, k4, v4 = _cuda_views("flash_variant", q, k, v)
+    q4, k4, v4 = _cuda_views("flash_variant", q, k, v,
+                             variant_path(mode, block_k))
     out = torch.empty(q4.shape, dtype=q.dtype, device=q.device)
     _launch("flash_variants", "vt_flash_variant", (_MODE_CODES[mode], block_k),
             q4, k4, v4, out)
@@ -234,7 +323,8 @@ def flash_variant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def _chains(name: str, chains: int, transposed: bool, q, k, v, block_k):
-    q4, k4, v4 = _cuda_views(name, q, k, v)
+    q4, k4, v4 = _cuda_views(name, q, k, v,
+                             chains_path(chains, transposed, block_k))
     b, h, n, d = q4.shape
     if transposed:
         # Oᵀ, (B, H, d, N), as the TPU kernel writes (bh, d, n_pad); the

@@ -17,7 +17,7 @@ from visiontransformer_tpu_torch.ops.flash_variants import HEAD_DIM
 
 ITERS = 12   # launches per timed round
 ROUNDS = 4   # timed rounds; the best counts
-LABEL = 40   # width of a case's label
+LABEL = 48   # width of a case's label
 
 
 def parse(argv: Optional[List[str]], description: str) -> argparse.Namespace:

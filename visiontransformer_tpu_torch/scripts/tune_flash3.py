@@ -6,15 +6,21 @@ with its schedule changed, one lever at a time.
   dualq / quadq  2 / 4 independent 16-row online-softmax chains per warp
                  (kernel 7, ``flash_multiq``): while one chain computes its
                  exponentials, another's mma.sync products can issue;
-  pvT            S^T = K Q^T and O^T = V^T P^T (kernel 8, ``flash_pvt``);
-                 P^T is transposed in registers (movmatrix), O^T lands as
+  pvT            O^T = V^T P^T (kernel 8, ``flash_pvt``) on Hopper's
+                 warpgroup products: the 64 features on wgmma's M, the
+                 queries on its N, P^T through shared memory; O^T lands as
                  (bh, 64, N);
-  dualq_pvT      both (kernel 9, ``flash_dualq_pvt``).
+  dualq_pvT      two chains, S^T = K Q^T and O^T = V^T P^T on mma.sync
+                 (kernel 9, ``flash_dualq_pvt``).
 
-Every block holds 128 query rows, so chains trade warps per block for
-independent work per warp at equal K/V traffic. Key tiles are 32 and 64
-keys, the port's own choice. "1 chain" lines run kernel 6 in base mode at
-the same tiles, the schedule the chains are measured against. The
+Kernels 6 and 8 run one base ("wgmma_tma", ``chains_path``: warpgroups
+of 64 queries, K and V by TMA; kernel 6 runs three warpgroups a block at
+64-key tiles, kernel 8 two, as their registers allow), kernels 7 and 9
+the earlier one ("mma_sync", 128 query rows a block), so "1 chain" lines (kernel 6
+in base mode at the same key tiles) compare with pvT on one base, and
+with the chains only across designs until kernels 7 and 9 move to it.
+Each label ends with its design in brackets. Key tiles are 32 and 64
+keys. The
 transposed cases are timed as the kernel alone (the (bh, N, 64) view of
 its output) and with the transpose to a contiguous (bh, N, 64). Each case
 prints its time, TFLOP/s (4·BH·N²·d / t) and its error against the
@@ -35,19 +41,21 @@ import torch
 
 from visiontransformer_tpu_torch.ops.flash_variants import (
     CHAIN_BLOCK_KS,
+    chains_path,
     flash_dualq_pvt,
     flash_multiq,
     flash_pvt,
     flash_variant,
+    variant_path,
 )
 from visiontransformer_tpu_torch.scripts import sweep
 
-# name -> (kernel, its schedule arguments, computed transposed)
+# name -> (kernel, its schedule arguments, chains, computed transposed)
 KERNELS = {
-    "dualq": (flash_multiq, {"chains": 2}, False),
-    "quadq": (flash_multiq, {"chains": 4}, False),
-    "pvT": (flash_pvt, {}, True),
-    "dualq_pvT": (flash_dualq_pvt, {}, True),
+    "dualq": (flash_multiq, {"chains": 2}, 2, False),
+    "quadq": (flash_multiq, {"chains": 4}, 4, False),
+    "pvT": (flash_pvt, {}, 1, True),
+    "dualq_pvT": (flash_dualq_pvt, {}, 2, True),
 }
 
 
@@ -58,15 +66,17 @@ def main(argv=None) -> int:
         for block_k in CHAIN_BLOCK_KS:
             run = lambda: flash_variant(q, k, v, mode="base", block_k=block_k)
             err = sweep.rel_err(run(), ref)
-            sweep.report(f"1 chain (base, block_k={block_k})",
+            sweep.report(f"1 chain (base, block_k={block_k}) "
+                         f"[{variant_path('base', block_k)}]",
                          sweep.timed(run, device), args.n, args.bh)
             sweep.print_err(err)
         best = {}
-        for name, (kernel, schedule, transposed) in KERNELS.items():
+        for name, (kernel, schedule, chains, transposed) in KERNELS.items():
             for block_k in CHAIN_BLOCK_KS:
                 run = lambda: kernel(q, k, v, block_k=block_k, **schedule)
                 err = sweep.rel_err(run(), ref)
-                label = f"{name} (block_k={block_k})"
+                label = (f"{name} (block_k={block_k}) "
+                         f"[{chains_path(chains, transposed, block_k)}]")
                 best[label] = sweep.timed(run, device)
                 sweep.report(label, best[label], args.n, args.bh)
                 if transposed:
