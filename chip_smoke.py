@@ -21,21 +21,22 @@ failure:
              at the same rates (one flash_forward line per shape, printed
              at the end with those of flash_train's timed shapes);
 2b. flash_variants  the tuning sweeps' kernels (6: softmax forms; 7:
-             q chains per warp; 8, 9: transposed P·V): both port sweeps
+             2 or 4 interleaved chains; 8, 9: transposed P·V), all on
+             warpgroup products ("wgmma_tma"): both port sweeps
              (scripts/tune_flash2, tune_flash3) at their defaults, with
              their launches and kernel 1's counted; then every
              instantiation, and kernel 1 (the sweeps' production kernel),
              vs its plain version (kernel 6's bf16exp mode also vs a plain
              version that rounds its exp as the card does), bf16, at
              (B*H, N, d) = (192, 1025, 64), (384, 197, 64) and
-             (24, 3137, 64), strided views of a fused QKV; at the first
-             two, every instantiation of kernels 6 and 8 (redesigned on
-             wgmma, "wgmma_tma") and one configuration each of 7 and 9
-             ("mma_sync") timed against kernel 1, SDPA and the bound,
-             one configuration per kernel against its plain version; each
-             line names its design (variant_path, chains_path), and one
-             line gives the registers and blocks an SM of each
-             "wgmma_tma" instantiation;
+             (24, 3137, 64), strided views of a fused QKV, and at the
+             edges of their 64-row chains and 256-query blocks (B*H = 2,
+             N = 1, 65, 257; checked, not timed); at the first two shapes
+             every instantiation timed against kernel 1, SDPA and the
+             bound, one configuration per kernel against its plain
+             version; each line names its design (variant_path,
+             chains_path), and one line gives the registers, blocks an SM
+             and spilled bytes of every instantiation;
 3. upsample  fused upsample+argmax kernel (kernel 5), fp32 and bf16
              logits into int32 and uint8 masks, on every instantiation
              (epilogue_path) at the timed shapes and the edges of its row
@@ -630,6 +631,10 @@ VARIANT_KERNELS = {
 # (B, H, N): the sweeps' shape (BH = 192, N = 1025), the serving shape
 # (384, 197) and (24, 3137); the first two are timed.
 VARIANT_SHAPES = ((16, 12, 1025), (32, 12, 197), (2, 12, 3137))
+# (B, H, N) of the edges, checked only: one key and one live row; a second
+# 64-row chain with one live row beside a warpgroup with none; a 256-query
+# block with one live row (and kernel 6's peeled tiles, first and last).
+VARIANT_EDGE_SHAPES = ((1, 2, 1), (1, 2, 65), (1, 2, 257))
 
 
 def _variant_cases():
@@ -669,25 +674,45 @@ def _variant_cases():
     return cases
 
 
+# The sweep names of kernels 7-9 by (chains, transposed).
+CHAIN_NAMES = {(2, False): "dualq", (4, False): "quadq", (1, True): "pvT",
+               (2, True): "dualq_pvT"}
+
+
 def _variant_resources():
     """Registers a thread, blocks an SM, threads, shared memory and spilled
-    bytes of every "wgmma_tma" instantiation (kernels 6 and 8), as the
-    card's runtime reports them."""
+    bytes of every instantiation of kernels 6-9, as the card's runtime
+    reports them."""
     from visiontransformer_tpu_torch.ops import flash_variants as fv
 
     out = {f"{mode}/{bk}": fv.variant_info(mode, bk)
            for mode in fv.MODES for bk in fv.VARIANT_BLOCK_KS}
-    out.update({f"pvT/{bk}": fv.pvt_info(bk) for bk in fv.CHAIN_BLOCK_KS})
+    out.update({f"{CHAIN_NAMES[schedule]}/{bk}": fv.chains_info(*schedule, bk)
+                for schedule in fv.CHAIN_SCHEDULES
+                for bk in fv.CHAIN_BLOCK_KS})
     return out
+
+
+def _check_variants(cases, q, k, v, checks, failed):
+    """Every case of ``cases`` on q, k, v against its plain versions,
+    into ``checks`` by label; failed labels appended to ``failed``."""
+    for _, _, kernel, kernel_checks, _ in cases:
+        got = kernel(q, k, v)
+        for label, plain, tol in kernel_checks:
+            want = plain(q, k, v)
+            torch.cuda.synchronize()
+            ok, checks[label] = flash_agrees(got, want, tol)
+            if not ok:
+                failed.append(label)
 
 
 def phase_flash_variants(peaks, gen):
     """Kernels 6-9: both tuning sweeps at their defaults (the path that
     launches them and kernel 1, counted), then every instantiation and
     kernel 1 against its plain version at VARIANT_SHAPES, every
-    instantiation of kernels 6 and 8 and the listed configurations of 7
-    and 9 timed, each line naming its design. Returns the kernels-line
-    entries."""
+    instantiation timed at the first two, each line naming its design;
+    then every instantiation at VARIANT_EDGE_SHAPES, checked only.
+    Returns the kernels-line entries."""
     from visiontransformer_tpu_torch.ops import flash_variants as fv
     from visiontransformer_tpu_torch.ops.flash_attention import (
         flash_attention,
@@ -722,14 +747,7 @@ def phase_flash_variants(peaks, gen):
         production = ("flash_attention", "flash_attention", flash_attention,
                       [("flash_attention", flash_attention_plain, None)],
                       "wgmma")
-        for _, _, kernel, kernel_checks, _ in [production, *cases]:
-            got = kernel(q, k, v)
-            for label, plain, tol in kernel_checks:
-                want = plain(q, k, v)
-                torch.cuda.synchronize()
-                ok, checks[label] = flash_agrees(got, want, tol)
-                if not ok:
-                    failed.append(label)
+        _check_variants([production, *cases], q, k, v, checks, failed)
         row = {"shape": [b * h, n, 64], "checks": checks}
         if n in (1025, 197):
             row["timing"] = _time_variants(peaks, q, k, v, cases)
@@ -747,6 +765,17 @@ def phase_flash_variants(peaks, gen):
         elif n == 197:
             for name, (_, _, config) in VARIANT_KERNELS.items():
                 entries[name]["serving_shape"] = row["timing"][config]
+    for b, h, n in VARIANT_EDGE_SHAPES:
+        qkv = torch.randn(b, n, 3, h, 64, generator=gen, device="cuda")
+        q, k, v = qkv.to(torch.bfloat16).permute(2, 0, 3, 1, 4)
+        checks, failed = {}, []
+        _check_variants(cases, q, k, v, checks, failed)
+        worst = max(checks.values(), key=lambda f: f["max_abs_err"])
+        emit("flash_variants_edge", shape=[b * h, n, 64], cases=len(checks),
+             failed=failed, worst_max_abs_err=worst["max_abs_err"])
+        if failed:
+            raise AssertionError(f"sweep kernels {failed} disagree at "
+                                 f"{[b * h, n, 64]}: {checks}")
     src = "visiontransformer_tpu_torch/csrc/"
     return [{"name": name, "route": "cuda", "source": src + source,
              "replaces": replaces, "launches": launches[name],
@@ -761,15 +790,11 @@ def phase_flash_variants(peaks, gen):
             for name, (source, replaces, config) in VARIANT_KERNELS.items()]
 
 
-# The kernels whose every instantiation is timed (the redesigned ones).
-VARIANT_TIMED_ALL = ("flash_variant", "flash_pvt")
-
-
 def _time_variants(peaks, q, k, v, cases):
-    """Device time (``device_ms``) of every instantiation of kernels 6 and
-    8, of the listed configurations of 7 and 9 and of SDPA on the same
-    inputs, with the bound and each case's design; call_ms and plain_ms
-    (CUDA events, back to back) of the listed configurations."""
+    """Device time (``device_ms``) of every instantiation of kernels 6-9
+    and of SDPA on the same inputs, with the bound and each case's design;
+    call_ms and plain_ms (CUDA events, back to back) of the listed
+    configurations."""
     b, h, n, d = q.shape
     bound = bound_ms(peaks, 4 * b * h * n * d * q.element_size(),
                      4 * b * h * n * n * d, "bf16")
@@ -777,8 +802,6 @@ def _time_variants(peaks, q, k, v, cases):
     listed = {config for _, _, config in VARIANT_KERNELS.values()}
     timing = {}
     for name, config, kernel, checks, design in cases:
-        if config not in listed and name not in VARIANT_TIMED_ALL:
-            continue
         fn = lambda: kernel(q, k, v)
         timing[config] = {"design": design, "ms": device_ms(fn),
                           "library_ms": library, "bound_ms": bound[0],

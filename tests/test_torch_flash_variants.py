@@ -5,11 +5,12 @@ read ``sys.argv`` when imported, so they are loaded under a patched argv;
 their ``variant`` functions run their Pallas kernels in interpret mode off a
 TPU. The port's plain versions of kernels 6-9 are held against them on the
 same numpy inputs at N = 200 (padded by the JAX call to 256, so keys past N
-are masked) and the JAX call's own ``block_k``. The CUDA kernels themselves
-are held against these plain versions on the card by chip_smoke.py.
-The names of the designs each instantiation runs on the card and the
-layout rules the wrappers check before a launch (TMA's, for the
-"wgmma_tma" kernels) are pure Python and are held here.
+are masked) and the JAX call's own ``block_k``, and kernels 7 and 9 also at
+the edges their Hopper kernels meet (a chain of 64 rows wholly past N, a
+256-query block with one live row). The CUDA kernels themselves are held
+against these plain versions on the card by chip_smoke.py. The names of
+the designs each instantiation runs on the card and the layout rules the
+wrappers check before a launch (TMA's) are pure Python and are held here.
 
 The ``bf16exp`` mode's reference runs in a subprocess with XLA's excess
 precision off: by default XLA on the CPU skips the mode's bf16 roundings,
@@ -164,6 +165,33 @@ def test_chain_kernels_match_jax(rng, jax_sweeps, name, block_q, block_k):
                                atol=ATOL, rtol=0)
 
 
+# (JAX variant name, the port's plain version): kernels 7 and 9.
+CHAIN_EDGE_KERNELS = {"dualq": fv.multiq_plain, "quadq": fv.multiq_plain,
+                      "dualq_pvT": fv.dualq_pvt_plain}
+
+
+@pytest.mark.parametrize("block_k", fv.CHAIN_BLOCK_KS)
+@pytest.mark.parametrize("n", [1, 65, 257])
+@pytest.mark.parametrize("name", list(CHAIN_EDGE_KERNELS))
+def test_chain_kernels_match_jax_at_tile_edges(rng, jax_sweeps, name, n,
+                                               block_k):
+    # The Hopper kernels' edges: N = 1 (one key, one live row), 65 (the
+    # second 64-row chain of a warpgroup holds one live row, the block's
+    # second warpgroup none) and 257 (a 256-query block with one live row),
+    # at both key tiles; the JAX kernels at 64 rows a chain, padded to
+    # whole programs.
+    nq = {"dualq": 2, "quadq": 4, "dualq_pvT": 2}[name]
+    rows = nq * 64
+    arrays = _qkv(rng, (BH, n, 64))
+    want = jax_sweeps["tune_flash3"].variant(
+        *(jnp.asarray(a) for a in arrays), name=name, block_q=64,
+        block_k=block_k, n_pad=-(-n // rows) * rows)
+    got = CHAIN_EDGE_KERNELS[name](*(torch.from_numpy(a) for a in arrays),
+                                   block_k=block_k)
+    torch.testing.assert_close(got, torch.from_numpy(np.array(want)),
+                               atol=ATOL, rtol=0)
+
+
 @pytest.mark.parametrize("kernel,kwargs,plain", [
     (fv.flash_variant, {"mode": "bf16exp", "block_k": 32},
      lambda *t: fv.variant_plain(*t, mode="bf16exp", block_k=32)),
@@ -217,12 +245,12 @@ def test_variant_path_names_every_instantiation(mode, block_k):
 
 @pytest.mark.parametrize("block_k", fv.CHAIN_BLOCK_KS)
 @pytest.mark.parametrize("chains,transposed,design", [
-    (2, False, "mma_sync"), (4, False, "mma_sync"), (1, True, "wgmma_tma"),
-    (2, True, "mma_sync")])
+    (2, False, "wgmma_tma"), (4, False, "wgmma_tma"), (1, True, "wgmma_tma"),
+    (2, True, "wgmma_tma")])
 def test_chains_path_names_every_instantiation(chains, transposed, design,
                                                block_k):
-    # Kernel 8 (one chain, transposed) moved to warpgroup products; kernels
-    # 7 and 9 are still on the mma.sync template.
+    # Kernels 7-9 run kernel 6's design, so that the sweep's chains and
+    # transpose are each the one difference from its rows form.
     assert fv.chains_path(chains, transposed, block_k) == design
 
 
@@ -236,6 +264,9 @@ def test_design_names_refuse_what_no_kernel_runs():
     for chains, transposed in ((1, False), (4, True), (3, False)):
         with pytest.raises(ValueError, match="no kernel"):
             fv.chains_path(chains, transposed, 64)
+        # Refused before the library is looked for.
+        with pytest.raises(ValueError, match="no kernel"):
+            fv.chains_info(chains, transposed, 64)
 
 
 def _fused_qkv(b=2, n=70, h=3):
@@ -245,23 +276,26 @@ def _fused_qkv(b=2, n=70, h=3):
     return tuple(qkv.permute(2, 0, 3, 1, 4))
 
 
-@pytest.mark.parametrize("path", ["wgmma_tma", "mma_sync"])
-def test_kernel_views_take_strided_slices(path):
+WRAPPERS = ("flash_variant", "flash_multiq", "flash_pvt", "flash_dualq_pvt")
+
+
+@pytest.mark.parametrize("name", WRAPPERS)
+def test_kernel_views_take_strided_slices(name):
     q, k, v = _fused_qkv()
-    views = fv.kernel_views("test", q, k, v, path)
+    views = fv.kernel_views(name, q, k, v)
     assert [t.data_ptr() for t in views] == [q.data_ptr(), k.data_ptr(),
                                             v.data_ptr()]
     # (BH, N, d) gains the batch axis of length 1.
     flat = torch.zeros(6, 70, 64, dtype=torch.bfloat16)
-    assert fv.kernel_views("test", flat, flat, flat, path)[0].shape == (
+    assert fv.kernel_views(name, flat, flat, flat)[0].shape == (
         1, 6, 70, 64)
 
 
-@pytest.mark.parametrize("path", ["wgmma_tma", "mma_sync"])
+@pytest.mark.parametrize("name", WRAPPERS)
 @pytest.mark.parametrize("bad", ["misaligned base", "odd row stride",
                                  "strided last dim"])
-def test_kernel_views_refuse_unreadable_layouts(path, bad):
-    # Every design reads 16-byte rows: a base off a 16-byte boundary, a row
+def test_kernel_views_refuse_unreadable_layouts(name, bad):
+    # Every kernel reads 16-byte rows: a base off a 16-byte boundary, a row
     # stride that is not a multiple of 16 bytes, or a strided last
     # dimension raise ValueError before any launch.
     buf = torch.zeros(2 * 3 * 70 * 128 + 8, dtype=torch.bfloat16)
@@ -273,24 +307,24 @@ def test_kernel_views_refuse_unreadable_layouts(path, bad):
              2, 3, 70, 128)[..., ::2]}[bad]()
     y = torch.zeros(2, 3, 70, 64, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="16-byte"):
-        fv.kernel_views("test", x, y, y, path)
+        fv.kernel_views(name, x, y, y)
 
 
+@pytest.mark.parametrize("name", WRAPPERS)
 @pytest.mark.parametrize("expand", ["heads", "batch"])
-def test_kernel_views_refuse_what_tma_cannot_read(expand):
-    # A key shared across heads (or batches) by a stride of 0: the mma_sync
-    # kernels read it in place, TMA takes no stride of 0 on a dimension
-    # longer than 1, so the wgmma_tma kernels refuse it before a launch.
+def test_kernel_views_refuse_what_tma_cannot_read(name, expand):
+    # A key shared across heads (or batches) by a stride of 0: TMA takes no
+    # stride of 0 on a dimension longer than 1, so every kernel, 7 and 9
+    # too since they read through TMA, refuses it before a launch.
     q = torch.zeros(2, 3, 70, 64, dtype=torch.bfloat16)
     k = (torch.zeros(2, 1, 70, 64, dtype=torch.bfloat16).expand(2, 3, 70, 64)
          if expand == "heads" else
          torch.zeros(1, 3, 70, 64, dtype=torch.bfloat16).expand(2, 3, 70, 64))
-    assert fv.kernel_views("test", q, k, q, "mma_sync")[1].data_ptr() == (
-        k.data_ptr())
-    with pytest.raises(ValueError, match="TMA"):
-        fv.kernel_views("test", q, k, q, "wgmma_tma")
+    with pytest.raises(ValueError, match=f"{name}: TMA"):
+        fv.kernel_views(name, q, k, q)
     # On the CPU the wrapper runs the plain version, whatever the layout.
-    assert torch.equal(fv.flash_pvt(q, k, q), fv.pvt_plain(q, k, q))
+    kernel = getattr(fv, name)
+    assert torch.equal(kernel(q, k, q), fv.variant_plain(q, k, q))
 
 
 def test_launch_strides_give_tma_a_stride_for_length_one_axes():
@@ -301,7 +335,7 @@ def test_launch_strides_give_tma_a_stride_for_length_one_axes():
     assert fv._launch_strides(q) == [3 * 70 * 64, 70 * 64, 64]
     assert fv._launch_strides(q[:1]) == [8, 70 * 64, 64]
     assert fv._launch_strides(one) == [8, 8, 8]
-    assert fv.kernel_views("test", one, one, one, "wgmma_tma")[0] is one
+    assert fv.kernel_views("test", one, one, one)[0] is one
 
 
 @pytest.mark.parametrize("sweep,cases", [

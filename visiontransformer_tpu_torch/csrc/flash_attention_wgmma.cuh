@@ -6,7 +6,7 @@
 // read as a K-major operand its rows are the operand's M or N index, read
 // MN-major (the descriptor's transpose bit) its rows are the K index, so one
 // copy of K (or Q, dO) serves both S = Q K^T and dQ += dS K. The tuning
-// sweeps' kernels 6 and 8 (flash_variant_wgmma.cuh) use the same tiles and
+// sweeps' kernels 6-9 (flash_variant_wgmma.cuh) use the same tiles and
 // descriptors, and the wider forms at the end.
 #pragma once
 

@@ -10,18 +10,20 @@ over key tiles of ``block_k`` keys:
   (``mode``, see ``variant_plain``);
 - kernel 7, ``scripts/tune_flash3.py:_multiq_kernel`` →
   ``csrc/flash_chains.cu`` (``flash_multiq``): 2 or 4 independent
-  online-softmax chains per warp;
-- kernel 8, ``_pvt_kernel`` → ``flash_pvt``: Sᵀ = K·Qᵀ and Oᵀ = Vᵀ·Pᵀ, Oᵀ
-  stored as (…, 64, N);
+  online-softmax chains over the same key tiles;
+- kernel 8, ``_pvt_kernel`` → ``flash_pvt``: Oᵀ = Vᵀ·Pᵀ, stored as
+  (…, 64, N);
 - kernel 9, ``_dualq_pvt_kernel`` → ``flash_dualq_pvt``: both.
 
 They feed the redesign of kernel 1 (``flash_attention``) and are run by the
 sweeps ``visiontransformer_tpu_torch.scripts.tune_flash2`` and
-``tune_flash3``, not by the model. ``variant_path`` and ``chains_path``
-name the design each instantiation runs on the card: "wgmma_tma"
-(kernels 6 and 8: warpgroup products fed by a TMA ring,
-``csrc/flash_variant_wgmma.cuh``) or "mma_sync" (kernels 7 and 9,
-``csrc/flash_variant_kernel.cuh``).
+``tune_flash3``, not by the model. Every instantiation runs one design on
+the card, "wgmma_tma" (``variant_path``, ``chains_path``): consumer
+warpgroups on ``wgmma`` products fed by a TMA ring from a producer warp,
+``csrc/flash_variant_wgmma.cuh``. A chain there is 64 query rows, one
+``wgmma`` M: kernels 6 and 8 run one a warpgroup, kernels 7 and 9 two, so
+that the chains and the transpose are each the one difference from
+kernel 6's rows form.
 
 Inputs are (BH, N, 64) as the JAX scripts take them, or (B, H, N, 64);
 the output has the input's shape. ``block_k`` is the kernel's key-tile
@@ -29,11 +31,11 @@ width and the plain version's chunk width, so both update the running max
 at the same keys and round at the same places; rows per block, chains and
 the transpose only schedule the work, and the plain versions ignore them.
 A CPU tensor runs the plain version (fp32 or bf16); a CUDA tensor (bf16,
-last dimension contiguous, rows 16-byte aligned, strided views allowed)
-launches the kernel or raises. The "wgmma_tma" kernels read through TMA,
-which also needs every stride of a dimension longer than 1 to be a
-positive multiple of 16 bytes below 2^40 bytes; other views raise
-``ValueError`` before a launch. Head dims other than 64 raise everywhere.
+last dimension contiguous, strided views allowed) launches the kernel or
+raises. The kernels read through TMA, which needs rows on 16-byte
+boundaries and every stride of a dimension longer than 1 to be a positive
+multiple of 16 bytes below 2^40 bytes; other views raise ``ValueError``
+before a launch. Head dims other than 64 raise everywhere.
 """
 
 from __future__ import annotations
@@ -193,16 +195,16 @@ def variant_path(mode: str, block_k: int) -> str:
 
 def chains_path(chains: int, transposed: bool, block_k: int) -> str:
     """Which design kernels 7-9 run on the card for (chains, transposed,
-    block_k): "wgmma_tma" for kernel 8 (chains 1, transposed: Oᵀ = Vᵀ·Pᵀ
-    with the features on wgmma's M and a warpgroup's 64 queries on its N),
-    "mma_sync" for kernels 7 (2 or 4 chains) and 9 (2 chains,
-    transposed), on the earlier ``mma.sync`` template."""
+    block_k): "wgmma_tma" for every schedule (``csrc/flash_chains.cu``):
+    kernel 7 two 64-row chains a warpgroup, two warpgroups a block, whose
+    products quadq orders ping-pong; kernel 8 Oᵀ = Vᵀ·Pᵀ with the
+    features on wgmma's M and a warpgroup's 64 queries on its N; kernel 9
+    both."""
     _check_block_k(block_k, CHAIN_BLOCK_KS)
     if (chains, bool(transposed)) not in CHAIN_SCHEDULES:
         raise ValueError(f"no kernel for chains={chains}, "
                          f"transposed={transposed}")
-    return "wgmma_tma" if (chains, bool(transposed)) == (1, True) \
-        else "mma_sync"
+    return "wgmma_tma"
 
 
 def _info(lib_name: str, fn_name: str, *codes) -> dict:
@@ -222,10 +224,12 @@ def variant_info(mode: str, block_k: int) -> dict:
                  _MODE_CODES[mode], block_k)
 
 
-def pvt_info(block_k: int) -> dict:
-    """``variant_info`` of kernel 8 at ``block_k``. Needs CUDA."""
-    _check_block_k(block_k, CHAIN_BLOCK_KS)
-    return _info("flash_chains", "vt_flash_chains_info", 1, 1, block_k)
+def chains_info(chains: int, transposed: bool, block_k: int) -> dict:
+    """``variant_info`` of the (chains, transposed, block_k)
+    instantiation of kernels 7-9. Needs CUDA."""
+    chains_path(chains, transposed, block_k)
+    return _info("flash_chains", "vt_flash_chains_info", chains,
+                 int(bool(transposed)), block_k)
 
 
 # ----------------------------------------------------------------- wrappers
@@ -256,9 +260,9 @@ def _tma_layout(t: torch.Tensor) -> bool:
                for size, stride in zip(t.shape[:3], t.stride()[:3]))
 
 
-def kernel_views(name: str, q, k, v, path: str):
-    """(B, H, N, 64) views of q, k, v as the design ``path`` reads them;
-    ``ValueError`` for a layout it cannot read, before any launch."""
+def kernel_views(name: str, q, k, v):
+    """(B, H, N, 64) views of q, k, v as the kernels read them through
+    TMA; ``ValueError`` for a layout it cannot read, before any launch."""
     views = [t if t.dim() == 4 else t.unsqueeze(0) for t in (q, k, v)]
     b, h = views[0].shape[:2]
     if b * h > 65535:
@@ -266,14 +270,14 @@ def kernel_views(name: str, q, k, v, path: str):
     if not all(_kernel_layout(t) for t in views):
         raise ValueError(f"{name}: the last dimension must be contiguous and "
                          f"rows must start on 16-byte boundaries")
-    if path == "wgmma_tma" and not all(_tma_layout(t) for t in views):
+    if not all(_tma_layout(t) for t in views):
         raise ValueError(f"{name}: TMA reads strides that are positive "
                          f"multiples of 16 bytes below 2^40 bytes, got "
                          f"{[t.stride()[:3] for t in views]}")
     return views
 
 
-def _cuda_views(name: str, q, k, v, path: str):
+def _cuda_views(name: str, q, k, v):
     """(B, H, N, 64) views of CUDA q, k, v as the kernels take them."""
     if q.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {q.device}")
@@ -282,7 +286,7 @@ def _cuda_views(name: str, q, k, v, path: str):
     if any(t.dtype != torch.bfloat16 for t in (q, k, v)):
         raise TypeError(f"{name}: the kernels take bfloat16, got "
                         f"{[t.dtype for t in (q, k, v)]}")
-    return kernel_views(name, q, k, v, path)
+    return kernel_views(name, q, k, v)
 
 
 def _launch_strides(*tensors):
@@ -313,8 +317,7 @@ def flash_variant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _check_block_k(block_k, VARIANT_BLOCK_KS)
     if q.device.type == "cpu":
         return variant_plain(q, k, v, mode=mode, block_k=block_k)
-    q4, k4, v4 = _cuda_views("flash_variant", q, k, v,
-                             variant_path(mode, block_k))
+    q4, k4, v4 = _cuda_views("flash_variant", q, k, v)
     out = torch.empty(q4.shape, dtype=q.dtype, device=q.device)
     _launch("flash_variants", "vt_flash_variant", (_MODE_CODES[mode], block_k),
             q4, k4, v4, out)
@@ -323,8 +326,7 @@ def flash_variant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def _chains(name: str, chains: int, transposed: bool, q, k, v, block_k):
-    q4, k4, v4 = _cuda_views(name, q, k, v,
-                             chains_path(chains, transposed, block_k))
+    q4, k4, v4 = _cuda_views(name, q, k, v)
     b, h, n, d = q4.shape
     if transposed:
         # Oᵀ, (B, H, d, N), as the TPU kernel writes (bh, d, n_pad); the
@@ -342,9 +344,9 @@ def _chains(name: str, chains: int, transposed: bool, q, k, v, block_k):
 
 def flash_multiq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                  chains: int = 2, block_k: int = 64) -> torch.Tensor:
-    """Kernel 7: base-mode attention with ``chains`` (2 or 4) 16-row
-    chains per warp, key tiles of ``block_k`` (32 or 64);
-    ``multiq_plain`` on a CPU tensor."""
+    """Kernel 7: base-mode attention with ``chains`` (2 or 4) interleaved
+    64-row chains, key tiles of ``block_k`` (32 or 64); ``multiq_plain``
+    on a CPU tensor."""
     _check_shapes(q, k, v)
     _check_block_k(block_k, CHAIN_BLOCK_KS)
     if chains not in (2, 4):
@@ -372,8 +374,8 @@ def flash_pvt(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def flash_dualq_pvt(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     block_k: int = 64) -> torch.Tensor:
-    """Kernel 9: kernel 8 with two chains per warp; ``dualq_pvt_plain`` on
-    a CPU tensor."""
+    """Kernel 9: kernel 8 with two 64-row chains a warpgroup;
+    ``dualq_pvt_plain`` on a CPU tensor."""
     _check_shapes(q, k, v)
     _check_block_k(block_k, CHAIN_BLOCK_KS)
     if q.device.type == "cpu":

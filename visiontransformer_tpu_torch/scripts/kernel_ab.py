@@ -1,4 +1,4 @@
-"""A/B of the tuning-sweep kernels 6 and 8 across builds, on the GPU.
+"""A/B of the tuning-sweep kernels 6-9 across builds, on the GPU.
 
 Builds several source sets of ``csrc/flash_variants.cu`` and
 ``csrc/flash_chains.cu`` side by side, each into ``_build/ab/<name>/``:
@@ -12,13 +12,13 @@ Builds several source sets of ``csrc/flash_variants.cu`` and
               replacements add up.
 
 Each set then runs in its own process, in turns (a, b, ..., b, a): every
-instantiation of kernels 6 (3 modes x key tiles 32, 64, 128) and 8 (key
-tiles 32, 64) is checked against its plain version at chip_smoke.py's
-gates and timed by chip_smoke.py's ``device_ms`` at (192, 1025, 64) and
-(384, 197, 64), beside SDPA, on slices of a (B, N, 3, H, 64) tensor. Sets
-that report them also give each instantiation's registers, blocks an SM
-and spilled bytes. One JSON line per case (mean of the two turns) goes to
-stdout, and to ``--out``.
+instantiation of kernels 6 (3 modes x key tiles 32, 64, 128) and 7-9
+(dualq, quadq, pvT, dualq_pvT x key tiles 32, 64) is checked against its
+plain version at chip_smoke.py's gates and timed by chip_smoke.py's
+``device_ms`` at (192, 1025, 64) and (384, 197, 64), beside SDPA, on
+slices of a (B, N, 3, H, 64) tensor. Sets that report them also give each
+instantiation's registers, blocks an SM and spilled bytes. One JSON line
+per case (mean of the two turns) goes to stdout, and to ``--out``.
 
     python -m visiontransformer_tpu_torch.scripts.kernel_ab \\
         [--set NAME DIR] [--sub NAME FILE OLD NEW] [--out PATH]
@@ -42,8 +42,36 @@ from visiontransformer_tpu_torch.ops import _build
 AB_ROOT = _build.BUILD_ROOT / "ab"
 LIBS = ("flash_variants", "flash_chains")
 SHAPES = ((16, 12, 1025), (32, 12, 197))  # (B, H, N): BH 192 and 384
-CASES = [("variant", m, bk) for m in ("base", "bf16exp", "exp2")
-         for bk in (32, 64, 128)] + [("pvt", None, 32), ("pvt", None, 64)]
+# (kernel 6's mode, or kernels 7-9's (chains, transposed), block_k).
+CASES = ([(m, bk) for m in ("base", "bf16exp", "exp2") for bk in (32, 64, 128)]
+         + [(schedule, bk) for schedule in ((2, False), (4, False),
+                                            (1, True), (2, True))
+            for bk in (32, 64)])
+CHAIN_NAMES = {(2, False): "dualq", (4, False): "quadq", (1, True): "pvT",
+               (2, True): "dualq_pvT"}
+
+
+def _label(case) -> str:
+    what, bk = case
+    return f"{CHAIN_NAMES.get(what, what)}/{bk}"
+
+
+def _call(case, q, k, v):
+    """(kernel call, its plain version's output) of one case."""
+    from visiontransformer_tpu_torch.ops import flash_variants as fv
+
+    what, bk = case
+    if isinstance(what, str):
+        return (lambda: fv.flash_variant(q, k, v, mode=what, block_k=bk),
+                fv.variant_plain(q, k, v, mode=what, block_k=bk))
+    chains, transposed = what
+    if transposed:
+        kernel, plain = ((fv.flash_pvt, fv.pvt_plain) if chains == 1 else
+                         (fv.flash_dualq_pvt, fv.dualq_pvt_plain))
+        return (lambda: kernel(q, k, v, block_k=bk),
+                plain(q, k, v, block_k=bk))
+    return (lambda: fv.flash_multiq(q, k, v, chains=chains, block_k=bk),
+            fv.multiq_plain(q, k, v, block_k=bk))
 
 
 def _sources(path: Path) -> dict:
@@ -101,17 +129,18 @@ def _load(name: str):
 
 def _info(name: str) -> dict:
     """Registers, blocks an SM, threads, shared memory and spilled bytes
-    of each instantiation, where the set's libraries report them."""
+    of each instantiation, where the set's libraries report them (None
+    where they do not)."""
     from visiontransformer_tpu_torch.ops import flash_variants as fv
     out = {}
-    try:
-        for mode in fv.MODES:
-            for bk in fv.VARIANT_BLOCK_KS:
-                out[f"{mode}/{bk}"] = fv.variant_info(mode, bk)
-        for bk in fv.CHAIN_BLOCK_KS:
-            out[f"pvT/{bk}"] = fv.pvt_info(bk)
-    except AttributeError:  # a set from before the info functions
-        return {}
+    for case in CASES:
+        what, bk = case
+        try:
+            out[_label(case)] = (fv.variant_info(what, bk)
+                                 if isinstance(what, str)
+                                 else fv.chains_info(*what, bk))
+        except (AttributeError, RuntimeError):  # a set without that report
+            out[_label(case)] = None
     return out
 
 
@@ -131,19 +160,14 @@ def child(name: str) -> None:
         q, k, v = qkv[0], qkv[1], qkv[2]
         row = {"sdpa": c.device_ms(
             lambda: F.scaled_dot_product_attention(q, k, v))}
-        for kind, mode, bk in CASES:
-            if kind == "variant":
-                fn = lambda: fv.flash_variant(q, k, v, mode=mode, block_k=bk)
-                want = fv.variant_plain(q, k, v, mode=mode, block_k=bk)
-            else:
-                fn = lambda: fv.flash_pvt(q, k, v, block_k=bk)
-                want = fv.pvt_plain(q, k, v, block_k=bk)
+        for case in CASES:
+            fn, want = _call(case, q, k, v)
             ok, fields = c.flash_agrees(
-                fn(), want, c.BF16EXP_TOL if mode == "bf16exp" else None)
+                fn(), want, c.BF16EXP_TOL if case[0] == "bf16exp" else None)
             if not ok:
-                raise AssertionError(f"{name} {mode or 'pvT'}/{bk} at "
+                raise AssertionError(f"{name} {_label(case)} at "
                                      f"{(b * h, n)} disagrees: {fields}")
-            row[f"{mode or 'pvT'}/{bk}"] = c.device_ms(fn)
+            row[_label(case)] = c.device_ms(fn)
         result[f"{b * h}x{n}"] = row
     print(json.dumps(result), flush=True)
 

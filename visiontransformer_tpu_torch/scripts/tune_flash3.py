@@ -3,26 +3,26 @@
 The port's counterpart of ``scripts/tune_flash3.py``: base-mode attention
 with its schedule changed, one lever at a time.
 
-  dualq / quadq  2 / 4 independent 16-row online-softmax chains per warp
-                 (kernel 7, ``flash_multiq``): while one chain computes its
-                 exponentials, another's mma.sync products can issue;
-  pvT            O^T = V^T P^T (kernel 8, ``flash_pvt``) on Hopper's
-                 warpgroup products: the 64 features on wgmma's M, the
-                 queries on its N, P^T through shared memory; O^T lands as
-                 (bh, 64, N);
-  dualq_pvT      two chains, S^T = K Q^T and O^T = V^T P^T on mma.sync
-                 (kernel 9, ``flash_dualq_pvt``).
+  dualq / quadq  2 / 4 independent online-softmax chains (kernel 7,
+                 ``flash_multiq``): on Hopper a chain is 64 query rows, one
+                 wgmma M; a warpgroup runs two, one chain's softmax while
+                 the other's products run, and quadq orders the products
+                 of a block's two warpgroups ping-pong, so that its four
+                 chains interleave;
+  pvT            O^T = V^T P^T (kernel 8, ``flash_pvt``): the 64 features
+                 on wgmma's M, the queries on its N, P^T through shared
+                 memory; O^T lands as (bh, 64, N);
+  dualq_pvT      both (kernel 9, ``flash_dualq_pvt``): pvT with two
+                 chains a warpgroup.
 
-Kernels 6 and 8 run one base ("wgmma_tma", ``chains_path``: warpgroups
-of 64 queries, K and V by TMA; kernel 6 runs three warpgroups a block at
-64-key tiles, kernel 8 two, as their registers allow), kernels 7 and 9
-the earlier one ("mma_sync", 128 query rows a block), so "1 chain" lines (kernel 6
-in base mode at the same key tiles) compare with pvT on one base, and
-with the chains only across designs until kernels 7 and 9 move to it.
-Each label ends with its design in brackets. Key tiles are 32 and 64
-keys. The
-transposed cases are timed as the kernel alone (the (bh, N, 64) view of
-its output) and with the transpose to a contiguous (bh, N, 64). Each case
+Every case runs one design ("wgmma_tma", ``chains_path``: warpgroups of
+64-row chains on wgmma products, K and V by TMA from a producer warp), so
+"1 chain" lines (kernel 6 in base mode at the same key tiles: three
+warpgroups a block at 64-key tiles, two at 32) differ from each case by
+its lever alone. Each label ends with its design in brackets. Key tiles
+are 32 and 64 keys. The transposed cases are timed as the kernel alone
+(the (bh, N, 64) view of its output) and with the transpose to a
+contiguous (bh, N, 64). Each case
 prints its time, TFLOP/s (4·BH·N²·d / t) and its error against the
 production kernel (kernel 1, ``flash_attention``); the sweep ends with the
 best variant against the production kernel.
