@@ -284,6 +284,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from visiontransformer_tpu_torch.utils import spans
+
 # Published H100 rates (NVIDIA data sheets, dense): memory bytes/s, and
 # operations/s for bf16 tensor-core math and for fp32 outside the tensor
 # cores. SXM unless nvidia-smi names the PCIe card.
@@ -713,24 +715,21 @@ def phase_flash_variants(peaks, gen):
     instantiation timed at the first two, each line naming its design;
     then every instantiation at VARIANT_EDGE_SHAPES, checked only.
     Returns the kernels-line entries."""
-    from visiontransformer_tpu_torch.ops import flash_variants as fv
     from visiontransformer_tpu_torch.ops.flash_attention import (
         flash_attention,
         flash_attention_plain,
     )
     from visiontransformer_tpu_torch.scripts import tune_flash2, tune_flash3
 
-    for name in VARIANT_KERNELS:
-        getattr(fv, name).launches = 0
-    flash_attention.launches = 0
+    spans.reset()
     t0 = time.perf_counter()
     tune_flash2.main([])
     tune_flash3.main([])
     sweep_s = time.perf_counter() - t0
-    launches = {name: getattr(fv, name).launches for name in VARIANT_KERNELS}
+    launches = {name: _launches(name) for name in VARIANT_KERNELS}
     emit("flash_variants_sweeps", seconds=sweep_s, launches=launches,
-         flash_attention_launches=flash_attention.launches)
-    launches_all = {**launches, "flash_attention": flash_attention.launches}
+         flash_attention_launches=_launches("flash_attention"))
+    launches_all = {**launches, "flash_attention": _launches("flash_attention")}
     if not all(launches_all.values()):
         raise AssertionError(f"sweeps missed a kernel: {launches_all}")
 
@@ -959,9 +958,7 @@ def phase_model(gen):
         vitseg_head_logits,
         vitseg_predict,
     )
-    from visiontransformer_tpu_torch.ops.flash_attention import flash_attention
     from visiontransformer_tpu_torch.ops.resize import resize_bilinear_mm
-    from visiontransformer_tpu_torch.ops.upsample_argmax import upsample_argmax
 
     batch, size, compute = 32, 512, 224
     cfg, model = resolve_model("vitseg", "P16H768A12", num_classes=17,
@@ -989,10 +986,11 @@ def phase_model(gen):
         x = preprocess(raw)
         for dtype in ("float32", "bfloat16"):
             model.cfg = dataclasses.replace(cfg, compute_dtype=dtype)
-            flash_attention.launches = upsample_argmax.launches = 0
+            spans.reset()
             got = serve_step(True)
             torch.cuda.synchronize()
-            launches = (flash_attention.launches, upsample_argmax.launches)
+            launches = (_launches("flash_attention"),
+                        _launches("upsample_argmax"))
             if launches != (cfg.vit.num_hidden_layers, 1):
                 raise AssertionError(f"{dtype}: launches per forward "
                                      f"{launches}, expected (12, 1)")
@@ -1049,6 +1047,13 @@ def phase_model(gen):
     return result
 
 
+def _device_work(event) -> bool:
+    """A kernel, copy or memset on the card; not the profiler's device-side
+    mirror of a host range (the program's spans, ``utils/spans.py``)."""
+    return (event.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(event, "is_user_annotation", False))
+
+
 def profile_steps(step, batch: int, steps: int = 5, top: int = 12):
     """Device time by kernel name over a few steps (torch.profiler), and
     the device's busy share of the host-clock window."""
@@ -1063,11 +1068,11 @@ def profile_steps(step, batch: int, steps: int = 5, top: int = 12):
             step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    device = [e for e in prof.events() if _device_work(e)]
     device_us = {}
-    for e in prof.events():  # device-side events only: kernels and copies
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            device_us[e.name] = (device_us.get(e.name, 0.0)
-                                 + e.time_range.elapsed_us())
+    for e in device:
+        device_us[e.name] = (device_us.get(e.name, 0.0)
+                             + e.time_range.elapsed_us())
     busy_ms = sum(device_us.values()) / 1e3
     ranked = sorted(device_us.items(), key=lambda kv: -kv[1])[:top]
     # The port's own kernels (compiled into anonymous namespaces), whatever
@@ -1075,9 +1080,8 @@ def profile_steps(step, batch: int, steps: int = 5, top: int = 12):
     mark = "(anonymous namespace)::"
     own = {k.split(mark)[1].split("(")[0]: us / 1e3 / steps
            for k, us in device_us.items() if mark in k}
-    kernels = sum(1 for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA
-                  and not e.name.startswith(("Memcpy", "Memset")))
+    kernels = sum(1 for e in device
+                  if not e.name.startswith(("Memcpy", "Memset")))
     return {"steps": steps, "batch": batch, "own_kernels_ms_per_step": own,
             "device_kernels_per_step": kernels / steps,
             "wall_ms_per_step": wall_ms / steps,
@@ -1278,24 +1282,19 @@ def _synthetic_ce_set(root: str, n_samples: int):
                                  image_size=224, cache=True)
 
 
+def _launches(kernel: str) -> int:
+    """Launches of a kernel since the last ``spans.reset()``: the port
+    counts each under the kernel's name (``utils/spans.py``)."""
+    return spans.counters().get(kernel, 0)
+
+
 def _train_launches():
-    from visiontransformer_tpu_torch.ops.flash_attention import (
-        flash_attention,
-        flash_attention_bwd_dkv,
-        flash_attention_bwd_dq,
-        flash_attention_train,
-    )
-
-    fns = {"flash_attention_fwd": flash_attention,
-           "flash_attention_fwd_train": flash_attention_train,
-           "flash_attention_bwd_dq": flash_attention_bwd_dq,
-           "flash_attention_bwd_dkv": flash_attention_bwd_dkv}
-
-    def reset():
-        for fn in fns.values():
-            fn.launches = 0
-
-    return reset, lambda: {name: fn.launches for name, fn in fns.items()}
+    names = {"flash_attention_fwd": "flash_attention",
+             "flash_attention_fwd_train": "flash_attention_train",
+             "flash_attention_bwd_dq": "flash_attention_bwd_dq",
+             "flash_attention_bwd_dkv": "flash_attention_bwd_dkv"}
+    return spans.reset, lambda: {key: _launches(kernel)
+                                 for key, kernel in names.items()}
 
 
 def phase_train():
@@ -1617,8 +1616,7 @@ def _kernels_after_epilogue(runner, images):
         torch.cuda.synchronize()
     names = [e.name for e in sorted(
         (e for e in prof.events()
-         if e.device_type == torch.autograd.DeviceType.CUDA
-         and not e.name.startswith(("Memcpy", "Memset"))),
+         if _device_work(e) and not e.name.startswith(("Memcpy", "Memset"))),
         key=lambda e: e.time_range.start)]
     last = [i for i, n in enumerate(names) if "upsample_argmax_kernel" in n]
     if not last:
@@ -1714,8 +1712,6 @@ def _served_masks(client, jobs, done):
 
 
 def phase_serving(n_jobs: int = 8):
-    from visiontransformer_tpu_torch.ops.flash_attention import flash_attention
-    from visiontransformer_tpu_torch.ops.upsample_argmax import upsample_argmax
     from visiontransformer_tpu_torch.serve.store import JobStore
     from visiontransformer_tpu_torch.serve.worker import ModelRunner
 
@@ -1729,10 +1725,10 @@ def phase_serving(n_jobs: int = 8):
         model_id = store.register_model("vit-b16-damage", num_classes=17,
                                         config_name="P16H768A12")
         with _http_server(store, buckets) as (client, csrf, startup_s):
-            flash_attention.launches = upsample_argmax.launches = 0
+            spans.reset()
             jobs, done, elapsed = _run_jobs(client, csrf, model_id, pngs)
-            launches = {"flash_attention": flash_attention.launches,
-                        "upsample_argmax": upsample_argmax.launches}
+            launches = {"flash_attention": _launches("flash_attention"),
+                        "upsample_argmax": _launches("upsample_argmax")}
             if (launches["upsample_argmax"] < 1 or launches["flash_attention"]
                     != 12 * launches["upsample_argmax"]):
                 raise AssertionError(f"serving launches {launches}")
@@ -1831,7 +1827,6 @@ def phase_checkpoint():
         vitseg_config,
     )
     from visiontransformer_tpu_torch.models.vitseg import vitseg_predict
-    from visiontransformer_tpu_torch.ops.upsample_argmax import upsample_argmax
     from visiontransformer_tpu_torch.serve.store import JobStore
     from visiontransformer_tpu_torch.train.trainer import Trainer
 
@@ -1854,9 +1849,8 @@ def phase_checkpoint():
         """Launches of kernels 1-5 since the last take(), added to the
         path's unless they were timing runs; the counts start again from
         0."""
-        got = {**read(), "upsample_argmax": upsample_argmax.launches}
+        got = {**read(), "upsample_argmax": _launches("upsample_argmax")}
         reset()
-        upsample_argmax.launches = 0
         for k, v in got.items():
             path_launches[k] = path_launches.get(k, 0) + v * on_path
         return got
@@ -2139,7 +2133,6 @@ def phase_paed(tmp: str):
     )
     from visiontransformer_tpu_torch.data.pipeline import batch_iterator
     from visiontransformer_tpu_torch.models.registry import vitseg_config
-    from visiontransformer_tpu_torch.ops.upsample_argmax import upsample_argmax
     from visiontransformer_tpu_torch.train.trainer import Trainer
     from visiontransformer_tpu_torch.utils.csvlog import CSVLogger
 
@@ -2173,12 +2166,11 @@ def phase_paed(tmp: str):
                       logger=CSVLogger(f"{tmp}/paed_logs"))
     epochs = []
     reset()
-    upsample_argmax.launches = 0
     state = trainer.fit(data, val_dataset=data,
                         checkpoint_dir=f"{ckpt_root}/P16H768A12",
                         on_epoch_end=lambda epoch, m: epochs.append(m))
     torch.cuda.synchronize()
-    path_launches = {**read(), "upsample_argmax": upsample_argmax.launches}
+    path_launches = {**read(), "upsample_argmax": _launches("upsample_argmax")}
     with open(trainer.logger.path) as f:
         losses = [float(r["train_loss_step"]) for r in csv.DictReader(f)
                   if r["train_loss_step"]]
@@ -2319,7 +2311,6 @@ def phase_eval_sweep(tmp: str, trained):
         forward_path,
     )
     from visiontransformer_tpu_torch.ops.resize import resize_nearest_pil
-    from visiontransformer_tpu_torch.ops.upsample_argmax import upsample_argmax
 
     reset, read = _train_launches()
     batch, batches = 4, 2
@@ -2356,7 +2347,6 @@ def phase_eval_sweep(tmp: str, trained):
     def sweep(args):
         """One eval-sweep command; (CSV rows, confusion, launches, s)."""
         reset()
-        upsample_argmax.launches = 0
         t0 = time.perf_counter()
         if cli_main(["eval-sweep", "--batch-size", str(batch),
                      "--num-batches", str(batches), "--no-split",
@@ -2364,7 +2354,7 @@ def phase_eval_sweep(tmp: str, trained):
             raise AssertionError(f"eval-sweep {args} returned non-zero")
         torch.cuda.synchronize()
         elapsed = time.perf_counter() - t0
-        launches = {**read(), "upsample_argmax": upsample_argmax.launches}
+        launches = {**read(), "upsample_argmax": _launches("upsample_argmax")}
         for k, v in launches.items():
             path_launches[k] = path_launches.get(k, 0) + v
         name = args[args.index("--configs") + 1]
@@ -2653,7 +2643,6 @@ def phase_optin(gen):
         quantize_vitseg,
     )
     from visiontransformer_tpu_torch.ops.resize import resize_bilinear_mm
-    from visiontransformer_tpu_torch.ops.upsample_argmax import upsample_argmax
     from visiontransformer_tpu_torch.serve.store import JobStore
     from visiontransformer_tpu_torch.serve.worker import ModelRunner
     from visiontransformer_tpu_torch.train.trainer import Trainer
@@ -2673,9 +2662,8 @@ def phase_optin(gen):
     def take(on_path: bool = True):
         """Launches of kernels 1-5 since the last take(), added to the
         path's unless they were comparisons or timing runs."""
-        got = {**read(), "upsample_argmax": upsample_argmax.launches}
+        got = {**read(), "upsample_argmax": _launches("upsample_argmax")}
         reset()
-        upsample_argmax.launches = 0
         for k, v in got.items():
             path_launches[k] = path_launches.get(k, 0) + v * on_path
         return got
@@ -3031,21 +3019,10 @@ CONV_TRAIN_STEPS = 5
 
 def _kernel_launch_counts():
     """(reset, read) of the launch counts of kernels 1-9."""
-    from visiontransformer_tpu_torch.ops import flash_variants
-    from visiontransformer_tpu_torch.ops.upsample_argmax import upsample_argmax
-
-    reset_train, read_train = _train_launches()
-    others = {"upsample_argmax": upsample_argmax,
-              **{name: getattr(flash_variants, name)
-                 for name in VARIANT_KERNELS}}
-
-    def reset():
-        reset_train()
-        for fn in others.values():
-            fn.launches = 0
-
+    reset, read_train = _train_launches()
     return reset, lambda: {**read_train(),
-                           **{k: fn.launches for k, fn in others.items()}}
+                           **{k: _launches(k) for k in (
+                               "upsample_argmax", *VARIANT_KERNELS)}}
 
 
 @contextlib.contextmanager

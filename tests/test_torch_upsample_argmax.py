@@ -31,6 +31,7 @@ from visiontransformer_tpu_torch.ops.upsample_argmax import (
     upsample_argmax_plain,
     upsample_argmax_tap_plain,
 )
+from visiontransformer_tpu_torch.utils import spans
 
 SHAPES = [
     ((2, 14, 14, 17), (96, 96)),
@@ -203,9 +204,9 @@ def test_tie_across_chunk_goes_to_class_0(rng, classes, out_dtype):
     ((32, 56, 200, 17, 512, 512, torch.uint8), "c17/uint8/vec"),
 ])
 def test_epilogue_path(args, path):
-    launches = upsample_argmax.launches
+    launches = spans.counters().get("upsample_argmax", 0)
     assert epilogue_path(*args) == path
-    assert upsample_argmax.launches == launches
+    assert spans.counters().get("upsample_argmax", 0) == launches
 
 
 @pytest.mark.parametrize("shape,kwargs,error", [

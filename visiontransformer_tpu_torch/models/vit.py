@@ -51,6 +51,7 @@ from visiontransformer_tpu_torch.ops.token_merge import (
     merge_step,
     unmerge,
 )
+from visiontransformer_tpu_torch.utils.spans import ranged
 
 
 class EncoderLayer(nn.Module):
@@ -68,7 +69,8 @@ class EncoderLayer(nn.Module):
                 ) -> torch.Tensor:
         """``encoder_layer``; called as a module, so that FSDP2 gathers
         the block's weights around it."""
-        return encoder_layer(self, x, cfg, **kwargs)
+        with ranged("vit.block"):
+            return encoder_layer(self, x, cfg, **kwargs)
 
 
 class ViT(nn.Module):
@@ -106,10 +108,11 @@ def vit_embed(model: ViT, images: torch.Tensor, *,
               generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """Patchify + project + CLS + position embeddings + embedding
     dropout."""
-    x = patchify(images.to(dtype), model.cfg.patch_size)
-    return _embed_patch_tokens(model, model.patch_embed(x, dtype=dtype),
-                               dtype=dtype, deterministic=deterministic,
-                               generator=generator)
+    with ranged("vit.embed"):
+        x = patchify(images.to(dtype), model.cfg.patch_size)
+        return _embed_patch_tokens(model, model.patch_embed(x, dtype=dtype),
+                                   dtype=dtype, deterministic=deterministic,
+                                   generator=generator)
 
 
 def _embed_patch_tokens(model: ViT, x: torch.Tensor, *, dtype: torch.dtype,
@@ -147,10 +150,11 @@ def encoder_layer(layer: EncoderLayer, x: torch.Tensor, cfg: ViTConfig, *,
     if tp is not None:
         y = tp.enter(y, n)
     qkv = layer.qkv(y).reshape(b, n, 3, -1, hd).permute(2, 0, 3, 1, 4)
-    attn = multi_head_attention(
-        qkv[0], qkv[1], qkv[2], implementation=attn_impl,
-        dropout_rate=cfg.attention_probs_dropout_prob,
-        generator=attn_generator, deterministic=deterministic)
+    with ranged("vit.attention"):
+        attn = multi_head_attention(
+            qkv[0], qkv[1], qkv[2], implementation=attn_impl,
+            dropout_rate=cfg.attention_probs_dropout_prob,
+            generator=attn_generator, deterministic=deterministic)
     attn = attn.transpose(1, 2).reshape(b, n, -1)
     x = x + dropout(_row_parallel(layer.attn_out, attn, tp, n), rate,
                     generator=hidden_generator, deterministic=deterministic)

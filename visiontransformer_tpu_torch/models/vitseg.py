@@ -38,6 +38,7 @@ from visiontransformer_tpu_torch.ops.upsample_argmax import (
     upsample_argmax,
     upsample_argmax_plain,
 )
+from visiontransformer_tpu_torch.utils.spans import ranged
 
 EPILOGUES = ("auto", "plain", "kernel")
 
@@ -89,10 +90,11 @@ def vitseg_head_from_tokens(model: ViTSeg, tokens: torch.Tensor
     classes): drop CLS, fold to the grid, the conv head."""
     cfg = model.cfg
     g = cfg.vit.grid_size
-    features = tokens[:, 1:, :].reshape(tokens.shape[0], g, g,
-                                        cfg.vit.hidden_size)
-    x = torch.relu(model.head_conv1(features))
-    return model.head_conv2(x)
+    with ranged("vitseg.head"):
+        features = tokens[:, 1:, :].reshape(tokens.shape[0], g, g,
+                                            cfg.vit.hidden_size)
+        x = torch.relu(model.head_conv1(features))
+        return model.head_conv2(x)
 
 
 def vitseg_apply(model: ViTSeg, images: torch.Tensor, *,
@@ -156,10 +158,14 @@ def _check_epilogue(epilogue: str) -> None:
 
 def _masks(grid: torch.Tensor, out_size, epilogue: str,
            mask_dtype: torch.dtype) -> torch.Tensor:
-    if epilogue == "kernel" or (epilogue == "auto" and grid.is_cuda):
-        return upsample_argmax(grid.contiguous(), tuple(out_size),
-                               out_dtype=mask_dtype)
-    return upsample_argmax_plain(grid, tuple(out_size), mask_dtype)
+    kernel = epilogue == "kernel" or (epilogue == "auto" and grid.is_cuda)
+    if kernel:
+        grid = grid.contiguous()
+    with ranged("vitseg.epilogue"):
+        if kernel:
+            return upsample_argmax(grid, tuple(out_size),
+                                   out_dtype=mask_dtype)
+        return upsample_argmax_plain(grid, tuple(out_size), mask_dtype)
 
 
 def vitseg_build_fused_preproc(model: ViTSeg, *, in_size: int, mean, std,

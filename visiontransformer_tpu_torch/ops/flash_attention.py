@@ -54,6 +54,7 @@ from typing import Optional, Tuple, Union
 import torch
 
 from visiontransformer_tpu_torch.ops import _build
+from visiontransformer_tpu_torch.utils import spans
 
 HEAD_DIMS = (16, 32, 64, 80, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -321,7 +322,7 @@ def flash_attention_train(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             None if seed_t is None else seed_t.data_ptr(), threshold,
             inv_keep, _stream(q.device))
     _build.check(lib, err, "flash_attention_train")
-    flash_attention_train.launches += 1
+    spans.count("flash_attention_train")
     return out, lse
 
 
@@ -380,7 +381,7 @@ def _launch_bwd_dq(q, k, v, do, lse, delta, out, rate, seed):
             None if seed_t is None else seed_t.data_ptr(), threshold,
             inv_keep, _stream(q.device))
     _build.check(lib, err, "flash_attention_bwd_dq")
-    flash_attention_bwd_dq.launches += 1
+    spans.count("flash_attention_bwd_dq")
     return dq
 
 
@@ -444,7 +445,7 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, rate: float = 0.0,
             None if seed_t is None else seed_t.data_ptr(), threshold,
             inv_keep, _stream(q.device))
     _build.check(lib, err, "flash_attention_bwd_dkv")
-    flash_attention_bwd_dkv.launches += 1
+    spans.count("flash_attention_bwd_dkv")
     return dk, dv
 
 
@@ -532,7 +533,7 @@ def _flash_attention_cuda(q: torch.Tensor, k: torch.Tensor,
             out.data_ptr(), *_strides(q, k, v, out), b, h, n, d,
             1.0 / math.sqrt(d), _stream(q.device))
     _build.check(lib, err, "flash_attention")
-    flash_attention.launches += 1
+    spans.count("flash_attention")
     return out
 
 
@@ -545,11 +546,3 @@ _LIB.impl("flash_attention_fwd", _flash_attention_cuda, "CUDA")
 _LIB.impl("flash_attention_fwd", flash_attention_plain, "CPU")
 torch.library.register_fake("vt::flash_attention_fwd", _flash_attention_fake,
                             lib=_LIB)
-
-
-# Kernel launches since the last reset, one count per kernel (read by
-# chip_smoke.py to prove the main path ran through each kernel).
-flash_attention.launches = 0
-flash_attention_train.launches = 0
-flash_attention_bwd_dq.launches = 0
-flash_attention_bwd_dkv.launches = 0

@@ -46,6 +46,7 @@ import math
 import torch
 
 from visiontransformer_tpu_torch.ops import _build
+from visiontransformer_tpu_torch.utils import spans
 from visiontransformer_tpu_torch.ops.flash_attention import (
     _kernel_layout,
     _stream,
@@ -321,7 +322,7 @@ def flash_variant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty(q4.shape, dtype=q.dtype, device=q.device)
     _launch("flash_variants", "vt_flash_variant", (_MODE_CODES[mode], block_k),
             q4, k4, v4, out)
-    flash_variant.launches += 1
+    spans.count("flash_variant")
     return out.view(q.shape)
 
 
@@ -354,7 +355,7 @@ def flash_multiq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type == "cpu":
         return multiq_plain(q, k, v, block_k=block_k)
     out = _chains("flash_multiq", chains, False, q, k, v, block_k)
-    flash_multiq.launches += 1
+    spans.count("flash_multiq")
     return out
 
 
@@ -368,7 +369,7 @@ def flash_pvt(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type == "cpu":
         return pvt_plain(q, k, v, block_k=block_k)
     out = _chains("flash_pvt", 1, True, q, k, v, block_k)
-    flash_pvt.launches += 1
+    spans.count("flash_pvt")
     return out
 
 
@@ -381,13 +382,5 @@ def flash_dualq_pvt(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type == "cpu":
         return dualq_pvt_plain(q, k, v, block_k=block_k)
     out = _chains("flash_dualq_pvt", 2, True, q, k, v, block_k)
-    flash_dualq_pvt.launches += 1
+    spans.count("flash_dualq_pvt")
     return out
-
-
-# Kernel launches since the last reset, one count per TPU kernel (read by
-# chip_smoke.py to prove the sweeps ran through each kernel).
-flash_variant.launches = 0
-flash_multiq.launches = 0
-flash_pvt.launches = 0
-flash_dualq_pvt.launches = 0

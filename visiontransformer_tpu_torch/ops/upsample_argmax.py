@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from visiontransformer_tpu_torch.ops import _build
+from visiontransformer_tpu_torch.utils import spans
 from visiontransformer_tpu_torch.ops.resize import (
     bilinear_matrix,
     resize_bilinear_mm,
@@ -178,7 +179,7 @@ def _upsample_argmax_cuda(x: torch.Tensor, out_h: int, out_w: int,
             w_w.data_ptr(), out.data_ptr(), b, in_h, in_w, c, out_h, out_w,
             stream)
     _build.check(lib, err, "upsample_argmax")
-    upsample_argmax.launches += 1
+    spans.count("upsample_argmax")
     return out
 
 
@@ -198,7 +199,3 @@ _LIB.impl("upsample_argmax", _upsample_argmax_cuda, "CUDA")
 _LIB.impl("upsample_argmax", _upsample_argmax_cpu, "CPU")
 torch.library.register_fake("vt::upsample_argmax", _upsample_argmax_fake,
                             lib=_LIB)
-
-# Kernel launches since the last reset (read by chip_smoke.py to prove the
-# main path ran through the kernel).
-upsample_argmax.launches = 0

@@ -246,8 +246,12 @@ class ServingApp:
         """Blocking torch.profiler capture of the live workload (host and,
         where present, CUDA activity); one at a time. Writes
         ``trace.json`` (Chrome trace format) into the returned trace
-        directory."""
+        directory, and beside it ``spans.json``: the program's spans
+        (``utils/spans.py``) that ended during the capture and its
+        counters."""
         import time as _time
+
+        from visiontransformer_tpu_torch.utils import spans
 
         seconds = min(max(float(opts.get("seconds", 3) or 3), 0.1), 60.0)
         trace_dir = opts.get("trace_dir") or os.path.join(
@@ -264,10 +268,16 @@ class ServingApp:
                 activities.append(ProfilerActivity.CUDA)
             # The context manager stops the profiler on every exit path, so
             # a failed export cannot leave a session active.
+            start_ns = _time.perf_counter_ns()
             with profile(activities=activities) as prof:
                 _time.sleep(seconds)
+            end_ns = _time.perf_counter_ns()
             os.makedirs(trace_dir, exist_ok=True)
             prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
+            with open(os.path.join(trace_dir, "spans.json"), "w") as f:
+                json.dump({"spans": [sp.as_dict() for sp in spans.finished()
+                                     if start_ns <= sp.end_ns <= end_ns],
+                           "counters": spans.counters()}, f)
         except Exception as exc:
             return 500, {"detail": f"profiler error: {exc}"}, []
         finally:
@@ -301,8 +311,12 @@ class ServingApp:
             f"<td>{esc(m['config_name'])}</td><td>{esc(m['num_classes'])}</td>"
             f"<td>{esc(m['input_size'])}</td></tr>" for m in models)
         worker = self.worker
-        worker_line = (f"embedded worker: {worker.processed} jobs processed"
-                       if worker else "external-orchestrator mode (no worker)")
+        worker_line = "external-orchestrator mode (no worker)"
+        if worker:
+            from visiontransformer_tpu_torch.utils import spans
+            worker_line = (f"embedded worker: "
+                           f"{spans.counters().get('serve.jobs_done', 0)} "
+                           f"jobs processed")
         return f"""<!doctype html><html lang="en"><head><title>vitseg admin</title>
 <style>body{{font-family:sans-serif;margin:2em;color:#111;background:#fff}}
 table{{border-collapse:collapse}}

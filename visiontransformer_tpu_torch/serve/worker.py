@@ -56,6 +56,7 @@ from visiontransformer_tpu_torch.ops.quant import (
     quantize_vit_,
 )
 from visiontransformer_tpu_torch.serve.store import JobStore
+from visiontransformer_tpu_torch.utils import spans
 
 BUCKETS = (1, 2, 4, 8, 16, 32)
 
@@ -132,41 +133,53 @@ class ModelRunner:
                 for i, d in enumerate(resolve_device(d) for d in devices)]
 
     def _forward(self, model, images: np.ndarray, device) -> torch.Tensor:
-        x = torch.from_numpy(np.array(images, copy=True)).to(device)
-        x = x.float() / 255.0
-        if self.family == "vitseg":
-            return vitseg_predict(
-                model, x, out_size=(self.input_size, self.input_size),
-                mask_dtype=self.mask_dtype)
-        return torch.argmax(model(x), dim=-1).to(self.mask_dtype)
+        with spans.span("serve.input"):
+            x = torch.from_numpy(np.array(images, copy=True)).to(device)
+            x = x.float() / 255.0
+        with spans.span("serve.forward"):
+            if self.family == "vitseg":
+                return vitseg_predict(
+                    model, x, out_size=(self.input_size, self.input_size),
+                    mask_dtype=self.mask_dtype)
+            return torch.argmax(model(x), dim=-1).to(self.mask_dtype)
 
-    @torch.inference_mode()
-    def dispatch(self, images: np.ndarray):
+    def dispatch(self, images: np.ndarray, batch: Optional[int] = None):
         """(B, H, W, 3) uint8 -> in-flight masks handle (padded to a
-        bucket). Call resolve() on the handle to get (B, H, W) class ids."""
-        if images.dtype != np.uint8:
-            # The forward divides by 255 on the device; a caller passing
-            # pre-normalized [0,1] floats would get a second /255 and
-            # near-black inputs with no error.
-            raise TypeError(
-                f"ModelRunner.dispatch expects uint8 images (0..255, the "
-                f"/255 normalization runs on-device), got {images.dtype}")
-        b = images.shape[0]
-        bucket = next((s for s in self.buckets if s >= b), self.buckets[-1])
-        if b < bucket:
-            pad = np.zeros((bucket - b,) + images.shape[1:], images.dtype)
-            images = np.concatenate([images, pad])
-        if len(self.replicas) == 1:
-            return _PendingMasks([_to_host(self._forward(
-                self.model, images, self.device))], b)
-        parts = []
-        per = len(images) // len(self.replicas)
-        for i, (dev, model, stream) in enumerate(self.replicas):
-            rows = images[i * per:(i + 1) * per]
-            with (torch.cuda.stream(stream) if stream is not None
-                  else contextlib.nullcontext()):
-                parts.append(_to_host(self._forward(model, rows, dev)))
-        return _PendingMasks(parts, b)
+        bucket). Call resolve() on the handle to get (B, H, W) class ids.
+        ``batch`` is the id the batch's spans carry (``utils/spans.py``),
+        a fresh one if None."""
+        if batch is None:
+            batch = spans.next_batch()
+        with spans.span("serve.dispatch", batch), torch.inference_mode():
+            if images.dtype != np.uint8:
+                # The forward divides by 255 on the device; a caller
+                # passing pre-normalized [0,1] floats would get a second
+                # /255 and near-black inputs with no error.
+                raise TypeError(
+                    f"ModelRunner.dispatch expects uint8 images (0..255, "
+                    f"the /255 normalization runs on-device), got "
+                    f"{images.dtype}")
+            b = images.shape[0]
+            bucket = next((s for s in self.buckets if s >= b),
+                          self.buckets[-1])
+            if b < bucket:
+                pad = np.zeros((bucket - b,) + images.shape[1:],
+                               images.dtype)
+                images = np.concatenate([images, pad])
+            spans.count("serve.batches")
+            spans.count("serve.rows", b)
+            spans.count("serve.padded_rows", len(images) - b)
+            if len(self.replicas) == 1:
+                return _PendingMasks([_to_host(self._forward(
+                    self.model, images, self.device))], b, batch)
+            parts = []
+            per = len(images) // len(self.replicas)
+            for i, (dev, model, stream) in enumerate(self.replicas):
+                rows = images[i * per:(i + 1) * per]
+                with (torch.cuda.stream(stream) if stream is not None
+                      else contextlib.nullcontext()):
+                    parts.append(_to_host(self._forward(model, rows, dev)))
+            return _PendingMasks(parts, b, batch)
 
     def predict(self, images: np.ndarray) -> np.ndarray:
         return self.dispatch(images).resolve()
@@ -206,13 +219,14 @@ def _to_host(masks: torch.Tensor):
     """(host tensor, event or None): on CUDA the masks copy to pinned host
     memory without blocking, on the current stream, and an event marks the
     copy's end."""
-    if not masks.is_cuda:
-        return masks, None
-    host = torch.empty(masks.shape, dtype=masks.dtype, pin_memory=True)
-    host.copy_(masks, non_blocking=True)
-    event = torch.cuda.Event()
-    event.record()
-    return host, event
+    with spans.span("serve.output"):
+        if not masks.is_cuda:
+            return masks, None
+        host = torch.empty(masks.shape, dtype=masks.dtype, pin_memory=True)
+        host.copy_(masks, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        return host, event
 
 
 class _PendingMasks:
@@ -220,17 +234,19 @@ class _PendingMasks:
     replica (``_to_host``). resolve() waits for those events only, so a
     later batch can already be running on the device."""
 
-    def __init__(self, parts, n: int):
+    def __init__(self, parts, n: int, batch: int):
         self._n = n
         self._parts = parts
+        self.batch = batch
 
     def resolve(self) -> np.ndarray:
-        for _, event in self._parts:
-            if event is not None:
-                event.synchronize()
-        hosts = [host for host, _ in self._parts]
-        host = hosts[0] if len(hosts) == 1 else torch.cat(hosts)
-        return host.numpy()[:self._n]
+        with spans.span("serve.resolve", self.batch):
+            for _, event in self._parts:
+                if event is not None:
+                    event.synchronize()
+            hosts = [host for host, _ in self._parts]
+            host = hosts[0] if len(hosts) == 1 else torch.cat(hosts)
+            return host.numpy()[:self._n]
 
 
 class InferenceWorker:
@@ -267,8 +283,6 @@ class InferenceWorker:
         # only claims jobs and dispatches batches.
         self._io_pool = ThreadPoolExecutor(max_workers=io_threads,
                                            thread_name_prefix="worker-io")
-        self._processed_lock = threading.Lock()
-        self.processed = 0
 
     # ----------------------------------------------------------- lifecycle
     def preload_models(self) -> None:
@@ -324,11 +338,15 @@ class InferenceWorker:
                 return
             for job, mask in zip(valid_jobs, masks):
                 post_futures.append(self._io_pool.submit(
-                    self._finish_job_safe, runner, job, mask))
+                    self._finish_job_safe, runner, job, mask, pending.batch))
             reap_posts()
 
         while not self._stop.is_set():
-            jobs = self.store.claim_pending_jobs(self.max_batch)
+            # The claim's batch id goes to the first batch it forms; a
+            # claim of several models' jobs forms one batch a model.
+            batch = spans.next_batch()
+            with spans.span("worker.claim", batch):
+                jobs = self.store.claim_pending_jobs(self.max_batch)
             if not jobs:
                 while in_flight:
                     drain_one()
@@ -336,11 +354,13 @@ class InferenceWorker:
                 self._stop.wait(self.poll_interval)
                 continue
             if len(jobs) < self.max_batch and self.linger > 0:
-                self._stop.wait(self.linger)
-                jobs += self.store.claim_pending_jobs(
-                    self.max_batch - len(jobs))
-            for model_id, group in _group_by_model(jobs):
-                entry = self._dispatch_group(model_id, group)
+                with spans.span("worker.linger", batch):
+                    self._stop.wait(self.linger)
+                    jobs += self.store.claim_pending_jobs(
+                        self.max_batch - len(jobs))
+            for i, (model_id, group) in enumerate(_group_by_model(jobs)):
+                entry = self._dispatch_group(
+                    model_id, group, batch if i == 0 else spans.next_batch())
                 if entry is not None:
                     in_flight.append(entry)
                 while len(in_flight) > self.MAX_IN_FLIGHT:
@@ -350,9 +370,10 @@ class InferenceWorker:
         reap_posts(block=True)
 
     def _finish_job_safe(self, runner: "ModelRunner", job: Dict,
-                         mask: np.ndarray) -> None:
+                         mask: np.ndarray, batch: int) -> None:
         try:
-            self._finish_job(runner, job, mask)
+            with spans.span("worker.postprocess", batch):
+                self._finish_job(runner, job, mask)
         except Exception as exc:
             self.store.fail_job(job["id"], f"postprocess error: {exc}")
 
@@ -371,7 +392,7 @@ class InferenceWorker:
             self._runners[model_id] = runner
         return self._runners[model_id]
 
-    def _dispatch_group(self, model_id: int, jobs: List[Dict]):
+    def _dispatch_group(self, model_id: int, jobs: List[Dict], batch: int):
         """Decode + dispatch one batch; returns an in-flight entry or None."""
         try:
             runner = self._runner(model_id)
@@ -381,15 +402,17 @@ class InferenceWorker:
             return None
 
         def decode(job):
-            img = Image.open(job["input_image"])
-            # JPEG uploads decode at the nearest DCT-domain scale >= the
-            # target (libjpeg "draft" mode) before the bilinear resize; a
-            # no-op for PNG and other formats. uint8 out: normalization
-            # happens on the device (ModelRunner.dispatch).
-            img.draft("RGB", (runner.input_size, runner.input_size))
-            img = img.convert("RGB").resize(
-                (runner.input_size, runner.input_size), Image.BILINEAR)
-            return np.asarray(img, np.uint8)
+            with spans.span("worker.decode", batch):
+                img = Image.open(job["input_image"])
+                # JPEG uploads decode at the nearest DCT-domain scale >=
+                # the target (libjpeg "draft" mode) before the bilinear
+                # resize; a no-op for PNG and other formats. uint8 out:
+                # normalization happens on the device
+                # (ModelRunner.dispatch).
+                img.draft("RGB", (runner.input_size, runner.input_size))
+                img = img.convert("RGB").resize(
+                    (runner.input_size, runner.input_size), Image.BILINEAR)
+                return np.asarray(img, np.uint8)
 
         # Decode the whole batch concurrently on the io pool (PIL releases
         # the GIL while decoding/resizing); failures fail only their job.
@@ -405,7 +428,7 @@ class InferenceWorker:
         if not valid_jobs:
             return None
         try:
-            pending = runner.dispatch(np.stack(images))
+            pending = runner.dispatch(np.stack(images), batch)
         except Exception as exc:
             for job in valid_jobs:
                 self.store.fail_job(job["id"], f"inference error: {exc}")
@@ -438,8 +461,7 @@ class InferenceWorker:
             for cls, y0, x0, y1, x1 in native_detections(mask)
         ]
         self.store.complete_job(job["id"], mask_path, json.dumps(detections))
-        with self._processed_lock:
-            self.processed += 1
+        spans.count("serve.jobs_done")
 
 
 def _group_by_model(jobs: Sequence[Dict]) -> List[Tuple[int, List[Dict]]]:
