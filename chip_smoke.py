@@ -58,7 +58,11 @@ failure:
              default P16H768A12 model; 8 PNG jobs through register/login/
              CSRF/POST/?wait= polling; every mask equals ModelRunner.predict
              of the same decoded image; ModelRunner.dispatch launches no
-             kernel after kernel 5 (the uint8 masks are its output); jobs/s.
+             kernel after kernel 5 (the uint8 masks are its output); jobs/s;
+             the runner's CUDA graphs (graphed_runner_check): its masks
+             equal vitseg_predict's bit for bit at every bucket 1-32, at
+             ViT-B/16, at P4H768A12 and on a 2-replica mesh on the card,
+             12 + 1 launches a forward, every dispatch served by replays.
 6. flash_train  the training kernels (forward with lse and dropout, dQ,
              dK/dV) vs their plain versions, bf16 and fp32, dropout 0 and
              0.1 under one seed, at the training micro-batch
@@ -153,6 +157,9 @@ failure:
              forward on >= 0.999 of the pixels; bf16 recorded); a row
              registered with token_merge_r=16, quantize="int8" served
              over HTTP (8 jobs, every mask equals ModelRunner.predict);
+             rows with ToMe r = 16, int8 and both served through the
+             runner's CUDA graphs at buckets 8 and 32, equal to
+             vitseg_predict bit for bit (graphed_runner_check);
              one CE training step at r = 16 (12 x 4 launches of kernels
              2-4), then one step without and with remat from the same
              weights and seed under deterministic algorithms, two plain
@@ -1711,6 +1718,68 @@ def _served_masks(client, jobs, done):
         "GET", done[job_id]["mask_image"])[1]))) for job_id in jobs]
 
 
+def graphed_runner_check(config: str, buckets=(1, 2, 4, 8, 16, 32),
+                         row_extra=None, **mesh) -> dict:
+    """ModelRunner on cuda serves through CUDA graphs: after warmup, its
+    masks at every bucket equal vitseg_predict of the runner's model(s) on
+    the same rows (each replica's rows alone on a mesh) bit for bit; one
+    capture a bucket and replica; every dispatch served by replays; kernel
+    1 launched once a block and replica, kernel 5 once a replica."""
+    from visiontransformer_tpu_torch.models.vitseg import vitseg_predict
+    from visiontransformer_tpu_torch.serve.worker import ModelRunner
+
+    row = {"model_family": "vitseg", "config_name": config,
+           "num_classes": 17, "input_size": 224, **(row_extra or {})}
+    spans.reset()
+    t0 = time.perf_counter()
+    runner = ModelRunner(row, device="cuda", buckets=buckets, **mesh)
+    runner.warmup()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    replicas = len(runner.replicas)
+    layers = runner.cfg.vit.num_hidden_layers
+    captures = spans.counters().get("serve.graph_captures", 0)
+    rng = np.random.default_rng(5)
+    equal, launches = {}, {}
+    spans.reset()
+    for b in buckets:
+        images = rng.integers(0, 256, (b, 224, 224, 3), np.uint8)
+        before = {k: _launches(k) for k in ("flash_attention",
+                                            "upsample_argmax")}
+        got = runner.predict(images)
+        launches[b] = {k: _launches(k) - v for k, v in before.items()}
+        per = b // replicas
+        want = []
+        with torch.inference_mode():
+            for i, (_, model, stream) in enumerate(runner.replicas):
+                with torch.cuda.stream(stream or torch.cuda.current_stream()):
+                    x = torch.from_numpy(images[i * per:(i + 1) * per])
+                    want.append(vitseg_predict(
+                        model, x.cuda().float() / 255.0,
+                        out_size=(224, 224),
+                        mask_dtype=runner.mask_dtype).cpu())
+        torch.cuda.synchronize()
+        equal[b] = bool(np.array_equal(got, torch.cat(want).numpy()))
+    counters = spans.counters()
+    out = {"config": config, "row": row_extra or {}, "replicas": replicas,
+           "graphed": runner.graphed, "captures": captures,
+           "warmup_s": warm_s, "equal": equal,
+           "batches": counters.get("serve.batches", 0),
+           "graphed_batches": counters.get("serve.graphed_batches", 0),
+           "launches": launches}
+    emit("graphed_runner", **out)
+    want_launches = {"flash_attention": layers * replicas,
+                     "upsample_argmax": replicas}
+    if (not runner.graphed or captures != len(buckets) * replicas
+            or not all(equal.values())
+            or not out["graphed_batches"] == out["batches"] == len(buckets)
+            or any(v != want_launches for v in launches.values())):
+        raise AssertionError(f"graphed runner: {out}")
+    del runner
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_serving(n_jobs: int = 8):
     from visiontransformer_tpu_torch.serve.store import JobStore
     from visiontransformer_tpu_torch.serve.worker import ModelRunner
@@ -1746,11 +1815,17 @@ def phase_serving(n_jobs: int = 8):
             if after:
                 raise AssertionError(f"ModelRunner.dispatch launched {after} "
                                      f"after the epilogue kernel")
+    graphed = [graphed_runner_check("P16H768A12"),
+               graphed_runner_check("P4H768A12"),
+               graphed_runner_check("P16H768A12", buckets=(2, 4, 8, 16, 32),
+                                    mesh_shape=(2,),
+                                    devices=["cuda:0", "cuda:0"])]
     result = {"jobs": n_jobs, "jobs_per_s": n_jobs / elapsed,
               "seconds": elapsed, "startup_s": startup_s,
               "masks_equal_runner": equal, "launches": launches,
               "kernels_after_epilogue": len(after),
-              "detections_job0": len(done[jobs[0]]["detections"])}
+              "detections_job0": len(done[jobs[0]]["detections"]),
+              "graphed_equal": [g["equal"] for g in graphed]}
     emit("serving", **result)
     return result
 
@@ -2836,6 +2911,15 @@ def phase_optin(gen):
     result["serving"] = {"jobs": len(pngs), "masks_equal_runner": equal,
                          "jobs_per_s": len(pngs) / elapsed,
                          "launches": serving}
+    # The opt-ins served through the runner's CUDA graphs.
+    result["graphed"] = {
+        name: graphed_runner_check("P16H768A12", buckets=(8, 32),
+                                   row_extra=extra)["equal"]
+        for name, extra in (("tome16", {"token_merge_r": 16}),
+                            ("int8", {"quantize": "int8"}),
+                            ("tome16_int8", {"token_merge_r": 16,
+                                             "quantize": "int8"}))}
+    take(False)
     if equal != len(pngs) or not serving["flash_attention_fwd"]:
         raise AssertionError(f"opt-in row served {equal} of {len(pngs)} "
                              f"masks equal to ModelRunner.predict, "

@@ -131,31 +131,74 @@ def encoder_layer(layer: EncoderLayer, x: torch.Tensor, cfg: ViTConfig, *,
                   generator: Optional[torch.Generator] = None,
                   tp_generator: Optional[torch.Generator] = None,
                   n_tokens: Optional[int] = None) -> torch.Tensor:
-    """One pre-LN block. Under tensor parallelism (``layer.tp``) the
-    attention draws its dropout from ``tp_generator``, this "model" rank's
-    generator, as does the hidden dropout under sequence parallelism,
-    where x is a token shard of a sequence of ``n_tokens``."""
+    """One pre-LN block: ``encoder_layer_qkv``, the attention
+    (``block_attention``), then ``encoder_layer_out``. Under tensor
+    parallelism (``layer.tp``) the attention draws its dropout from
+    ``tp_generator``, this "model" rank's generator, as does the hidden
+    dropout under sequence parallelism, where x is a token shard of a
+    sequence of ``n_tokens``."""
     tp = getattr(layer, "tp", None)
-    b, n, _ = x.shape
-    hd = cfg.head_dim
-    rate = cfg.hidden_dropout_prob
-    attn_generator, hidden_generator = generator, generator
-    if tp is not None:
-        attn_generator = tp_generator
-        n = n if n_tokens is None else n_tokens
-        if tp.seq_parallel:
-            hidden_generator = tp_generator
+    qkv = encoder_layer_qkv(layer, x, cfg, n_tokens=n_tokens)
+    attn = block_attention(qkv, cfg, attn_impl=attn_impl,
+                           deterministic=deterministic,
+                           generator=generator if tp is None
+                           else tp_generator)
+    return encoder_layer_out(layer, x, attn, cfg,
+                             deterministic=deterministic,
+                             generator=generator, tp_generator=tp_generator,
+                             n_tokens=n_tokens)
 
+
+def _block_tokens(layer: EncoderLayer, x: torch.Tensor,
+                  n_tokens: Optional[int]):
+    """(the block's tensor-parallel plan or None, its sequence length)."""
+    tp = getattr(layer, "tp", None)
+    n = x.shape[1]
+    if tp is not None and n_tokens is not None:
+        n = n_tokens
+    return tp, n
+
+
+def encoder_layer_qkv(layer: EncoderLayer, x: torch.Tensor, cfg: ViTConfig,
+                      *, n_tokens: Optional[int] = None) -> torch.Tensor:
+    """The block's half before attention: ln1 and the fused QKV projection,
+    as a (3, B, heads, N, head_dim) view (q, k, v along the first axis)."""
+    tp, n = _block_tokens(layer, x, n_tokens)
     y = layer.ln1(x)
     if tp is not None:
         y = tp.enter(y, n)
-    qkv = layer.qkv(y).reshape(b, n, 3, -1, hd).permute(2, 0, 3, 1, 4)
+    return layer.qkv(y).reshape(x.shape[0], n, 3, -1,
+                                cfg.head_dim).permute(2, 0, 3, 1, 4)
+
+
+def block_attention(qkv: torch.Tensor, cfg: ViTConfig, *, attn_impl: str,
+                    deterministic: bool = True,
+                    generator: Optional[torch.Generator] = None,
+                    out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The block's attention over ``encoder_layer_qkv``'s view, (B, heads,
+    N, head_dim), through this module's ``multi_head_attention`` looked up
+    at each call; ``out``: the tensor it writes (``multi_head_attention``)."""
     with ranged("vit.attention"):
-        attn = multi_head_attention(
+        return multi_head_attention(
             qkv[0], qkv[1], qkv[2], implementation=attn_impl,
             dropout_rate=cfg.attention_probs_dropout_prob,
-            generator=attn_generator, deterministic=deterministic)
-    attn = attn.transpose(1, 2).reshape(b, n, -1)
+            generator=generator, deterministic=deterministic, out=out)
+
+
+def encoder_layer_out(layer: EncoderLayer, x: torch.Tensor,
+                      attn: torch.Tensor, cfg: ViTConfig, *,
+                      deterministic: bool = True,
+                      generator: Optional[torch.Generator] = None,
+                      tp_generator: Optional[torch.Generator] = None,
+                      n_tokens: Optional[int] = None) -> torch.Tensor:
+    """The block's half after attention: the output projection and its
+    residual, ln2, the MLP and its residual, with the hidden dropout."""
+    tp, n = _block_tokens(layer, x, n_tokens)
+    rate = cfg.hidden_dropout_prob
+    hidden_generator = generator
+    if tp is not None and tp.seq_parallel:
+        hidden_generator = tp_generator
+    attn = attn.transpose(1, 2).reshape(x.shape[0], n, -1)
     x = x + dropout(_row_parallel(layer.attn_out, attn, tp, n), rate,
                     generator=hidden_generator, deterministic=deterministic)
 
@@ -239,6 +282,35 @@ def vit_encode(model: ViT, x: torch.Tensor, *, attn_impl: str,
             x, state = merge_step(x, state, cfg.token_merge_r)
     if sp:
         x = tp.gather(x, n)
+    x = model.final_ln(x)
+    return x if state is None else unmerge(x, state)
+
+
+def vit_cut_embed(model: ViT, images: torch.Tensor, *, dtype: torch.dtype):
+    """The inference encoder cut at its attention calls, first piece: the
+    embedding and block 0's half before attention. Returns (x, the merge
+    state or None, block 0's qkv view); ``vit_cut_step`` goes on once the
+    caller has run ``block_attention`` on the view. With the config's
+    token merging; without dropout, parallelism or remat."""
+    x = vit_embed(model, images, dtype=dtype)
+    state = (init_merge_state(x.shape[0], x.shape[1], x.device)
+             if model.cfg.token_merge_r else None)
+    return x, state, encoder_layer_qkv(model.layers[0], x, model.cfg)
+
+
+def vit_cut_step(model: ViT, i: int, x: torch.Tensor, state,
+                 attn: torch.Tensor):
+    """Piece i (1 <= i <= layers) of the cut encoder: block i-1's half
+    after attention, given its attention output, and its merge; then
+    block i's half before attention, returning (x, state, qkv), or, after
+    the last block, the final LayerNorm and unmerge, returning the final
+    token states as ``vit_encode`` does."""
+    cfg = model.cfg
+    x = encoder_layer_out(model.layers[i - 1], x, attn, cfg)
+    if state is not None:
+        x, state = merge_step(x, state, cfg.token_merge_r)
+    if i < len(model.layers):
+        return x, state, encoder_layer_qkv(model.layers[i], x, cfg)
     x = model.final_ln(x)
     return x if state is None else unmerge(x, state)
 

@@ -8,7 +8,9 @@ the output size. Activations are NHWC throughout, as in the TPU package.
 training forward (dropout in the backbone, fp32 logits at the input size).
 ``vitseg_predict_fused`` is the serving forward from raw images with the
 resize and normalize folded into the patch embedding
-(``ops/fused_preproc.py``). ``vitseg_apply_pipelined`` runs the backbone's
+(``ops/fused_preproc.py``). ``ServingSegments`` is ``vitseg_predict`` of
+uint8 images cut at its attention calls, for the serving runner's CUDA
+graphs. ``vitseg_apply_pipelined`` runs the backbone's
 encoder as a GPipe pipeline (``parallel/pipeline.py``); a model whose
 ``pipeline`` attribute the trainer set takes that forward.
 """
@@ -24,9 +26,12 @@ from torch import nn
 from visiontransformer_tpu_torch.configs import ViTSegConfig
 from visiontransformer_tpu_torch.models.vit import (
     ViT,
+    block_attention,
     vit_apply,
     vit_apply_from_patch_tokens,
     vit_apply_pipelined,
+    vit_cut_embed,
+    vit_cut_step,
 )
 from visiontransformer_tpu_torch.nn.layers import Conv2d
 from visiontransformer_tpu_torch.ops.fused_preproc import (
@@ -34,6 +39,7 @@ from visiontransformer_tpu_torch.ops.fused_preproc import (
     fused_resize_embed,
 )
 from visiontransformer_tpu_torch.ops.resize import resize_bilinear_mm
+from visiontransformer_tpu_torch.ops.token_merge import MergeState
 from visiontransformer_tpu_torch.ops.upsample_argmax import (
     upsample_argmax,
     upsample_argmax_plain,
@@ -149,6 +155,69 @@ def vitseg_predict(model: ViTSeg, images: torch.Tensor, *,
     _check_epilogue(epilogue)
     grid = vitseg_head_logits(model, images, attn_impl=attn_impl)
     return _masks(grid, out_size, epilogue, mask_dtype)
+
+
+class ServingSegments:
+    """``vitseg_predict`` of uint8 images (divided by 255 on the device)
+    cut at its attention calls and before its epilogue, for the serving
+    runner's CUDA graphs (``serve/worker.py``):
+
+    - segment 0: the /255, the embedding, block 0's half before attention;
+    - segment i (0 < i < layers): block i-1's half after attention, its
+      merge (ToMe), block i's half before attention;
+    - segment ``layers``: the last block's half after attention, its
+      merge, the final LayerNorm, the unmerge, the conv head; the grid
+      logits, contiguous.
+
+    ``attention`` runs between two segments and ``epilogue`` after the
+    last, through ``models/vit.py:multi_head_attention`` and
+    ``upsample_argmax`` here, looked up at each call. A segment takes and
+    returns a flat tuple of tensors, so that both can be static buffers:
+    segment 0 takes (images,), segment i > 0 the previous one's outputs and
+    the attention's; every segment but the last returns (x, qkv) and the
+    merge state's tensors. ``run`` composes them eagerly, equal to
+    ``vitseg_predict(model, images.float() / 255, out_size=,
+    mask_dtype=)`` bit for bit."""
+
+    def __init__(self, model: ViTSeg, out_size: Tuple[int, int],
+                 mask_dtype: torch.dtype):
+        self.model = model
+        self.out_size = tuple(out_size)
+        self.mask_dtype = mask_dtype
+        self.count = len(model.backbone.layers) + 1
+
+    def segment(self, i: int, inputs: tuple) -> tuple:
+        vit = self.model.backbone
+        if i == 0:
+            x, state, qkv = vit_cut_embed(vit, inputs[0].float() / 255.0,
+                                          dtype=self.model.cfg.dtype)
+        else:
+            x, _, *state, attn = inputs
+            out = vit_cut_step(vit, i, x, MergeState(*state) if state
+                               else None, attn)
+            if i == self.count - 1:
+                # Contiguous here, in the graph, rather than in the
+                # epilogue's eager launch (``_masks``).
+                return (vitseg_head_from_tokens(self.model, out)
+                        .contiguous(),)
+            x, state, qkv = out
+        return (x, qkv) + (() if state is None else tuple(state))
+
+    def attention(self, outputs: tuple,
+                  out: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The attention of the block whose qkv view ``outputs`` holds,
+        written into ``out`` if given."""
+        return block_attention(outputs[1], self.model.cfg.vit,
+                               attn_impl="auto", out=out)
+
+    def epilogue(self, outputs: tuple) -> torch.Tensor:
+        return _masks(outputs[0], self.out_size, "auto", self.mask_dtype)
+
+    def run(self, images: torch.Tensor) -> torch.Tensor:
+        outputs = self.segment(0, (images,))
+        for i in range(1, self.count):
+            outputs = self.segment(i, outputs + (self.attention(outputs),))
+        return self.epilogue(outputs)
 
 
 def _check_epilogue(epilogue: str) -> None:

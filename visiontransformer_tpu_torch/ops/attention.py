@@ -63,17 +63,27 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, implementation: str = "auto",
                          dropout_rate: float = 0.0,
                          generator: Optional[torch.Generator] = None,
-                         deterministic: bool = True) -> torch.Tensor:
+                         deterministic: bool = True,
+                         out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``out``, if given, is a (B, H, N, d) tensor in q's dtype, on its
+    device, that receives the output and is returned: the inference
+    kernel writes it directly (``flash_attention``); the other paths
+    compute their output, then copy it in."""
     if implementation == "auto":
         implementation = "flash" if q.is_cuda else "eager"
     if implementation == "flash":
         if deterministic or dropout_rate == 0.0:
-            return flash_attention(q, k, v)
-        return flash_attention(q, k, v, dropout_rate=dropout_rate,
-                               dropout_seed=draw_seed(_required(generator)))
+            return flash_attention(q, k, v, out=out)
+        return _into(out, flash_attention(
+            q, k, v, dropout_rate=dropout_rate,
+            dropout_seed=draw_seed(_required(generator))))
     if implementation == "eager":
-        return eager_attention(q, k, v, dropout_rate=dropout_rate,
-                               generator=generator,
-                               deterministic=deterministic)
+        return _into(out, eager_attention(
+            q, k, v, dropout_rate=dropout_rate, generator=generator,
+            deterministic=deterministic))
     raise ValueError(f"unknown attention implementation {implementation!r}; "
                      f"known: {IMPLEMENTATIONS}")
+
+
+def _into(out: Optional[torch.Tensor], y: torch.Tensor) -> torch.Tensor:
+    return y if out is None else out.copy_(y)

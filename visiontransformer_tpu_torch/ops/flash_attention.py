@@ -480,7 +480,8 @@ class FlashAttention(torch.autograd.Function):
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     dropout_rate: float = 0.0,
-                    dropout_seed: Optional[Seed] = None) -> torch.Tensor:
+                    dropout_seed: Optional[Seed] = None,
+                    out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(B, H, N, d) q, k, v -> (B, H, N, d) attention output.
 
     When a gradient is needed (grad mode on and an input requires grad),
@@ -492,11 +493,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     live on the device). CUDA: float32 or bfloat16, d in HEAD_DIMS, strided
     views with a contiguous last dimension; the forward kernels run the
     instantiation ``forward_path`` names. CPU: the plain versions. Anything
-    else raises."""
+    else raises.
+
+    ``out``: a (B, H, N, d) tensor of q's dtype on q's device, which the
+    inference kernel writes and which is returned
+    (``vt::flash_attention_fwd.out``; the serving runner's CUDA graphs
+    read it as a static input). Only the inference kernel takes it."""
     if dropout_rate > 0.0 and dropout_seed is None:
         raise ValueError("dropout_rate > 0 requires dropout_seed")
     needs_grad = torch.is_grad_enabled() and any(
         t.requires_grad for t in (q, k, v))
+    if out is not None and (needs_grad or dropout_rate > 0.0):
+        raise ValueError("flash_attention: out= is taken by the inference "
+                         "kernel only (no gradient, no dropout)")
     if needs_grad:
         seed = (None if dropout_rate == 0.0
                 else _seed_tensor(dropout_seed, q.device))
@@ -505,6 +514,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return flash_attention_train(q, k, v, dropout_rate, dropout_seed)[0]
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash_attention: unsupported device {q.device}")
+    if out is not None:
+        return torch.ops.vt.flash_attention_fwd.out(q, k, v, out=out)
     return torch.ops.vt.flash_attention_fwd(q, k, v)
 
 
@@ -512,19 +523,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 # Kernel 1 as a PyTorch operator: the CUDA implementation is the kernel's
 # launch, the CPU one the plain version, the fake one gives the output's
 # shape, dtype and layout without touching data (torch.export traces with
-# it, so the launch never sees a FakeTensor). ``ops/upsample_argmax.py``
-# registers kernel 5 in the same namespace.
+# it, so the launch never sees a FakeTensor). The ``out`` overload writes a
+# given tensor instead of a new one. ``ops/upsample_argmax.py`` registers
+# kernel 5 in the same namespace.
 _LIB = torch.library.Library("vt", "FRAGMENT")
 _LIB.define("flash_attention_fwd(Tensor q, Tensor k, Tensor v) -> Tensor")
+_LIB.define("flash_attention_fwd.out(Tensor q, Tensor k, Tensor v, *, "
+            "Tensor(a!) out) -> Tensor(a!)")
 
 
-def _flash_attention_cuda(q: torch.Tensor, k: torch.Tensor,
-                          v: torch.Tensor) -> torch.Tensor:
-    _check("flash_attention", q, k, v)
-    b, h, n, d = q.shape
-    out = torch.empty_like(q, memory_format=torch.contiguous_format)
+def _launch_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                out: torch.Tensor) -> torch.Tensor:
+    """Kernel 1 into ``out``, any layout ``_check`` admits."""
     if out.numel() == 0:
         return out
+    b, h, n, d = q.shape
     lib = _build.load("flash_attention_fwd",
                       _SIGNATURES["flash_attention_fwd"])
     with torch.cuda.device(q.device):
@@ -537,12 +550,52 @@ def _flash_attention_cuda(q: torch.Tensor, k: torch.Tensor,
     return out
 
 
+def _flash_attention_cuda(q: torch.Tensor, k: torch.Tensor,
+                          v: torch.Tensor) -> torch.Tensor:
+    _check("flash_attention", q, k, v)
+    return _launch_fwd(q, k, v, torch.empty_like(
+        q, memory_format=torch.contiguous_format))
+
+
 def _flash_attention_fake(q: torch.Tensor, k: torch.Tensor,
                           v: torch.Tensor) -> torch.Tensor:
     return torch.empty_like(q, memory_format=torch.contiguous_format)
 
 
+def _check_out(q: torch.Tensor, out: torch.Tensor) -> None:
+    if (out.shape != q.shape or out.dtype != q.dtype
+            or out.device != q.device):
+        raise ValueError(f"flash_attention: out must be {tuple(q.shape)} "
+                         f"{q.dtype} on {q.device}, got {tuple(out.shape)} "
+                         f"{out.dtype} on {out.device}")
+
+
+def _flash_attention_out_cuda(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, *,
+                              out: torch.Tensor) -> torch.Tensor:
+    _check("flash_attention", q, k, v, out)
+    return _launch_fwd(q, k, v, out)
+
+
+def _flash_attention_out_cpu(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, *,
+                             out: torch.Tensor) -> torch.Tensor:
+    _check_out(q, out)
+    return out.copy_(flash_attention_plain(q, k, v))
+
+
+def _flash_attention_out_fake(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, *,
+                              out: torch.Tensor) -> torch.Tensor:
+    _check_out(q, out)
+    return out
+
+
 _LIB.impl("flash_attention_fwd", _flash_attention_cuda, "CUDA")
 _LIB.impl("flash_attention_fwd", flash_attention_plain, "CPU")
+_LIB.impl("flash_attention_fwd.out", _flash_attention_out_cuda, "CUDA")
+_LIB.impl("flash_attention_fwd.out", _flash_attention_out_cpu, "CPU")
 torch.library.register_fake("vt::flash_attention_fwd", _flash_attention_fake,
                             lib=_LIB)
+torch.library.register_fake("vt::flash_attention_fwd.out",
+                            _flash_attention_out_fake, lib=_LIB)

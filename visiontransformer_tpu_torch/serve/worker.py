@@ -22,6 +22,12 @@ Serving mesh: ``ModelRunner(mesh_shape=(dp,))`` splits each bucket's rows
 over dp model replicas in this one process, one per device, each on its
 own CUDA stream, and gathers their uint8 masks (the TPU runner shards the
 batch over a dp mesh in one process too). Every bucket must divide by dp.
+
+CUDA graphs: on a CUDA device the vitseg forward of each bucket and
+replica is captured once (``_GraphedForward``) and replayed at every
+dispatch, cut at its attention calls and before its epilogue
+(``models/vitseg.py:ServingSegments``); kernels 1 and 5 launch eagerly
+between the replays.
 """
 
 from __future__ import annotations
@@ -46,6 +52,7 @@ from visiontransformer_tpu_torch.evaluation.visualize import (
 )
 from visiontransformer_tpu_torch.models.registry import resolve_model
 from visiontransformer_tpu_torch.models.vitseg import (
+    ServingSegments,
     set_token_merge_r,
     vitseg_predict,
 )
@@ -80,7 +87,14 @@ class ModelRunner:
     (default cuda:0 ... cuda:dp-1, which the host must have; an explicit
     list may name a device twice, as the single-card check does): each
     bucket's rows split into dp contiguous parts, one a replica, and the
-    masks gathered in row order. A 1-device mesh is plain placement."""
+    masks gathered in row order. A 1-device mesh is plain placement.
+
+    On a CUDA device a vitseg model is served through CUDA graphs
+    (``_GraphedForward``), one set a bucket and replica, captured at the
+    bucket's first dispatch (``warmup`` dispatches every bucket) after an
+    eager pass of it, on one capture stream a replica and into one memory
+    pool a replica; the masks are those of ``vitseg_predict`` bit for bit.
+    The CPU and the other families run the forward eagerly."""
 
     def __init__(self, model_row: Dict, *, compute_dtype: str = "bfloat16",
                  buckets: Sequence[int] = BUCKETS, device=None,
@@ -131,8 +145,18 @@ class ModelRunner:
                 (d, self.model if i == 0 else copy.deepcopy(self.model).to(d),
                  torch.cuda.Stream(d) if d.type == "cuda" else None)
                 for i, d in enumerate(resolve_device(d) for d in devices)]
+        # CUDA graphs of the forward: chosen by what the runner observes,
+        # the device type and the family.
+        self.graphed = self.device.type == "cuda" and self.family == "vitseg"
+        self._graphs: Dict[Tuple[int, int], _GraphedForward] = {}
+        # A capture stream and a graph memory pool a replica, by its model.
+        self._capture = {id(m): (torch.cuda.Stream(d),
+                                 torch.cuda.graph_pool_handle())
+                         for d, m, _ in self.replicas} if self.graphed else {}
 
     def _forward(self, model, images: np.ndarray, device) -> torch.Tensor:
+        if self.graphed:
+            return self._graphed(model, images.shape, device)(images)
         with spans.span("serve.input"):
             x = torch.from_numpy(np.array(images, copy=True)).to(device)
             x = x.float() / 255.0
@@ -142,6 +166,18 @@ class ModelRunner:
                     model, x, out_size=(self.input_size, self.input_size),
                     mask_dtype=self.mask_dtype)
             return torch.argmax(model(x), dim=-1).to(self.mask_dtype)
+
+    def _graphed(self, model, shape, device) -> "_GraphedForward":
+        """The graphs of the replica holding ``model`` at this input shape,
+        captured on first use."""
+        key = (id(model), shape[0])
+        if key not in self._graphs:
+            segments = ServingSegments(
+                model, (self.input_size, self.input_size), self.mask_dtype)
+            self._graphs[key] = _GraphedForward(
+                segments, shape, device, *self._capture[id(model)])
+            spans.count("serve.graph_captures")
+        return self._graphs[key]
 
     def dispatch(self, images: np.ndarray, batch: Optional[int] = None):
         """(B, H, W, 3) uint8 -> in-flight masks handle (padded to a
@@ -169,6 +205,8 @@ class ModelRunner:
             spans.count("serve.batches")
             spans.count("serve.rows", b)
             spans.count("serve.padded_rows", len(images) - b)
+            if self.graphed:
+                spans.count("serve.graphed_batches")
             if len(self.replicas) == 1:
                 return _PendingMasks([_to_host(self._forward(
                     self.model, images, self.device))], b, batch)
@@ -186,11 +224,79 @@ class ModelRunner:
 
     def warmup(self) -> None:
         """Run every batch bucket once up front (kernel build, library
-        autotuning and allocator growth happen here, not on live jobs)."""
+        autotuning, allocator growth and the capture of the bucket's CUDA
+        graphs happen here, not on live jobs)."""
         for bucket in self.buckets:
             dummy = np.zeros((bucket, self.input_size, self.input_size, 3),
                              np.uint8)
             self.predict(dummy)
+
+
+class _GraphedForward:
+    """One replica's vitseg forward at one input shape as CUDA graphs, one
+    a segment of ``ServingSegments``.
+
+    Capture: on the replica's capture stream, after the device is idle and
+    one eager pass of the segments has settled the libraries' choices and
+    the allocator there, each segment into the replica's memory pool.
+    Segment i reads segment i-1's output tensors and the attention buffer;
+    the first reads the static uint8 input. The pool may be shared by the
+    replica's shapes: their replays run on one stream, one forward after
+    another.
+
+    Call: the images' ``np.array`` copy, the pageable copy into the static
+    input (``serve.input``), then on the current stream each segment's
+    replay, with kernel 1 launched eagerly between two replays into the
+    attention buffer, and kernel 5 after the last (``serve.forward``).
+    Kernels 1 and 5 stay outside the graphs, so that each launch keeps its
+    call site: the ``vit.attention`` and ``vitseg.epilogue`` ranges, the
+    launch counters, and any wrapper of the modules' names."""
+
+    def __init__(self, segments: ServingSegments, shape, device,
+                 stream: torch.cuda.Stream, pool):
+        self.segments = segments
+        self.images = torch.zeros(shape, dtype=torch.uint8, device=device)
+        self.graphs: List[torch.cuda.CUDAGraph] = []
+        # (segment i's outputs, the attention buffer it feeds), i < last.
+        self.steps = []
+        replay = torch.cuda.current_stream(device)
+        torch.cuda.synchronize(device)
+        with torch.cuda.stream(stream):
+            segments.run(self.images)
+            inputs, flat = (self.images,), None
+            for i in range(segments.count):
+                graph = torch.cuda.CUDAGraph()
+                graph.capture_begin(pool=pool,
+                                    capture_error_mode="thread_local")
+                try:
+                    outputs = segments.segment(i, inputs)
+                finally:
+                    graph.capture_end()
+                self.graphs.append(graph)
+                if i + 1 < segments.count:
+                    q = outputs[1][0]
+                    if flat is None:
+                        # Block 0's shape is the largest (merging only
+                        # drops tokens): one buffer serves every block.
+                        # It belongs to the stream that replays.
+                        with torch.cuda.stream(replay):
+                            flat = torch.empty(q.numel(), dtype=q.dtype,
+                                               device=device)
+                    attn = flat[:q.numel()].view(q.shape)
+                    self.steps.append((outputs, attn))
+                    inputs = outputs + (attn,)
+            self.outputs = outputs
+        torch.cuda.synchronize(device)
+
+    def __call__(self, images: np.ndarray) -> torch.Tensor:
+        with spans.span("serve.input"):
+            self.images.copy_(torch.from_numpy(np.array(images, copy=True)))
+        with spans.span("serve.forward"):
+            for graph, (outputs, attn) in zip(self.graphs, self.steps):
+                graph.replay()
+                self.segments.attention(outputs, out=attn)
+            self.graphs[-1].replay()
+            return self.segments.epilogue(self.outputs)
 
 
 def _mesh_devices(mesh_shape, devices, device) -> Optional[list]:
