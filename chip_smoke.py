@@ -20,6 +20,19 @@ failure:
              against the plain version and F.scaled_dot_product_attention
              at the same rates (one flash_forward line per shape, printed
              at the end with those of flash_train's timed shapes);
+2a. flash_keys  kernel 1 with a key count of its own (Nk != Nq, MiT's
+             spatial-reduction attention): SegFormer-B5's four stage
+             shapes at 1024^2, batch 2 ((B, H, Nq, Nk) = (2, 1, 65536,
+             1024), (2, 2, 16384, 1024), (2, 5, 4096, 1024), (2, 8, 1024,
+             1024)), and partial key tiles (Nk = 49, 400) at d = 64 and 32,
+             bf16 and fp32, vs the plain version; the four stage shapes
+             at the serving bucket (batch 8), where the fill rule may take
+             another block size (forward_block_rows, on each line), vs the
+             plain version too, and timed by device time beside
+             F.scaled_dot_product_attention and the bound; one bf16
+             mit_b5 forward through ModelRunner's path, counting
+             mit.attention_flash (52 a forward), mit.attention_eager (0)
+             and kernel 1's launches (52);
 2b. flash_variants  the tuning sweeps' kernels (6: softmax forms; 7:
              2 or 4 interleaved chains; 8, 9: transposed P·V), all on
              warpgroup products ("wgmma_tma"): both port sweeps
@@ -204,8 +217,9 @@ failure:
              unet/resnet34 and segformer/mit_b2 at 224^2, batch 8 (the
              program's masks equal ModelRunner.predict's bit for bit);
              the segformer row and both int8 rows registered and served
-             over HTTP (each mask equals ModelRunner.predict's); no launch
-             of kernels 1-9 in the phase.
+             over HTTP (each mask equals ModelRunner.predict's); kernel 1
+             launched (the MiT rows' attention without a gradient), no
+             launch of kernels 2-9 in the phase.
 16. reports_tools  the train command on ViT-B/16 (17 classes, the CE
              defaults: bf16, batch 16 = 4 x 4, dropout 0.1) for one epoch
              of 10 steps over a 224^2 synthetic set, with --ckpt-dir,
@@ -583,6 +597,103 @@ def phase_flash(peaks, gen):
             if (b, h, n, d) == (32, 12, 197, 64) and dtype == torch.bfloat16:
                 main_row = row
     return main_row, timed
+
+
+# (B, H, Nq, Nk, d) of the checks at Nk != Nq: SegFormer-B5's stages at
+# 1024^2 (Nk = 1,024 keys after the r x r reduction), then partial last
+# key tiles (49: stage 1 at 224^2; 400: stage 1 at 640^2) on the "wgmma"
+# and "stream" instantiations.
+FLASH_KEY_CASES = [(2, 1, 65536, 1024, 64), (2, 2, 16384, 1024, 64),
+                   (2, 5, 4096, 1024, 64), (2, 8, 1024, 1024, 64),
+                   (2, 1, 3136, 49, 64), (2, 1, 25600, 400, 64),
+                   (2, 1, 3136, 49, 32), (2, 2, 784, 49, 32)]
+FLASH_KEY_TIMED_BATCH = 8  # the serving cell's bucket
+
+
+def phase_flash_keys(peaks, gen):
+    """Phase 2a: kernel 1 at Nk != Nq (module docstring). Returns the
+    timed rows."""
+    from visiontransformer_tpu_torch.models.registry import resolve_model
+    from visiontransformer_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        flash_attention_plain,
+        forward_block_rows,
+        forward_path,
+    )
+
+    def launch_fields(b, h, nq, d, dtype):
+        path = forward_path(nq, d, dtype)
+        rows = forward_block_rows(b * h, nq) if path == "wgmma" else None
+        return {"path": path, "block_rows": rows}
+
+    failed, timed = [], []
+    for dtype in (torch.bfloat16, torch.float32):
+        for b, h, nq, nk, d in FLASH_KEY_CASES:
+            # q and k, v from separate projections, (B, N, H·d) viewed as
+            # heads, as MiT passes them.
+            q = torch.randn(b, nq, h, d, generator=gen, device="cuda")
+            kv = torch.randn(b, nk, 2, h, d, generator=gen, device="cuda")
+            q = q.to(dtype).transpose(1, 2)
+            kv = kv.to(dtype).permute(2, 0, 3, 1, 4)
+            k, v = kv[0], kv[1]
+            got = flash_attention(q, k, v)
+            want = flash_attention_plain(q, k, v)
+            torch.cuda.synchronize()
+            ok, fields = flash_agrees(got, want)
+            emit("flash_keys", shape=[b, h, nq, nk, d], dtype=str(dtype)[6:],
+                 **launch_fields(b, h, nq, d, dtype), **fields)
+            if not ok:
+                failed.append([b, h, nq, nk, d, str(dtype)])
+            del q, kv, k, v, got, want
+    # The stage shapes at the serving cell's bucket, checked as well as
+    # timed: at batch 8 the fill rule may take another block size than at
+    # batch 2.
+    b = FLASH_KEY_TIMED_BATCH
+    for _, h, nq, nk, d in FLASH_KEY_CASES[:4]:
+        q = torch.randn(b, h, nq, d, generator=gen, device="cuda",
+                        dtype=torch.bfloat16)
+        k, v = (torch.randn(b, h, nk, d, generator=gen, device="cuda",
+                            dtype=torch.bfloat16) for _ in range(2))
+        ok, fields = flash_agrees(flash_attention(q, k, v),
+                                  flash_attention_plain(q, k, v))
+        torch.cuda.empty_cache()
+        if not ok:
+            failed.append([b, h, nq, nk, d, "bfloat16"])
+        row = {"shape": [b * h, nq, nk, d],
+               **launch_fields(b, h, nq, d, q.dtype), "agrees": ok,
+               "max_abs_err": fields["max_abs_err"],
+               "ms": device_ms(lambda: flash_attention(q, k, v)),
+               "library_ms": device_ms(
+                   lambda: F.scaled_dot_product_attention(q, k, v))}
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            peaks, 2 * b * h * (nq + nk) * d * 2, 4 * b * h * nq * nk * d,
+            "bf16")
+        row["ratio"] = row["ms"] / row["library_ms"]
+        row["roofline_pct"] = 100 * row["bound_ms"] / row["ms"]
+        emit("flash_keys_timed", **row)
+        timed.append(row)
+        del q, k, v
+    if failed:
+        raise AssertionError(f"kernel 1 at Nk != Nq disagrees: {failed}")
+    # One bf16 mit_b5 forward as ModelRunner runs it: every block's
+    # attention through kernel 1, none eager.
+    _, model = resolve_model("segformer", "mit_b5", num_classes=19,
+                             input_size=512, device="cuda")
+    x = torch.rand(2, 512, 512, 3, generator=gen, device="cuda")
+    spans.reset()
+    with torch.inference_mode():
+        model(x).argmax(-1)
+    torch.cuda.synchronize()
+    counts = {k: spans.counters().get(k, 0) for k in (
+        "mit.attention_flash", "mit.attention_eager", "flash_attention")}
+    emit("flash_keys_mit_b5", **counts)
+    if counts != {"mit.attention_flash": 52, "mit.attention_eager": 0,
+                  "flash_attention": 52}:
+        raise AssertionError(f"mit_b5's attention did not run on kernel 1 "
+                             f"once a block: {counts}")
+    del model
+    torch.cuda.empty_cache()
+    return timed
 
 
 def _time_forward(peaks, q, k, v, gen):
@@ -3531,8 +3642,9 @@ def _segformer_http(tmp: str) -> dict:
 
 def phase_segformer_export_int8():
     """Phase 15: segformer on the card at full width, export-serving
-    --family and W8A8 for conv and segformer rows. No kernel of the port
-    lies on these paths."""
+    --family and W8A8 for conv and segformer rows. Of the port's kernels
+    only kernel 1 lies on these paths, in the MiT rows' attention (no
+    gradient; their training step stays eager)."""
     t_phase = time.perf_counter()
     reset, read = _kernel_launch_counts()
     reset()
@@ -3584,7 +3696,9 @@ def phase_segformer_export_int8():
                     or r["header"]["family"] != r["family"]],
         "http": [k for k, v in http.items()
                  if isinstance(v, dict) and not v["mask_equals_runner"]],
-        "kernel_launches": {k: v for k, v in launches.items() if v},
+        "kernel_launches": {k: v for k, v in launches.items()
+                            if v and k != "flash_attention_fwd"},
+        "mit_attention_off_kernel_1": not launches["flash_attention_fwd"],
     }
     if any(failed.values()):
         raise AssertionError(f"phase 15 (segformer_export_int8) failed: "
@@ -4367,6 +4481,7 @@ def main() -> int:
     t0 = time.perf_counter()
     smi, peaks = phase_env()
     flash, flash_timed = phase_flash(peaks, gen)
+    phase_flash_keys(peaks, gen)
     variants = phase_flash_variants(peaks, gen)
     upsample = phase_upsample(peaks, gen)
     model = phase_model(gen)
@@ -4448,7 +4563,9 @@ def main() -> int:
         row["eval_sweep_launches"] = sweep["path_launches"][row["name"]]
         row["optin_launches"] = optin["path_launches"][row["name"]]
     kernels += variants
-    for row in kernels:  # kernels 1-9 on the paths of phases 14, 15: none
+    # Kernels 1-9 on the paths of phases 14 and 15: none, but kernel 1 in
+    # phase 15's MiT rows.
+    for row in kernels:
         row["conv_families_launches"] = conv["launches"][row["name"]]
         row["segformer_export_int8_launches"] = seg["launches"][row["name"]]
         row["reports_tools_launches"] = reports["launches"][row["name"]]

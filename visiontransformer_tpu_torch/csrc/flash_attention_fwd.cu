@@ -3,6 +3,12 @@
 // Replaces visiontransformer_tpu/ops/flash_attention.py:_fwd_kernel:
 // out = softmax(Q K^T * d^-1/2) V over (B, H, N, d), computed online over
 // key tiles so the N x N score matrix never reaches device memory.
+// Inference also takes a key count Nk of its own (Q and O (B, H, N, d), K
+// and V (B, H, Nk, d)): MiT's spatial-reduction attention, whose keys are
+// the tokens reduced r x r (SegFormer-B5 at 1024^2: N = 65,536 ... 1,024
+// queries against Nk = 1,024 keys). Rows, their blocks and the grid follow
+// N; the key loop, the staging of K and V and the last tile's mask follow
+// Nk. The training variant and kernels 2-4 keep Nk = N.
 // Inference (kTrain = false) is need_lse=False without dropout. Training
 // (kTrain = true, vt_flash_attention_fwd_train) also writes
 // lse = m + log(l) (natural log, fp32, (B*H, N)) and applies attention
@@ -25,13 +31,16 @@
 // work against 30 us of bytes, and the 202 M exponentials take about as
 // long again on the special-function units (16 a clock per SM), so
 // operations bound it and one warpgroup's softmax has to run while the
-// tensor cores serve another's products. The training variant adds 4 * B*H*N bytes of lse and one Philox
+// tensor cores serve another's products. MiT's stage 1 at 1024^2, batch 8
+// (B*H = 8, N = 65,536, Nk = 1,024) is 137 GFLOP against 136 MB: operations
+// bound it at 0.139 ms, and its 537 M exponentials take as long again. The
+// training variant adds 4 * B*H*N bytes of lse and one Philox
 // call (about 100 integer instructions) per lane and four probabilities,
 // which at N = 3137 costs about as much as the rest of the kernel.
 //
 // Design. One block per (batch*head, query tile) streams its head's K and V
 // through shared memory in 64-key tiles; the running max m, sum l and the
-// output accumulator stay in fp32 registers; keys past N score -1e30, not
+// output accumulator stay in fp32 registers; keys past Nk score -1e30, not
 // -inf, so exp(m_old - m_new) never meets inf - inf; rows past N compute
 // but are never stored. The softmax runs in the exp2 domain (log2 e folded
 // into the scale) on ex2.approx.
@@ -97,7 +106,7 @@ __global__ void __launch_bounds__(kThreads)
 flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ o,
                      Strides sq, Strides sk, Strides sv, Strides so, int heads,
-                     int n, float scale, TrainArgs train) {
+                     int n, int nk, float scale, TrainArgs train) {
   static_assert(D % kQuad == 0, "head dim must split over a quad");
   constexpr int kPer = D / kQuad;
   __shared__ float k_s[kBlockK][D];
@@ -123,7 +132,7 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float m = kNegInf;
   float l = 0.0f;
 
-  const int num_tiles = (n + kBlockK - 1) / kBlockK;
+  const int num_tiles = (nk + kBlockK - 1) / kBlockK;
   for (int t = 0; t < num_tiles; ++t) {
     const int key0 = t * kBlockK;
     __syncthreads();  // every thread is done with the previous tile
@@ -132,7 +141,7 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const int c = idx % D;
       const int key = key0 + j;
       float kv = 0.0f, vv = 0.0f;
-      if (key < n) {
+      if (key < nk) {
         kv = kb[key * sk.n + c];
         vv = vb[key * sv.n + c];
       }
@@ -150,7 +159,7 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int i = 0; i < kPer; ++i) dot = fmaf(qr[i], k_s[j][part + kQuad * i], dot);
       dot += __shfl_xor_sync(0xffffffffu, dot, 1);
       dot += __shfl_xor_sync(0xffffffffu, dot, 2);
-      s[j] = (key0 + j < n) ? dot * scale : kNegInf;
+      s[j] = (key0 + j < nk) ? dot * scale : kNegInf;
       m_tile = fmaxf(m_tile, s[j]);
     }
     const float m_new = fmaxf(m, m_tile);
@@ -211,20 +220,20 @@ struct Dropout {
 // One step of the online softmax over a tile of 8 * kNT keys starting at
 // key0, for the two rows a lane holds: s is in the mma.sync C layout
 // (s[4 * nt + e]: row e >> 1, key key0 + 8 nt + 2 t + (e & 1)), raw Q K^T.
-// Keys >= n are masked; m (log2 domain) and l (this lane's part of the sum
+// Keys >= nk are masked; m (log2 domain) and l (this lane's part of the sum
 // of the undropped p) are updated; s becomes p = exp2(s * scale_log2e - m);
 // alpha is the factor the accumulator's rows take.
 template <int kNT>
 __device__ __forceinline__ void online_softmax(float (&s)[4 * kNT],
                                                float (&m)[2], float (&l)[2],
                                                float (&alpha)[2], int key0,
-                                               int t, int n,
+                                               int t, int nk,
                                                float scale_log2e) {
-  const bool tail = key0 + 8 * kNT > n;  // some keys of the tile are past N
+  const bool tail = key0 + 8 * kNT > nk;  // some keys of the tile are past Nk
   float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
   for (int i = 0; i < 4 * kNT; ++i) {
-    if (tail && key0 + (i >> 2) * 8 + 2 * t + (i & 1) >= n) s[i] = kNegInf;
+    if (tail && key0 + (i >> 2) * 8 + 2 * t + (i & 1) >= nk) s[i] = kNegInf;
     mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
   }
 #pragma unroll
@@ -282,7 +291,7 @@ __global__ void __launch_bounds__(kStreamThreads)
 fwd_stream_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                   const bf16* __restrict__ v, bf16* __restrict__ o,
                   Strides sq, Strides sk, Strides sv, Strides so, int heads,
-                  int n, float scale, TrainArgs train) {
+                  int n, int nk, float scale, TrainArgs train) {
   static_assert(D % 16 == 0, "head dim must be a multiple of 16");
   constexpr int kSteps = D / 16;           // k-steps of Q K^T
   constexpr int kOutTiles = D / 8;         // n-tiles of O
@@ -304,12 +313,12 @@ fwd_stream_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   const bf16* kb = k + b * sk.b + h * sk.h;
   const bf16* vb = v + b * sv.b + h * sv.h;
-  const int num_tiles = (n + kKeyTile - 1) / kKeyTile;
+  const int num_tiles = (nk + kKeyTile - 1) / kKeyTile;
   auto stage = [&](int tile, int slot) {
     bf16* ks = smem + 2 * slot * kTileElems;
-    stage_rows<D>(ks, kb, sk.n, tile * kKeyTile, kKeyTile, n, threadIdx.x,
+    stage_rows<D>(ks, kb, sk.n, tile * kKeyTile, kKeyTile, nk, threadIdx.x,
                   kStreamThreads);
-    stage_rows<D>(ks + kTileElems, vb, sv.n, tile * kKeyTile, kKeyTile, n,
+    stage_rows<D>(ks + kTileElems, vb, sv.n, tile * kKeyTile, kKeyTile, nk,
                   threadIdx.x, kStreamThreads);
   };
 #pragma unroll
@@ -376,7 +385,7 @@ fwd_stream_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < kChains; ++c) {
       float alpha[2];
-      online_softmax<kKeyTiles>(s[c], m[c], l[c], alpha, key0, t, n,
+      online_softmax<kKeyTiles>(s[c], m[c], l[c], alpha, key0, t, nk,
                                 scale_log2e);
       if constexpr (kTrain) {
         if (drop.on)
@@ -453,8 +462,8 @@ fwd_stream_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 template <int D, bool kTrain>
 cudaError_t launch_stream(const void* q, const void* k, const void* v,
                           void* o, Strides sq, Strides sk, Strides sv,
-                          Strides so, int bh, int heads, int n, float scale,
-                          TrainArgs train, cudaStream_t stream) {
+                          Strides so, int bh, int heads, int n, int nk,
+                          float scale, TrainArgs train, cudaStream_t stream) {
   constexpr int kChains = D <= 32 ? 2 : 1;
   auto kernel = fwd_stream_kernel<D, kChains, kTrain>;
   // The ring: K and V of kRing tiles. Above 48 KB a kernel must opt in,
@@ -469,7 +478,7 @@ cudaError_t launch_stream(const void* q, const void* k, const void* v,
   kernel<<<grid, kStreamThreads, kBytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(o), sq, sk, sv, so,
-      heads, n, scale, train);
+      heads, n, nk, scale, train);
   return cudaGetLastError();
 }
 
@@ -493,7 +502,7 @@ __global__ void __launch_bounds__(kWarpgroups * wg::kThreads,
 fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, bf16* __restrict__ o,
                  Strides sq, Strides sk, Strides sv, Strides so, int heads,
-                 int n, float scale, TrainArgs train) {
+                 int n, int nk, float scale, TrainArgs train) {
   using namespace wg;
   constexpr int kBlockThreads = kWarpgroups * wg::kThreads;
   extern __shared__ unsigned char wg_smem_raw[];
@@ -512,14 +521,14 @@ fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* qb = q + b * sq.b + h * sq.h;
   const bf16* kb = k + b * sk.b + h * sk.h;
   const bf16* vb = v + b * sv.b + h * sv.h;
-  const int num_tiles = (n + wg::kTile - 1) / wg::kTile;
+  const int num_tiles = (nk + wg::kTile - 1) / wg::kTile;
   auto slot = [&](int tile) {
     return ring + (tile % kRingStages) * 2 * kTileBytes;
   };
   auto stage = [&](int tile) {
-    stage_sw128<kBlockThreads>(slot(tile), kb, sk.n, tile * wg::kTile, n);
+    stage_sw128<kBlockThreads>(slot(tile), kb, sk.n, tile * wg::kTile, nk);
     stage_sw128<kBlockThreads>(slot(tile) + kTileBytes, vb, sv.n,
-                               tile * wg::kTile, n);
+                               tile * wg::kTile, nk);
   };
   // Every warpgroup's Q goes with the first K/V tile. While tile j's S is
   // computed, tile j - 1's slot still holds the V that P V of tile j - 1
@@ -581,7 +590,7 @@ fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       wg_wait();
       fence_regs(s);
       const int key0 = j * wg::kTile;
-      online_softmax<8>(s, m, l, alpha, key0, t, n, scale_log2e);
+      online_softmax<8>(s, m, l, alpha, key0, t, nk, scale_log2e);
       // l above summed the undropped p; only P V drops.
       if constexpr (kTrain)
         if (drop.on) apply_dropout<8>(s, drop, row_lo, key0, t, lane);
@@ -666,7 +675,7 @@ long long wgmma_slots(cudaError_t* err) {
 template <int kWarpgroups, bool kTrain>
 cudaError_t launch_wgmma_blocks(const void* q, const void* k, const void* v,
                                 void* o, Strides sq, Strides sk, Strides sv,
-                                Strides so, int bh, int heads, int n,
+                                Strides so, int bh, int heads, int n, int nk,
                                 float scale, TrainArgs train,
                                 cudaStream_t stream) {
   constexpr int kRows = kWarpgroups * wg::kTile;
@@ -675,7 +684,7 @@ cudaError_t launch_wgmma_blocks(const void* q, const void* k, const void* v,
       <<<grid, kWarpgroups * wg::kThreads, wgmma_smem_bytes<kWarpgroups>(),
          stream>>>(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                    static_cast<const bf16*>(v), static_cast<bf16*>(o), sq, sk,
-                   sv, so, heads, n, scale, train);
+                   sv, so, heads, n, nk, scale, train);
   return cudaGetLastError();
 }
 
@@ -687,10 +696,7 @@ cudaError_t launch_wgmma_blocks(const void* q, const void* k, const void* v,
 // it more than 10 % better: (48, 197), (48, 321), (48, 785) against
 // (384, 197), (48, 1025), (192, 1025), (24, 3137).
 template <bool kTrain>
-cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
-                         void* o, Strides sq, Strides sk, Strides sv,
-                         Strides so, int bh, int heads, int n, float scale,
-                         TrainArgs train, cudaStream_t stream) {
+cudaError_t wgmma_warpgroups(int bh, int n, int* warpgroups) {
   cudaError_t err1, err2;
   const long long slots1 = wgmma_slots<1, kTrain>(&err1);
   const long long slots2 = wgmma_slots<2, kTrain>(&err2);
@@ -701,11 +707,23 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
   const long long waves1 = (blocks1 + slots1 - 1) / slots1;
   const long long waves2 = (blocks2 + slots2 - 1) / slots2;
   // Fill: blocks1 / (waves1 * slots1) against blocks1 / (2 * waves2 * slots2).
-  if (20 * waves2 * slots2 > 11 * waves1 * slots1)
+  *warpgroups = 20 * waves2 * slots2 > 11 * waves1 * slots1 ? 1 : 2;
+  return cudaSuccess;
+}
+
+template <bool kTrain>
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
+                         void* o, Strides sq, Strides sk, Strides sv,
+                         Strides so, int bh, int heads, int n, int nk,
+                         float scale, TrainArgs train, cudaStream_t stream) {
+  int warpgroups = 0;
+  const cudaError_t err = wgmma_warpgroups<kTrain>(bh, n, &warpgroups);
+  if (err != cudaSuccess) return err;
+  if (warpgroups == 1)
     return launch_wgmma_blocks<1, kTrain>(q, k, v, o, sq, sk, sv, so, bh,
-                                          heads, n, scale, train, stream);
+                                          heads, n, nk, scale, train, stream);
   return launch_wgmma_blocks<2, kTrain>(q, k, v, o, sq, sk, sv, so, bh, heads,
-                                        n, scale, train, stream);
+                                        n, nk, scale, train, stream);
 }
 
 // fp32: the scalar kernel; bf16: wgmma at d = 64, the mma.sync ring at the
@@ -713,39 +731,39 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
 template <int D, bool kTrain>
 cudaError_t launch(int dtype, const void* q, const void* k, const void* v,
                    void* o, Strides sq, Strides sk, Strides sv, Strides so,
-                   int batch, int heads, int n, float scale, TrainArgs train,
-                   cudaStream_t stream) {
+                   int batch, int heads, int n, int nk, float scale,
+                   TrainArgs train, cudaStream_t stream) {
   if (dtype == 0) {
     const dim3 grid((n + kBlockQ - 1) / kBlockQ, batch * heads);
     flash_fwd_f32_kernel<D, kTrain><<<grid, kThreads, 0, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<float*>(o), sq, sk, sv, so,
-        heads, n, scale, train);
+        heads, n, nk, scale, train);
     return cudaGetLastError();
   }
   if (dtype != 1) return cudaErrorInvalidValue;
   if constexpr (D == 64) {
     return launch_wgmma<kTrain>(q, k, v, o, sq, sk, sv, so, batch * heads,
-                                heads, n, scale, train, stream);
+                                heads, n, nk, scale, train, stream);
   } else {
     return launch_stream<D, kTrain>(q, k, v, o, sq, sk, sv, so, batch * heads,
-                                    heads, n, scale, train, stream);
+                                    heads, n, nk, scale, train, stream);
   }
 }
 
 template <bool kTrain>
 int dispatch(int dtype, const void* q, const void* k, const void* v, void* o,
              Strides sq, Strides sk, Strides sv, Strides so, int batch,
-             int heads, int n, int d, float scale, TrainArgs train,
+             int heads, int n, int nk, int d, float scale, TrainArgs train,
              cudaStream_t s) {
-  if (batch <= 0 || heads <= 0 || n <= 0 || batch * heads > 65535)
+  if (batch <= 0 || heads <= 0 || n <= 0 || nk <= 0 || batch * heads > 65535)
     return cudaErrorInvalidValue;
   switch (d) {
-    case 16: return launch<16, kTrain>(dtype, q, k, v, o, sq, sk, sv, so, batch, heads, n, scale, train, s);
-    case 32: return launch<32, kTrain>(dtype, q, k, v, o, sq, sk, sv, so, batch, heads, n, scale, train, s);
-    case 64: return launch<64, kTrain>(dtype, q, k, v, o, sq, sk, sv, so, batch, heads, n, scale, train, s);
-    case 80: return launch<80, kTrain>(dtype, q, k, v, o, sq, sk, sv, so, batch, heads, n, scale, train, s);
-    case 128: return launch<128, kTrain>(dtype, q, k, v, o, sq, sk, sv, so, batch, heads, n, scale, train, s);
+    case 16: return launch<16, kTrain>(dtype, q, k, v, o, sq, sk, sv, so, batch, heads, n, nk, scale, train, s);
+    case 32: return launch<32, kTrain>(dtype, q, k, v, o, sq, sk, sv, so, batch, heads, n, nk, scale, train, s);
+    case 64: return launch<64, kTrain>(dtype, q, k, v, o, sq, sk, sv, so, batch, heads, n, nk, scale, train, s);
+    case 80: return launch<80, kTrain>(dtype, q, k, v, o, sq, sk, sv, so, batch, heads, n, nk, scale, train, s);
+    case 128: return launch<128, kTrain>(dtype, q, k, v, o, sq, sk, sv, so, batch, heads, n, nk, scale, train, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -756,25 +774,26 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. Strides are in elements; the last
 // dimension of every tensor is contiguous, and in bfloat16 every row starts
-// on a 16-byte boundary. Returns a cudaError_t.
+// on a 16-byte boundary. q and o hold n rows a head, k and v n_k. Returns a
+// cudaError_t.
 int vt_flash_attention_fwd(int dtype, const void* q, const void* k,
                            const void* v, void* o, long long q_sb,
                            long long q_sh, long long q_sn, long long k_sb,
                            long long k_sh, long long k_sn, long long v_sb,
                            long long v_sh, long long v_sn, long long o_sb,
                            long long o_sh, long long o_sn, int batch,
-                           int heads, int n, int d, float scale,
+                           int heads, int n, int n_k, int d, float scale,
                            void* stream) {
   const Strides sq{q_sb, q_sh, q_sn}, sk{k_sb, k_sh, k_sn};
   const Strides sv{v_sb, v_sh, v_sn}, so{o_sb, o_sh, o_sn};
   return dispatch<false>(dtype, q, k, v, o, sq, sk, sv, so, batch, heads, n,
-                         d, scale, TrainArgs{nullptr, nullptr, 1u << 24, 1.0f},
+                         n_k, d, scale, TrainArgs{nullptr, nullptr, 1u << 24, 1.0f},
                          static_cast<cudaStream_t>(stream));
 }
 
-// The training forward: as vt_flash_attention_fwd, plus lse (B*H, N) fp32
-// and dropout keyed by the int64 device scalar *seed; keep_threshold =
-// ceil(keep * 2^24) (2^24: no dropout), inv_keep = 1 / keep.
+// The training forward: as vt_flash_attention_fwd at n_k = n, plus lse
+// (B*H, N) fp32 and dropout keyed by the int64 device scalar *seed;
+// keep_threshold = ceil(keep * 2^24) (2^24: no dropout), inv_keep = 1 / keep.
 int vt_flash_attention_fwd_train(
     int dtype, const void* q, const void* k, const void* v, void* o,
     void* lse, long long q_sb, long long q_sh, long long q_sn, long long k_sb,
@@ -787,8 +806,19 @@ int vt_flash_attention_fwd_train(
   const TrainArgs train{static_cast<float*>(lse),
                         static_cast<const long long*>(seed), keep_threshold,
                         inv_keep};
-  return dispatch<true>(dtype, q, k, v, o, sq, sk, sv, so, batch, heads, n, d,
-                        scale, train, static_cast<cudaStream_t>(stream));
+  return dispatch<true>(dtype, q, k, v, o, sq, sk, sv, so, batch, heads, n, n,
+                        d, scale, train, static_cast<cudaStream_t>(stream));
+}
+
+// The rows a block of the inference kernel's wgmma instantiation (bfloat16,
+// d = 64) takes at bh = batch * heads and n query rows on the current
+// device: 64 or 128, by launch_wgmma's fill rule. Returns a cudaError_t.
+int vt_flash_attention_fwd_block_rows(int bh, int n, int* rows) {
+  if (bh <= 0 || n <= 0) return cudaErrorInvalidValue;
+  int warpgroups = 0;
+  const cudaError_t err = wgmma_warpgroups<false>(bh, n, &warpgroups);
+  *rows = 64 * warpgroups;
+  return err;
 }
 
 const char* vt_error_string(int err) {

@@ -9,11 +9,17 @@ LayerNorm. A block is
 
 - efficient attention: q from the tokens; k and v from the tokens
   spatially reduced by an r x r stride-r conv and a LayerNorm (sr > 1), so
-  stage 1 attends 3,136 queries to 49 keys at 224^2. It runs in the TPU
-  package's eager order: logits in the compute dtype times the scale cast
-  to that dtype, the softmax in fp32 and cast back, the product with v.
-  No flash kernel: the port's kernels take Nq = Nk only, and the TPU
-  package runs no Pallas kernel here either;
+  stage 1 attends 3,136 queries to 49 keys at 224^2 (65,536 to 1,024 at
+  1024^2). The core goes through the attention dispatch
+  (``ops/attention.py``, ``attn_impl``): with no gradient to take,
+  ``"flash"``, and ``"auto"`` on a CUDA tensor, run kernel 1
+  (``ops/flash_attention.py``), which takes Nk ≠ Nq; its logits and
+  softmax are fp32 inside the kernel, a deliberate difference from the TPU
+  package, which runs no Pallas kernel here, that lies closer to an fp32
+  forward. ``"eager"``, ``"auto"`` on the CPU and every call that needs a
+  gradient keep the TPU package's eager order: logits in the compute
+  dtype times the scale cast to that dtype, the softmax in fp32 and cast
+  back, the product with v;
 - Mix-FFN: fc1, the 3x3 depthwise conv (MiT's only positional signal),
   exact GELU, fc2.
 
@@ -26,6 +32,12 @@ view whose memory is channels_last) and give them back by
 package's tree under its names (``stages / i / blocks / j / attn / q``),
 read by the tree helpers of ``models/unet.py``, which take the W8A8 form
 where a layer holds ``kernel_q``.
+
+Spans (``utils/spans.py``): the ranges ``mit.attention.<stage>`` (stages 1
+to 4, the attention core alone: q, k, v in, its output out),
+``mit.reduce`` (the reduction conv and its LayerNorm) and ``mit.ffn``
+(Mix-FFN); the counters ``mit.attention_flash`` and ``mit.attention_eager``,
+one a call of the core by the path it took.
 """
 
 from __future__ import annotations
@@ -48,6 +60,11 @@ from visiontransformer_tpu_torch.nn.layers import (
     layer_norm,
     trunc_normal,
 )
+from visiontransformer_tpu_torch.ops.attention import (
+    multi_head_attention,
+    resolve_implementation,
+)
+from visiontransformer_tpu_torch.utils.spans import count, ranged
 
 # SegFormer's table 6: per-stage widths, depths, heads and KV
 # spatial-reduction ratios (the TPU package's tuples).
@@ -62,6 +79,7 @@ MIT_PRESETS = {
 
 LN_EPS = 1e-5
 _MLP_RATIO = 4
+_ATTENTION_RANGES = tuple(f"mit.attention.{i}" for i in range(1, 5))
 
 
 def _linear_init(generator, cin: int, cout: int) -> dict:
@@ -105,26 +123,45 @@ def _attn_init(generator, dim: int, sr: int) -> dict:
     return params
 
 
+def _attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               attn_impl: str) -> torch.Tensor:
+    """(B, heads, Nq, hd) q against (B, heads, Nk, hd) k and v: kernel 1
+    where the dispatch takes the flash path and no gradient is needed, the
+    TPU package's eager order otherwise (module docstring)."""
+    needs_grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v))
+    if not needs_grad and resolve_implementation(attn_impl, q) == "flash":
+        count("mit.attention_flash")
+        return multi_head_attention(q, k, v, implementation="flash")
+    count("mit.attention_eager")
+    logits = torch.matmul(q, k.transpose(-1, -2)) * _scale(q.shape[-1],
+                                                            q.dtype)
+    attn = torch.softmax(logits.float(), dim=-1).to(q.dtype)
+    return torch.matmul(attn, v)
+
+
 def _attn_apply(params, x: torch.Tensor, h: int, w: int, heads: int,
-                sr: int) -> torch.Tensor:
-    """Efficient self-attention on (B, H·W, C) tokens."""
+                sr: int, stage: int = 0,
+                attn_impl: str = "auto") -> torch.Tensor:
+    """Efficient self-attention on (B, H·W, C) tokens of stage
+    ``stage`` (0-based)."""
     b, n, d = x.shape
     hd = d // heads
     q = linear(params["q"], x)
     kv = x
     if sr > 1:
-        kv = _norm(params["sr_ln"], _to_tokens(
-            conv(params["sr"], _to_map(x, h, w), stride=sr)))
+        with ranged("mit.reduce"):
+            kv = _norm(params["sr_ln"], _to_tokens(
+                conv(params["sr"], _to_map(x, h, w), stride=sr)))
     m = kv.shape[1]
     k = linear(params["k"], kv)
     v = linear(params["v"], kv)
     q = q.reshape(b, n, heads, hd).transpose(1, 2)
     k = k.reshape(b, m, heads, hd).transpose(1, 2)
     v = v.reshape(b, m, heads, hd).transpose(1, 2)
-    logits = torch.matmul(q, k.transpose(-1, -2)) * _scale(hd, q.dtype)
-    attn = torch.softmax(logits.float(), dim=-1).to(x.dtype)
-    out = torch.matmul(attn, v).transpose(1, 2).reshape(b, n, d)
-    return linear(params["proj"], out)
+    with ranged(_ATTENTION_RANGES[stage]):
+        out = _attention(q, k, v, attn_impl)
+    return linear(params["proj"], out.transpose(1, 2).reshape(b, n, d))
 
 
 def _mixffn_init(generator, dim: int) -> dict:
@@ -147,10 +184,14 @@ def _block_init(generator, dim: int, sr: int) -> dict:
 
 
 def _block_apply(params, x: torch.Tensor, h: int, w: int, heads: int,
-                 sr: int) -> torch.Tensor:
+                 sr: int, stage: int = 0,
+                 attn_impl: str = "auto") -> torch.Tensor:
     x = x + _attn_apply(params["attn"], _norm(params["ln1"], x), h, w,
-                        heads, sr)
-    return x + _mixffn_apply(params["ffn"], _norm(params["ln2"], x), h, w)
+                        heads, sr, stage, attn_impl)
+    y = _norm(params["ln2"], x)
+    with ranged("mit.ffn"):
+        y = _mixffn_apply(params["ffn"], y, h, w)
+    return x + y
 
 
 def mit_encoder_init(generator: torch.Generator, encoder_name: str,
@@ -171,9 +212,10 @@ def mit_encoder_init(generator: torch.Generator, encoder_name: str,
     return {"stages": stages}
 
 
-def mit_encoder_apply(params, x: torch.Tensor,
-                      encoder_name: str) -> List[torch.Tensor]:
-    """NCHW images -> the [OS-4, OS-8, OS-16, OS-32] NCHW feature maps."""
+def mit_encoder_apply(params, x: torch.Tensor, encoder_name: str,
+                      attn_impl: str = "auto") -> List[torch.Tensor]:
+    """NCHW images -> the [OS-4, OS-8, OS-16, OS-32] NCHW feature maps.
+    ``attn_impl``: the attention dispatch's name (module docstring)."""
     _, _, heads, srs = MIT_PRESETS[encoder_name]
     feats = []
     for i, stage in enumerate(params["stages"]):
@@ -183,7 +225,8 @@ def mit_encoder_apply(params, x: torch.Tensor,
         h, w = x.shape[2], x.shape[3]
         tokens = _norm(stage["embed_ln"], _to_tokens(x))
         for block in stage["blocks"]:
-            tokens = _block_apply(block, tokens, h, w, heads[i], srs[i])
+            tokens = _block_apply(block, tokens, h, w, heads[i], srs[i], i,
+                                  attn_impl)
         x = _to_map(_norm(stage["norm"], tokens), h, w)
         feats.append(x)
     return feats

@@ -13,7 +13,10 @@ that HF's inference-mode BatchNorm folds to), passed through ReLU and
 classified by the fp32 1x1 head, then resized to the input size. NCHW
 inside, NHWC at the boundary; a model is a ``ConvSegModel``, so the
 trainer, the serving runner and the weight bridge take it as they take
-the other conv families. No dropout.
+the other conv families. No dropout. A MiT encoder's attention takes
+``attn_impl`` (``models/mit.py``: kernel 1 on a CUDA tensor without a
+gradient). The decoder, from the projections to the ReLU, runs inside the
+range ``segformer.decode`` (``utils/spans.py``).
 """
 
 from __future__ import annotations
@@ -43,6 +46,7 @@ from visiontransformer_tpu_torch.models.unet import (
     resize,
 )
 from visiontransformer_tpu_torch.nn.layers import conv2d_init
+from visiontransformer_tpu_torch.utils.spans import ranged
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,24 +96,27 @@ def segformer_apply(params: ConvSegModel, images: torch.Tensor, *,
                     generator: Optional[torch.Generator] = None,
                     attn_impl: str = "auto") -> torch.Tensor:
     """(B, H, W, C) -> (B, H, W, num_classes) fp32 logits at input
-    resolution."""
-    del deterministic, generator, attn_impl  # no dropout, no flash kernel
+    resolution. ``attn_impl`` reaches a MiT encoder's attention."""
+    del deterministic, generator  # no dropout
     cfg = params.cfg
     x = apply_prologue(params, images, cfg)
     if cfg.is_mit:
-        levels = mit_encoder_apply(params, x, cfg.encoder_name)
+        levels = mit_encoder_apply(params, x, cfg.encoder_name, attn_impl)
     else:
         deepest, skips = encoder_apply(params, x, cfg.groups)
         levels = (skips[2], skips[3], deepest)  # OS-4, OS-8, OS-16
-    target = (levels[0].shape[2], levels[0].shape[3])
-    fused = torch.cat([resize(conv(proj, feat.to(x.dtype)), target)
-                       for proj, feat in zip(params["proj"], levels)], dim=1)
-    fuse = params["fuse"]
-    fused = conv(fuse["conv"], fused)
-    if "affine" in fuse:
-        shape = (1, -1, 1, 1)
-        fused = fused * fuse["affine"]["scale"].to(fused.dtype).reshape(
-            shape) + fuse["affine"]["bias"].to(fused.dtype).reshape(shape)
-    else:
-        fused = group_norm(fuse["gn"], fused, cfg.groups)
-    return apply_epilogue(params, F.relu(fused), images)
+    with ranged("segformer.decode"):
+        target = (levels[0].shape[2], levels[0].shape[3])
+        fused = torch.cat([resize(conv(proj, feat.to(x.dtype)), target)
+                           for proj, feat in zip(params["proj"], levels)],
+                          dim=1)
+        fuse = params["fuse"]
+        fused = conv(fuse["conv"], fused)
+        if "affine" in fuse:
+            shape = (1, -1, 1, 1)
+            fused = fused * fuse["affine"]["scale"].to(fused.dtype).reshape(
+                shape) + fuse["affine"]["bias"].to(fused.dtype).reshape(shape)
+        else:
+            fused = group_norm(fuse["gn"], fused, cfg.groups)
+        fused = F.relu(fused)
+    return apply_epilogue(params, fused, images)

@@ -89,10 +89,11 @@ class ConvSegModel(ParamTree):
     """A conv-family model: the parameter tree of ``init``, the ImageNet
     normalization constants as buffers (``norm_mean``, ``norm_std``; the
     TPU package's tree holds them as parameters), its config and the
-    family's apply function, which ``forward`` calls. ``forward`` takes
-    and ignores ``attn_impl``, ``deterministic`` and ``generator`` (no
-    dropout, no kernel attention in these families), so the training
-    tasks and the serving runner call every family alike."""
+    family's apply function, which ``forward`` calls. ``forward`` passes
+    ``attn_impl``, ``deterministic`` and ``generator`` on to the apply
+    function, which ignores them (no dropout in these families; only
+    segformer's MiT encoders read ``attn_impl``), so the training tasks
+    and the serving runner call every family alike."""
 
     def __init__(self, family: str, cfg, tree: dict,
                  apply_fn: Callable[..., torch.Tensor]):

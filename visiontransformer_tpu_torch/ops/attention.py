@@ -1,4 +1,5 @@
-"""Multi-head self-attention dispatch over (B, H, N, d) tensors.
+"""Multi-head attention dispatch over (B, H, N, d) queries and (B, H, Nk, d)
+keys and values (Nk = N but in MiT's spatial-reduction attention).
 
 - ``"eager"``: plain PyTorch attention, mirroring the TPU package's
   ``ops/attention.py:_xla_attention`` (scale rounded to the compute dtype,
@@ -10,8 +11,8 @@
   as an int64 scalar on the generator's device, so drawing it never waits
   for the card.
 - ``"auto"``: flash on a CUDA tensor at every sequence length, eager on the
-  CPU. The TPU package's ``N >= 512`` threshold was a TPU measurement and
-  is not carried over.
+  CPU (``resolve_implementation``). The TPU package's ``N >= 512``
+  threshold was a TPU measurement and is not carried over.
 
 Dropout applies only when ``deterministic`` is False and the rate is above
 0, and then needs an explicit ``torch.Generator``.
@@ -59,6 +60,16 @@ def draw_seed(generator: torch.Generator) -> torch.Tensor:
                          device=generator.device)
 
 
+def resolve_implementation(implementation: str, q: torch.Tensor) -> str:
+    """"flash" or "eager": the path ``implementation`` takes for q."""
+    if implementation == "auto":
+        return "flash" if q.is_cuda else "eager"
+    if implementation in IMPLEMENTATIONS:
+        return implementation
+    raise ValueError(f"unknown attention implementation {implementation!r}; "
+                     f"known: {IMPLEMENTATIONS}")
+
+
 def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, implementation: str = "auto",
                          dropout_rate: float = 0.0,
@@ -69,20 +80,16 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     device, that receives the output and is returned: the inference
     kernel writes it directly (``flash_attention``); the other paths
     compute their output, then copy it in."""
-    if implementation == "auto":
-        implementation = "flash" if q.is_cuda else "eager"
+    implementation = resolve_implementation(implementation, q)
     if implementation == "flash":
         if deterministic or dropout_rate == 0.0:
             return flash_attention(q, k, v, out=out)
         return _into(out, flash_attention(
             q, k, v, dropout_rate=dropout_rate,
             dropout_seed=draw_seed(_required(generator))))
-    if implementation == "eager":
-        return _into(out, eager_attention(
-            q, k, v, dropout_rate=dropout_rate, generator=generator,
-            deterministic=deterministic))
-    raise ValueError(f"unknown attention implementation {implementation!r}; "
-                     f"known: {IMPLEMENTATIONS}")
+    return _into(out, eager_attention(
+        q, k, v, dropout_rate=dropout_rate, generator=generator,
+        deterministic=deterministic))
 
 
 def _into(out: Optional[torch.Tensor], y: torch.Tensor) -> torch.Tensor:

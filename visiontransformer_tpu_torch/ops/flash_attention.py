@@ -7,7 +7,9 @@ Kernels (``csrc/``), each replacing a kernel of the TPU package's
 - ``flash_attention_fwd.cu``, inference: softmax(Q·Kᵀ·d^-½)·V online over
   key tiles (``_fwd_kernel`` with ``need_lse=False``), launched by
   ``flash_attention`` when no gradient is needed, through the custom op
-  ``vt::flash_attention_fwd``;
+  ``vt::flash_attention_fwd``. It alone takes a key count Nk of its own
+  (q (B, H, Nq, d), k and v (B, H, Nk, d)): MiT's spatial-reduction
+  attention (``models/mit.py``);
 - the same source, training (``flash_attention_train``): also writes the
   natural-log lse and applies attention dropout inside the kernel
   (``_fwd_kernel`` with ``need_lse=True``);
@@ -66,13 +68,16 @@ _SIGNATURES = {
     "flash_attention_fwd": {
         "vt_flash_attention_fwd": (
             [ctypes.c_int] + [ctypes.c_void_p] * 4 + _STRIDES * 4
-            + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p],
+            + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p],
             ctypes.c_int),
         "vt_flash_attention_fwd_train": (
             [ctypes.c_int] + [ctypes.c_void_p] * 5 + _STRIDES * 4
             + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p,
                                     ctypes.c_uint, ctypes.c_float,
                                     ctypes.c_void_p],
+            ctypes.c_int),
+        "vt_flash_attention_fwd_block_rows": (
+            [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)],
             ctypes.c_int)},
     "flash_attention_bwd_dq": {
         "vt_flash_attention_bwd_dq": (
@@ -247,15 +252,22 @@ def flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta, rate=0.0,
 
 
 # ----------------------------------------------------------------- wrappers
-def _check(name: str, q: torch.Tensor, *others: torch.Tensor) -> None:
+def _check(name: str, q: torch.Tensor, *others: torch.Tensor,
+           keys: Tuple[torch.Tensor, ...] = ()) -> None:
     """Raise unless q and others are (B, H, N, d) CUDA views the kernels
     take: one shape, float32 or bfloat16, d in HEAD_DIMS, last dimension
-    contiguous, bf16 rows 16-byte aligned."""
+    contiguous, bf16 rows 16-byte aligned. ``keys`` (kernel 1's k and v)
+    may hold another count of rows, Nk, one for both."""
     if q.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {q.device}")
-    if q.dim() != 4 or any(t.shape != q.shape for t in others):
-        raise ValueError(f"{name}: inputs must share one (B, H, N, d) shape, "
-                         f"got {[tuple(t.shape) for t in (q, *others)]}")
+    if (q.dim() != 4 or any(t.shape != q.shape for t in others)
+            or any(t.shape != keys[0].shape or t.dim() != 4
+                   or t.shape[:2] != q.shape[:2] or t.shape[3] != q.shape[3]
+                   for t in keys)):
+        raise ValueError(f"{name}: inputs must share one (B, H, N, d) shape "
+                         f"(k and v one (B, H, Nk, d)), got "
+                         f"{[tuple(t.shape) for t in (q, *keys, *others)]}")
+    others = (*keys, *others)
     if q.dtype not in _DTYPE_CODES or any(t.dtype != q.dtype for t in others):
         raise TypeError(f"{name}: inputs must all be float32 or bfloat16, "
                         f"got {[t.dtype for t in (q, *others)]}")
@@ -349,6 +361,19 @@ def forward_path(n: int, d: int, dtype: torch.dtype) -> str:
     and "stream" (the ``mma.sync`` ring) at the other head dims, at every
     N."""
     return _path("forward_path", d, dtype)
+
+
+def forward_block_rows(bh: int, n: int) -> int:
+    """The rows a block of kernel 1's "wgmma" instantiation (bfloat16, d =
+    64) takes at ``bh`` = B·H and ``n`` query rows on the current CUDA
+    device: 64 or 128, by the fill rule of
+    ``csrc/flash_attention_fwd.cu:launch_wgmma``."""
+    lib = _build.load("flash_attention_fwd",
+                      _SIGNATURES["flash_attention_fwd"])
+    rows = ctypes.c_int(0)
+    _build.check(lib, lib.vt_flash_attention_fwd_block_rows(
+        bh, n, ctypes.byref(rows)), "forward_block_rows")
+    return rows.value
 
 
 def backward_path(n: int, d: int, dtype: torch.dtype) -> str:
@@ -482,7 +507,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     dropout_rate: float = 0.0,
                     dropout_seed: Optional[Seed] = None,
                     out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """(B, H, N, d) q, k, v -> (B, H, N, d) attention output.
+    """(B, H, N, d) q, k, v -> (B, H, N, d) attention output; without a
+    gradient and without dropout k and v may hold Nk ≠ N keys, (B, H, Nk,
+    d), and the output keeps q's shape (kernel 1 only; the training forward
+    and kernels 3 and 4 take Nk = N, so asking them for Nk ≠ N raises).
 
     When a gradient is needed (grad mode on and an input requires grad),
     ``FlashAttention``: kernel 2 forward, kernels 3 and 4 backward.
@@ -503,6 +531,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError("dropout_rate > 0 requires dropout_seed")
     needs_grad = torch.is_grad_enabled() and any(
         t.requires_grad for t in (q, k, v))
+    if k.shape[-2] != q.shape[-2] and (needs_grad or dropout_rate > 0.0):
+        raise ValueError(
+            f"flash_attention: {q.shape[-2]} queries against {k.shape[-2]} "
+            f"keys run only in the inference kernel (no gradient, no "
+            f"dropout); the training kernels take as many keys as queries")
     if out is not None and (needs_grad or dropout_rate > 0.0):
         raise ValueError("flash_attention: out= is taken by the inference "
                          "kernel only (no gradient, no dropout)")
@@ -522,7 +555,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 # ------------------------------------------------- vt::flash_attention_fwd
 # Kernel 1 as a PyTorch operator: the CUDA implementation is the kernel's
 # launch, the CPU one the plain version, the fake one gives the output's
-# shape, dtype and layout without touching data (torch.export traces with
+# shape (q's, whatever k's and v's count of keys), dtype and layout without
+# touching data (torch.export traces with
 # it, so the launch never sees a FakeTensor). The ``out`` overload writes a
 # given tensor instead of a new one. ``ops/upsample_argmax.py`` registers
 # kernel 5 in the same namespace.
@@ -534,16 +568,18 @@ _LIB.define("flash_attention_fwd.out(Tensor q, Tensor k, Tensor v, *, "
 
 def _launch_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 out: torch.Tensor) -> torch.Tensor:
-    """Kernel 1 into ``out``, any layout ``_check`` admits."""
+    """Kernel 1 into ``out``, any layout ``_check`` admits: q and out
+    (B, H, N, d), k and v (B, H, Nk, d)."""
     if out.numel() == 0:
         return out
     b, h, n, d = q.shape
+    n_k = k.shape[2]
     lib = _build.load("flash_attention_fwd",
                       _SIGNATURES["flash_attention_fwd"])
     with torch.cuda.device(q.device):
         err = lib.vt_flash_attention_fwd(
             _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            out.data_ptr(), *_strides(q, k, v, out), b, h, n, d,
+            out.data_ptr(), *_strides(q, k, v, out), b, h, n, n_k, d,
             1.0 / math.sqrt(d), _stream(q.device))
     _build.check(lib, err, "flash_attention")
     spans.count("flash_attention")
@@ -552,7 +588,7 @@ def _launch_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _flash_attention_cuda(q: torch.Tensor, k: torch.Tensor,
                           v: torch.Tensor) -> torch.Tensor:
-    _check("flash_attention", q, k, v)
+    _check("flash_attention", q, keys=(k, v))
     return _launch_fwd(q, k, v, torch.empty_like(
         q, memory_format=torch.contiguous_format))
 
@@ -573,7 +609,7 @@ def _check_out(q: torch.Tensor, out: torch.Tensor) -> None:
 def _flash_attention_out_cuda(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, *,
                               out: torch.Tensor) -> torch.Tensor:
-    _check("flash_attention", q, k, v, out)
+    _check("flash_attention", q, out, keys=(k, v))
     return _launch_fwd(q, k, v, out)
 
 

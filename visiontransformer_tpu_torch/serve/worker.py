@@ -76,8 +76,12 @@ class ModelRunner:
     input_size``: on a CUDA device it runs the flash-attention and fused
     upsample+argmax kernels. For a conv family it is the family's apply
     and ``torch.argmax`` (no kernel of the port's on that path, as no
-    Pallas kernel is on the TPU runner's); segformer is served the same
-    way. The row's opt-ins apply at load, as in the TPU runner:
+    Pallas kernel is on the TPU runner's). Segformer is served the same
+    way, eagerly, from the registry's presets or from an HF
+    ``save_pretrained`` directory (``checkpoint_path``, read by
+    ``ckpt/hf_dir.py``); on a CUDA device a MiT encoder's attention runs
+    kernel 1 with a key count of its own, one launch a block
+    (``models/mit.py``). The row's opt-ins apply at load, as in the TPU runner:
     ``token_merge_r`` (ToMe merging, vitseg only) and ``quantize ==
     "int8"`` (W8A8: vitseg's encoder linears, the tree quantizer's linears
     and interior convs for every other family). ``device=None`` means

@@ -28,8 +28,8 @@ All of it is safe across threads. No range enters a program that
 ``torch.export`` traces: the check is skipped while it exports.
 
 Names: ``serve.*`` (``serve/worker.py:ModelRunner``), ``worker.*``
-(``InferenceWorker``), ``vit.*`` and ``vitseg.*`` (``models/``); PERF.md
-lists each with what reads it.
+(``InferenceWorker``), ``vit.*``, ``vitseg.*``, ``mit.*`` and
+``segformer.*`` (``models/``); PERF.md lists each with what reads it.
 """
 
 from __future__ import annotations
