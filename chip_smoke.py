@@ -61,6 +61,20 @@ failure:
              56 -> 512^2 and 14 -> 224^2 for both output types, beside
              F.interpolate + argmax + cast (two library calls, a yardstick
              the port never calls);
+3a. layer_norm  kernel 10 (the LayerNorm, alone and after a bias and a
+             residual add; ops/layer_norm.py) against its plain version, in
+             bf16 at the serving shapes (rows, C) = (6304, 768) (ViT-B/16,
+             bucket 32), (100384, 768) (P4H768A12), SegFormer-B5's
+             (524288, 64), (131072, 128), (32768, 320), (8192, 512), and
+             in fp32 at (6304, 768), in both forms, with and without the
+             bias: s equal bit for bit, y within one bf16 ulp (fp32: 1e-5
+             relative), one launch a call; each timed by device time
+             beside its byte bound, the plain version and
+             F.layer_norm (with the adds before it: a yardstick the port
+             never calls); then ViT-B/16 through ModelRunner's CUDA graphs
+             at bucket 32: 25 launches a forward in the eager pass before
+             the capture and 25 in the capture, none plain, none in a
+             replay;
 4. model     ViT-B/16 (17 classes, full width and depth, seeded random
              weights) on the bench workload: batch 32, 512^2 fp32 in,
              resize to 224^2, ImageNet normalize, vitseg_predict at 512^2
@@ -230,7 +244,7 @@ failure:
              tfevents file's records carry valid masked CRC-32Cs and its
              (tag, step) pairs equal the CSV's epoch rows (read by a
              TFRecord reader of this script); host ms of a traced and an
-             untraced step. doctor exits 0 and names the card and the nine
+             untraced step. doctor exits 0 and names the card and the ten
              kernels as built. demo from the checkpoint just written on a
              PNG of the set (12 launches of kernel 1); the fp32 mask
              (TF32 off) of predict_image on the card against the CPU's,
@@ -1068,6 +1082,150 @@ def phase_upsample(peaks, gen):
             "instantiations": checked["instantiations"],
             "int32_fp32": {k: timed[(14, 512, "int32")]["fp32"][k] for k in (
                 "ms", "call_ms", "plain_ms", "bound_ms", "bound_by")}}
+
+
+# ((rows, C), dtype) of kernel 10's checks, here and in
+# tests/test_torch_layer_norm.py: the residual stream of ViT-B/16 and
+# P4H768A12 at bucket 32, SegFormer-B5's four stage widths at bucket 8,
+# and ViT-B/16's in fp32.
+LAYER_NORM_CASES = tuple(
+    (shape, torch.bfloat16) for shape in (
+        (6304, 768), (100384, 768), (524288, 64), (131072, 128),
+        (32768, 320), (8192, 512))) + (((6304, 768), torch.float32),)
+
+
+# Kernel 10's bf16 output against its plain version: within one bf16 ulp
+# of the value, or within this absolute floor, the fp32 rounding of the
+# LayerNorm's terms (|x_hat * scale|, |shift| of order 1, a few fp32 ulps,
+# summed in another order) where the result nearly cancels and a bf16 ulp
+# of it is smaller. fp32: within 1e-5, relative (absolute below 1).
+LAYER_NORM_ABS_FLOOR = 2.0 ** -20
+LAYER_NORM_FP32_REL = 1e-5
+
+
+def layer_norm_inputs(shape, dtype, gen):
+    """(x, t, b, scale, shift, eps) of a kernel 10 check on the card: x and
+    t N(0, 1), the bias and the shift 0.5 N(0, 1), the scale 1 + 0.1 N(0,
+    1), eps that of the model with such rows (ViT 1e-12, MiT 1e-5)."""
+    c = shape[1]
+    x, t = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            for _ in range(2))
+    b, h = (0.5 * torch.randn(c, generator=gen, device="cuda")
+            for _ in range(2))
+    g = 1.0 + 0.1 * torch.randn(c, generator=gen, device="cuda")
+    return x, t, b, g, h, 1e-12 if c == 768 else 1e-5
+
+
+def layer_norm_agreement(got: torch.Tensor, want: torch.Tensor) -> dict:
+    """Kernel 10's y against its plain version, with "ok" by the tolerance
+    above. bf16: the largest difference absolute and, above the floor, in
+    bf16 ulps of want; the values more than one ulp off, and those of them
+    above the floor. fp32: the largest relative difference."""
+    err = (got.float() - want.float()).abs()
+    if want.dtype == torch.float32:
+        rel = float((err / want.abs().clamp_min(1.0)).max())
+        return {"y_rel_err": rel, "ok": rel <= LAYER_NORM_FP32_REL}
+    e = torch.frexp(want.float().abs().clamp_min(2.0 ** -126)).exponent
+    ulp = torch.ldexp(torch.ones_like(err), e - 8)
+    over = err > ulp
+    above = err > LAYER_NORM_ABS_FLOOR
+    bad = int((over & above).sum())
+    return {"y_max_ulps": float((err / ulp)[above].max()) if bool(
+                above.any()) else 0.0,
+            "y_max_abs": float(err.max()),
+            "y_over_1ulp": int(over.sum()),
+            "y_over_1ulp_and_floor": bad, "ok": bad == 0}
+
+
+def phase_layer_norm(peaks, gen):
+    """Phase 3a: kernel 10 against its plain version, timed (module
+    docstring); then its launches in ViT-B/16's captured forward. Returns
+    the row of the ViT-B/16 residual shape."""
+    from visiontransformer_tpu_torch.ops import layer_norm as ln
+    from visiontransformer_tpu_torch.serve.worker import ModelRunner
+
+    rows, failed = {}, []
+    for shape, dtype in LAYER_NORM_CASES:
+        c = shape[1]
+        x, t, b, g, h, eps = layer_norm_inputs(shape, dtype, gen)
+        gl, hl = g.to(dtype), h.to(dtype)
+        for form in ("ln", "add_bias", "add"):
+            bias = b if form == "add_bias" else None
+            if form == "ln":
+                def kernel():
+                    return None, ln.layer_norm(x, g, h, eps=eps)
+
+                def plain():
+                    return None, ln.layer_norm_plain(x, g, h, eps)
+
+                def library():
+                    return F.layer_norm(x, (c,), gl, hl, eps)
+            else:
+                def kernel(bias=bias):
+                    return ln.add_layer_norm(x, t, bias, g, h, eps=eps)
+
+                def plain(bias=bias):
+                    return ln.add_layer_norm_plain(x, t, bias, g, h, eps)
+
+                def library(bias=bias):
+                    s = x + (t if bias is None else t + bias.to(dtype))
+                    return F.layer_norm(s, (c,), gl, hl, eps)
+            with torch.inference_mode():
+                spans.reset()
+                s, y = kernel()
+                torch.cuda.synchronize()
+                launches = spans.counters().get("layer_norm", 0)
+                want_s, want_y = plain()
+                row = {"shape": list(shape), "dtype": str(dtype)[6:],
+                       "form": form, "launches": launches,
+                       "s_equal": None if s is None else bool(
+                           torch.equal(s, want_s))}
+                row.update(layer_norm_agreement(y, want_y))
+                ok = (row.pop("ok") and launches == 1
+                      and row["s_equal"] is not False)
+                n_bytes = ((2 if form == "ln" else 4) * x.numel()
+                           * x.element_size()
+                           + (3 if form == "add_bias" else 2) * c * 4)
+                n_ops = (8 + (0 if form == "ln" else 2)) * x.numel()
+                bound = bound_ms(peaks, n_bytes, n_ops, "fp32")
+                row.update(ms=device_ms(kernel), plain_ms=time_ms(plain),
+                           library_ms=device_ms(library), bound_ms=bound[0],
+                           bound_by=bound[1])
+            row["roofline"] = bound[0] / row["ms"]
+            row["ok"] = ok
+            rows[(shape, dtype, form)] = row
+            emit("layer_norm", **row)
+            if not ok:
+                failed.append(row)
+        del x, t
+    # ViT-B/16 at bucket 32 through the runner's CUDA graphs: the eager
+    # pass that settles the libraries, then the capture, 25 calls each (12
+    # ln1, 12 ln2 with attn_out's bias and residual, the final LayerNorm);
+    # replays call nothing.
+    row = {"model_family": "vitseg", "config_name": "P16H768A12",
+           "num_classes": 17, "input_size": 224}
+    spans.reset()
+    runner = ModelRunner(row, device="cuda", buckets=(32,))
+    runner.warmup()
+    warm = spans.counters()
+    runner.predict(np.zeros((32, 224, 224, 3), np.uint8))
+    after = spans.counters()
+    graphed = {"warmup_launches": warm.get("layer_norm", 0),
+               "warmup_plain": warm.get("layer_norm_plain", 0),
+               "replay_launches": after.get("layer_norm", 0)
+               - warm.get("layer_norm", 0),
+               "captures": warm.get("serve.graph_captures", 0)}
+    emit("layer_norm_graphed", **graphed)
+    del runner
+    torch.cuda.empty_cache()
+    if (graphed["captures"] != 1 or graphed["warmup_launches"] != 2 * 25
+            or graphed["warmup_plain"] or graphed["replay_launches"]):
+        failed.append(graphed)
+    if failed:
+        raise AssertionError(f"layer_norm: {failed}")
+    return {**rows[((6304, 768), torch.bfloat16, "add_bias")],
+            "graphed": graphed,
+            "p4": rows[((100384, 768), torch.bfloat16, "add_bias")]}
 
 
 def phase_model(gen):
@@ -3939,7 +4097,7 @@ def phase_reports_tools():
         if (proc.returncode != 0
                 or report.get("device") != torch.cuda.get_device_name(0)
                 or set(report["kernels"].values()) != {"built"}
-                or len(report["kernels"]) != 9):
+                or len(report["kernels"]) != 10):
             raise AssertionError(f"doctor: rc {proc.returncode}\n"
                                  f"{proc.stdout}\n{proc.stderr[-2000:]}")
         result["doctor"] = {k: report[k] for k in (
@@ -4484,6 +4642,7 @@ def main() -> int:
     phase_flash_keys(peaks, gen)
     variants = phase_flash_variants(peaks, gen)
     upsample = phase_upsample(peaks, gen)
+    layer_norm = phase_layer_norm(peaks, gen)
     model = phase_model(gen)
     serving = phase_serving()
     flash_train = phase_flash_train(peaks, gen)
@@ -4574,6 +4733,9 @@ def main() -> int:
         if row["parallel_launches"]:
             raise AssertionError(f"{row['name']} launched on the parallel "
                                  f"path")
+    kernels.append({"name": "layer_norm", "route": "cuda",
+                    "source": src + "layer_norm.cu", "replaces": None,
+                    **layer_norm})
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

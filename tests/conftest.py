@@ -30,6 +30,11 @@ import pytest
 COLLECTION = {"n_items": 0, "n_files": 0}
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "card: needs a CUDA card; skips without one")
+
+
 def pytest_collection_finish(session):
     files = {item.path for item in session.items}
     COLLECTION["n_items"] = len(session.items)

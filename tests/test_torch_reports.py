@@ -213,4 +213,4 @@ def test_demo_compare_and_doctor_commands(tmp_path, capsys):
     report = json.loads(capsys.readouterr().out)
     assert report["device"] == "cpu" and report["device_check"] == "ok"
     assert report["torch"] == torch.__version__
-    assert len(report["kernels"]) == 9
+    assert len(report["kernels"]) == 10

@@ -12,8 +12,10 @@ model code, no configuration, no re-trace, and an error, not a silent
 retrace, if the input shape or the device does not match what was
 exported. On the card the program holds kernels 1 and 5 as the custom ops
 ``vt::flash_attention_fwd`` (one node a layer) and ``vt::upsample_argmax``
-(``ops/flash_attention.py``, ``ops/upsample_argmax.py``), which this module
-registers by importing them before it loads a program.
+(``ops/flash_attention.py``, ``ops/upsample_argmax.py``), and kernel 10 as
+``vt::layer_norm`` and ``vt::add_layer_norm`` (``ops/layer_norm.py``: ln1
+and the final LayerNorm, and each ln2 with its residual), which this
+module registers by importing them before it loads a program.
 
 File format, as the TPU package's: magic, 8-byte big-endian JSON-header
 length, JSON metadata (family, classes, shapes, the device type it was
@@ -35,6 +37,7 @@ from torch import nn
 # them before it reads a program that calls them).
 from visiontransformer_tpu_torch.ops import flash_attention as _flash  # noqa: F401
 from visiontransformer_tpu_torch.ops import upsample_argmax as _epilogue  # noqa: F401
+from visiontransformer_tpu_torch.ops import layer_norm as _layer_norm  # noqa: F401
 from visiontransformer_tpu_torch.device import resolve_device
 from visiontransformer_tpu_torch.models.vitseg import ViTSeg, vitseg_predict
 

@@ -29,7 +29,7 @@ one rank per device of the mesh on this host (``parallel/launch.py``);
 ``torch.export`` program (``ckpt/export.py``) for the device it runs on.
 ``convert-orbax`` turns a TPU-package Orbax checkpoint into one of the
 port's on a host with tensorstore (``ckpt/orbax_read.py``). ``doctor``
-reports torch, CUDA, the card, nvcc, the nine kernels' build and the
+reports torch, CUDA, the card, nvcc, the ten kernels' build and the
 native library. Commands that run a model take ``--device`` (default
 cuda; the CPU only when asked for). ``serve`` hands its arguments to ``serve/server.py`` and
 serves the models registered with ``register-model``, of any family the
@@ -404,7 +404,7 @@ def cmd_compare(argv) -> int:
 
 def cmd_doctor(argv) -> int:
     """One JSON report of the environment: Python, torch and its CUDA
-    runtime, the card, nvcc, the nine kernels' build (built here unless
+    runtime, the card, nvcc, the ten kernels' build (built here unless
     --cpu), the native library, and a small computation on the device.
     Exits 1 when the device cannot be reached or a check fails."""
     import json

@@ -46,6 +46,7 @@ from visiontransformer_tpu_torch.nn.layers import (
     linear,
 )
 from visiontransformer_tpu_torch.ops.attention import multi_head_attention
+from visiontransformer_tpu_torch.ops.layer_norm import add_layer_norm
 from visiontransformer_tpu_torch.ops.token_merge import (
     init_merge_state,
     merge_step,
@@ -160,11 +161,13 @@ def _block_tokens(layer: EncoderLayer, x: torch.Tensor,
 
 
 def encoder_layer_qkv(layer: EncoderLayer, x: torch.Tensor, cfg: ViTConfig,
-                      *, n_tokens: Optional[int] = None) -> torch.Tensor:
+                      *, n_tokens: Optional[int] = None,
+                      normed: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The block's half before attention: ln1 and the fused QKV projection,
-    as a (3, B, heads, N, head_dim) view (q, k, v along the first axis)."""
+    as a (3, B, heads, N, head_dim) view (q, k, v along the first axis).
+    ``normed``: ln1(x), where the caller has it already."""
     tp, n = _block_tokens(layer, x, n_tokens)
-    y = layer.ln1(x)
+    y = layer.ln1(x) if normed is None else normed
     if tp is not None:
         y = tp.enter(y, n)
     return layer.qkv(y).reshape(x.shape[0], n, 3, -1,
@@ -190,24 +193,46 @@ def encoder_layer_out(layer: EncoderLayer, x: torch.Tensor,
                       deterministic: bool = True,
                       generator: Optional[torch.Generator] = None,
                       tp_generator: Optional[torch.Generator] = None,
-                      n_tokens: Optional[int] = None) -> torch.Tensor:
+                      n_tokens: Optional[int] = None,
+                      norm: Optional[LayerNorm] = None):
     """The block's half after attention: the output projection and its
-    residual, ln2, the MLP and its residual, with the hidden dropout."""
+    residual, ln2, the MLP and its residual, with the hidden dropout.
+    ``norm``: the LayerNorm that follows the block; given, returns (x,
+    norm(x)) instead of x.
+
+    Each residual add and the LayerNorm after it (ln2, then ``norm``) are
+    one ``add_layer_norm``: one launch of kernel 10 on a CUDA device
+    without a gradient. Without a tensor-parallel plan and with the dropout
+    inert, the product's bias goes into the same call."""
     tp, n = _block_tokens(layer, x, n_tokens)
     rate = cfg.hidden_dropout_prob
     hidden_generator = generator
     if tp is not None and tp.seq_parallel:
         hidden_generator = tp_generator
-    attn = attn.transpose(1, 2).reshape(x.shape[0], n, -1)
-    x = x + dropout(_row_parallel(layer.attn_out, attn, tp, n), rate,
-                    generator=hidden_generator, deterministic=deterministic)
+    split = tp is None and (deterministic or rate == 0.0)
 
-    y = layer.ln2(x)
+    def product(module, h):
+        """(t, b): module(h) = t + b, b the bias still to add, or None."""
+        if split and isinstance(module, Linear):
+            return linear(h, module.kernel), module.bias
+        return dropout(_row_parallel(module, h, tp, n), rate,
+                       generator=hidden_generator,
+                       deterministic=deterministic), None
+
+    attn = attn.transpose(1, 2).reshape(x.shape[0], n, -1)
+    x, y = _add_norm(x, *product(layer.attn_out, attn), layer.ln2)
     if tp is not None:
         y = tp.enter(y, n)
-    y = _row_parallel(layer.mlp_out, gelu_exact(layer.mlp_in(y)), tp, n)
-    return x + dropout(y, rate, generator=hidden_generator,
-                       deterministic=deterministic)
+    t, b = product(layer.mlp_out, gelu_exact(layer.mlp_in(y)))
+    if norm is None:
+        return x + (t if b is None else t + b.to(t.dtype))
+    return _add_norm(x, t, b, norm)
+
+
+def _add_norm(x: torch.Tensor, t: torch.Tensor, b: Optional[torch.Tensor],
+              norm: LayerNorm):
+    """(s, norm(s)), s = x + (t + b)."""
+    return add_layer_norm(x, t, b, norm.scale, norm.bias, eps=norm.eps)
 
 
 def _row_parallel(module, x: torch.Tensor, tp, n: int) -> torch.Tensor:
@@ -306,12 +331,21 @@ def vit_cut_step(model: ViT, i: int, x: torch.Tensor, state,
     the last block, the final LayerNorm and unmerge, returning the final
     token states as ``vit_encode`` does."""
     cfg = model.cfg
-    x = encoder_layer_out(model.layers[i - 1], x, attn, cfg)
-    if state is not None:
+    last = i == len(model.layers)
+    normed = None
+    if state is None:
+        # Nothing lies between the block's residual and the next LayerNorm
+        # (ToMe's merge would): encoder_layer_out gives both.
+        x, normed = encoder_layer_out(
+            model.layers[i - 1], x, attn, cfg,
+            norm=model.final_ln if last else model.layers[i].ln1)
+    else:
+        x = encoder_layer_out(model.layers[i - 1], x, attn, cfg)
         x, state = merge_step(x, state, cfg.token_merge_r)
-    if i < len(model.layers):
-        return x, state, encoder_layer_qkv(model.layers[i], x, cfg)
-    x = model.final_ln(x)
+    if not last:
+        return x, state, encoder_layer_qkv(model.layers[i], x, cfg,
+                                           normed=normed)
+    x = model.final_ln(x) if normed is None else normed
     return x if state is None else unmerge(x, state)
 
 

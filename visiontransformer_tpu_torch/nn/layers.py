@@ -26,6 +26,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from visiontransformer_tpu_torch.ops import layer_norm as _ln
+
 
 def linear(x: torch.Tensor, kernel: torch.Tensor,
            bias: Optional[torch.Tensor] = None, *,
@@ -112,12 +114,10 @@ def _linear_w8a8(x: torch.Tensor, kernel_q: torch.Tensor,
 
 def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, *,
                eps: float = 1e-12) -> torch.Tensor:
-    """LayerNorm over the last axis in fp32, cast back to x's dtype."""
-    x32 = x.float()
-    mean = x32.mean(dim=-1, keepdim=True)
-    var = (x32 - mean).square().mean(dim=-1, keepdim=True)
-    y = (x32 - mean) * torch.rsqrt(var + eps)
-    return (y * scale + bias).to(x.dtype)
+    """LayerNorm over the last axis in fp32, cast back to x's dtype: kernel
+    10 on a CUDA device without a gradient, else the plain code
+    (``ops/layer_norm.py``)."""
+    return _ln.layer_norm(x, scale, bias, eps=eps)
 
 
 def gelu_exact(x: torch.Tensor) -> torch.Tensor:

@@ -28,8 +28,9 @@ BUILD_ROOT = _PKG_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# The nine kernels (the TPU package's Pallas kernels, PERF.md's table) by
-# the wrapper that counts their launches, and the source each is built from.
+# The ten kernels (the TPU package's nine Pallas kernels and the LayerNorm,
+# PERF.md's table) by the wrapper that counts their launches, and the
+# source each is built from.
 KERNELS = {
     "flash_attention_fwd": "flash_attention_fwd",
     "flash_attention_fwd_train": "flash_attention_fwd",
@@ -40,6 +41,7 @@ KERNELS = {
     "flash_multiq": "flash_chains",
     "flash_pvt": "flash_chains",
     "flash_dualq_pvt": "flash_chains",
+    "layer_norm": "layer_norm",
 }
 
 _LOCK = threading.RLock()
