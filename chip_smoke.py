@@ -87,7 +87,9 @@ failure:
              of the same decoded image; ModelRunner.dispatch launches no
              kernel after kernel 5 (the uint8 masks are its output); jobs/s;
              the runner's CUDA graphs (graphed_runner_check): its masks
-             equal vitseg_predict's bit for bit at every bucket 1-32, at
+             equal vitseg_predict's and the per-block forward's
+             (vitseg_head_logits, then kernel 5) bit for bit at every
+             bucket 1-32, at
              ViT-B/16, at P4H768A12 and on a 2-replica mesh on the card,
              12 + 1 launches a forward, every dispatch served by replays.
 6. flash_train  the training kernels (forward with lse and dropout, dQ,
@@ -186,7 +188,8 @@ failure:
              over HTTP (8 jobs, every mask equals ModelRunner.predict);
              rows with ToMe r = 16, int8 and both served through the
              runner's CUDA graphs at buckets 8 and 32, equal to
-             vitseg_predict bit for bit (graphed_runner_check);
+             vitseg_predict and the per-block forward bit for bit
+             (graphed_runner_check);
              one CE training step at r = 16 (12 x 4 launches of kernels
              2-4), then one step without and with remat from the same
              weights and seed under deterministic algorithms, two plain
@@ -1990,11 +1993,20 @@ def _served_masks(client, jobs, done):
 def graphed_runner_check(config: str, buckets=(1, 2, 4, 8, 16, 32),
                          row_extra=None, **mesh) -> dict:
     """ModelRunner on cuda serves through CUDA graphs: after warmup, its
-    masks at every bucket equal vitseg_predict of the runner's model(s) on
-    the same rows (each replica's rows alone on a mesh) bit for bit; one
-    capture a bucket and replica; every dispatch served by replays; kernel
-    1 launched once a block and replica, kernel 5 once a replica."""
-    from visiontransformer_tpu_torch.models.vitseg import vitseg_predict
+    masks at every bucket equal, bit for bit, on the same rows (each
+    replica's rows alone on a mesh), both vitseg_predict of the runner's
+    model(s) (the one masks forward, run eagerly) and the per-block
+    forward (vitseg_head_logits, whose residual adds and LayerNorms run
+    apart, then kernel 5); one capture a bucket and replica; every
+    dispatch served by replays; kernel 1 launched once a block and
+    replica, kernel 5 once a replica."""
+    from visiontransformer_tpu_torch.models.vitseg import (
+        vitseg_head_logits,
+        vitseg_predict,
+    )
+    from visiontransformer_tpu_torch.ops.upsample_argmax import (
+        upsample_argmax,
+    )
     from visiontransformer_tpu_torch.serve.worker import ModelRunner
 
     row = {"model_family": "vitseg", "config_name": config,
@@ -2009,7 +2021,7 @@ def graphed_runner_check(config: str, buckets=(1, 2, 4, 8, 16, 32),
     layers = runner.cfg.vit.num_hidden_layers
     captures = spans.counters().get("serve.graph_captures", 0)
     rng = np.random.default_rng(5)
-    equal, launches = {}, {}
+    equal, equal_per_block, launches = {}, {}, {}
     spans.reset()
     for b in buckets:
         images = rng.integers(0, 256, (b, 224, 224, 3), np.uint8)
@@ -2018,21 +2030,27 @@ def graphed_runner_check(config: str, buckets=(1, 2, 4, 8, 16, 32),
         got = runner.predict(images)
         launches[b] = {k: _launches(k) - v for k, v in before.items()}
         per = b // replicas
-        want = []
+        want, per_block = [], []
         with torch.inference_mode():
-            for i, (_, model, stream) in enumerate(runner.replicas):
+            for i, (_, forward, stream) in enumerate(runner.replicas):
                 with torch.cuda.stream(stream or torch.cuda.current_stream()):
                     x = torch.from_numpy(images[i * per:(i + 1) * per])
+                    x = x.cuda().float() / 255.0
                     want.append(vitseg_predict(
-                        model, x.cuda().float() / 255.0,
-                        out_size=(224, 224),
+                        forward.model, x, out_size=(224, 224),
                         mask_dtype=runner.mask_dtype).cpu())
+                    per_block.append(upsample_argmax(
+                        vitseg_head_logits(forward.model, x).contiguous(),
+                        (224, 224), out_dtype=runner.mask_dtype).cpu())
         torch.cuda.synchronize()
         equal[b] = bool(np.array_equal(got, torch.cat(want).numpy()))
+        equal_per_block[b] = bool(np.array_equal(
+            got, torch.cat(per_block).numpy()))
     counters = spans.counters()
     out = {"config": config, "row": row_extra or {}, "replicas": replicas,
            "graphed": runner.graphed, "captures": captures,
            "warmup_s": warm_s, "equal": equal,
+           "equal_per_block": equal_per_block,
            "batches": counters.get("serve.batches", 0),
            "graphed_batches": counters.get("serve.graphed_batches", 0),
            "launches": launches}
@@ -2040,7 +2058,7 @@ def graphed_runner_check(config: str, buckets=(1, 2, 4, 8, 16, 32),
     want_launches = {"flash_attention": layers * replicas,
                      "upsample_argmax": replicas}
     if (not runner.graphed or captures != len(buckets) * replicas
-            or not all(equal.values())
+            or not all(equal.values()) or not all(equal_per_block.values())
             or not out["graphed_batches"] == out["batches"] == len(buckets)
             or any(v != want_launches for v in launches.values())):
         raise AssertionError(f"graphed runner: {out}")
@@ -4380,12 +4398,12 @@ def _mesh_bench_masks(runner, raw: torch.Tensor, compute: int,
     torch.cuda.synchronize()
     parts = []
     with torch.inference_mode():
-        for i, (_, model, stream) in enumerate(runner.replicas):
+        for i, (_, forward, stream) in enumerate(runner.replicas):
             with torch.cuda.stream(stream or torch.cuda.current_stream()):
                 x = resize_bilinear_mm(raw[i * per:(i + 1) * per],
                                        (compute, compute))
                 parts.append(vitseg_predict(
-                    model, (x - mean) / std, out_size=(size, size),
+                    forward.model, (x - mean) / std, out_size=(size, size),
                     attn_impl=attn_impl, mask_dtype=torch.uint8))
         torch.cuda.synchronize()
     return torch.cat(parts)

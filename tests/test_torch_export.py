@@ -5,7 +5,7 @@ The port's ``ckpt/export.py`` (``torch.export``) is held against the JAX
 package's ``ckpt/stablehlo.py`` (``jax.export``) on the same weights, and
 against the port's eager ``vitseg_predict``; ``vt::flash_attention_fwd``
 and ``vt::upsample_argmax`` pass ``torch.library.opcheck``; ``export-serving
---family`` programs of a conv family and of segformer give
+--family`` programs of a conv family, of segformer and of vitseg give
 ``ModelRunner.predict``'s masks bit for bit. Everything runs
 on the CPU, where the ops run their plain versions (their CUDA
 implementations are the kernels, checked on the card by chip_smoke.py).
@@ -270,11 +270,15 @@ def test_export_serving_command(tmp_path, monkeypatch, models):
 
 
 @pytest.mark.parametrize("family,config", [("unet", "small"),
-                                           ("segformer", "mit_b0")])
-def test_export_serving_family_masks_equal_runner(tmp_path, family, config):
-    """export-serving --family for a conv family and segformer: the
-    program's masks equal ModelRunner.predict's bit for bit, and its header
-    names the family."""
+                                           ("segformer", "mit_b0"),
+                                           ("vitseg", "tiny")])
+def test_export_serving_family_masks_equal_runner(tmp_path, monkeypatch,
+                                                  family, config):
+    """export-serving --family for a conv family, segformer and vitseg
+    (a tiny sweep entry): the program's masks equal ModelRunner.predict's
+    bit for bit, and its header names the family."""
+    monkeypatch.setattr(port_registry, "sweep_by_name",
+                        lambda name: tcfg.SweepEntry(0, 8, 64, 2, 4))
     out = str(tmp_path / f"{family}.pt2")
     assert cli_main(["export-serving", "--family", family, "--config",
                      config, "--num-classes", str(CLASSES), "--input-size",

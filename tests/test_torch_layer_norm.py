@@ -35,12 +35,11 @@ from visiontransformer_tpu_torch.models.vit import (
     block_attention,
     encoder_layer_qkv,
     vit_apply,
-    vit_cut_embed,
     vit_cut_step,
     vit_embed,
 )
 from visiontransformer_tpu_torch.models.vitseg import (
-    ServingSegments,
+    MasksForward,
     ViTSeg,
     set_token_merge_r,
 )
@@ -234,7 +233,7 @@ def test_serving_segments_take_the_fused_form(merge_r):
                            generator=torch.Generator().manual_seed(2))
     layers = TINY["num_hidden_layers"]
     with _spy() as calls, torch.inference_mode():
-        ServingSegments(model, (32, 32), torch.uint8).run(images)
+        MasksForward(model, (32, 32), torch.uint8)(images)
     fused = 2 * layers if merge_r == 0 else layers
     assert calls["add_layer_norm"] == calls["with_bias"] == fused
     assert calls["layer_norm"] == 2 * layers + 1 - fused
@@ -317,14 +316,15 @@ def b16():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_b16_cpu_forward_bit_identical_to_before(b16, dtype):
     """ViT-B/16 at full width and depth, one image: vit_apply and the cut
-    forward (the serving graphs' path) equal the block arithmetic as it
+    forward (every masks forward's path) equal the block arithmetic as it
     was before the fused form, bit for bit."""
     images = torch.rand(1, 224, 224, 3,
                         generator=torch.Generator().manual_seed(12))
     with torch.inference_mode():
         want = _forward_as_before(b16, images, dtype)
         got = vit_apply(b16, images, dtype=dtype)
-        x, state, qkv = vit_cut_embed(b16, images, dtype=dtype)
+        x, state, qkv = vit_cut_step(b16, 0,
+                                     vit_embed(b16, images, dtype=dtype))
         for i in range(1, len(b16.layers) + 1):
             out = vit_cut_step(b16, i, x, state,
                                block_attention(qkv, b16.cfg,

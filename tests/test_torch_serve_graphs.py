@@ -1,6 +1,7 @@
-"""The serving forward cut for CUDA graphs, on the CPU: the segmented
-forward (``models/vitseg.py:ServingSegments``) against ``vitseg_predict``,
-``encoder_layer`` against its two halves, the ``out`` overload of
+"""The serving forward cut for CUDA graphs, on the CPU: the one masks
+forward (``models/vitseg.py:MasksForward``), eagerly and segment by
+segment, against the per-block forward, ``encoder_layer`` against its
+two halves, the ``out`` overload of
 ``vt::flash_attention_fwd`` (plain and fake), and a CPU ``ModelRunner``,
 which captures nothing. The graphs themselves run only on a card
 (``chip_smoke.py``, phases ``serving`` and ``optin``)."""
@@ -19,14 +20,16 @@ from visiontransformer_tpu_torch.models.vit import (
     encoder_layer_qkv,
 )
 from visiontransformer_tpu_torch.models.vitseg import (
-    ServingSegments,
+    MasksForward,
     ViTSeg,
     set_token_merge_r,
+    vitseg_head_logits,
     vitseg_predict,
 )
 from visiontransformer_tpu_torch.ops.flash_attention import (
     flash_attention,
 )
+from visiontransformer_tpu_torch.ops.upsample_argmax import upsample_argmax
 from visiontransformer_tpu_torch.serve.worker import ModelRunner
 from visiontransformer_tpu_torch.utils import spans
 
@@ -49,16 +52,23 @@ def _model(dtype="float32", **vit):
 @pytest.mark.parametrize("merge_r", [0, 2])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_segmented_forward_equals_vitseg_predict(dtype, merge_r, mask_dtype):
+    """The masks forward of uint8 images, run eagerly and segment by
+    segment, equals the per-block forward (``vitseg_head_logits``, whose
+    residual adds and LayerNorms are apart, then kernel 5) and
+    ``vitseg_predict`` of the images / 255 bit for bit."""
     model = _model(dtype)
     set_token_merge_r(model, merge_r)
     images = torch.randint(0, 256, (3, 32, 32, 3), dtype=torch.uint8,
                            generator=torch.Generator().manual_seed(1))
-    segments = ServingSegments(model, (32, 32), mask_dtype)
+    segments = MasksForward(model, (32, 32), mask_dtype)
     assert segments.count == TINY["num_hidden_layers"] + 1
     with torch.inference_mode():
-        want = vitseg_predict(model, images.float() / 255.0,
-                              out_size=(32, 32), mask_dtype=mask_dtype)
-        got = segments.run(images)
+        x = images.float() / 255.0
+        want = upsample_argmax(vitseg_head_logits(model, x).contiguous(),
+                               (32, 32), out_dtype=mask_dtype)
+        predicted = vitseg_predict(model, x, out_size=(32, 32),
+                                   mask_dtype=mask_dtype)
+        got = segments(images)
         # Segment by segment, with the attention written into a buffer
         # the next segment reads, as the runner's graphs run it.
         outputs = segments.segment(0, (images,))
@@ -71,6 +81,7 @@ def test_segmented_forward_equals_vitseg_predict(dtype, merge_r, mask_dtype):
     assert len(torch.unique(want)) > 1
     assert got.dtype == stepped.dtype == mask_dtype
     assert torch.equal(got, want) and torch.equal(stepped, want)
+    assert torch.equal(predicted, want)
 
 
 @pytest.mark.parametrize("dropout", [False, True])

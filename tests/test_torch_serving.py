@@ -69,21 +69,22 @@ def tiny_registry(monkeypatch):
                          [(5, torch.uint8), (300, torch.int32)])
 def test_dispatch_masks_come_from_the_epilogue(monkeypatch, tiny_registry,
                                                num_classes, mask_dtype):
-    """dispatch asks vitseg_predict for its mask type and hands on what it
-    returns, with no cast of its own."""
-    import visiontransformer_tpu_torch.serve.worker as worker
+    """dispatch has the masks forward's epilogue write its mask type and
+    hands on what it returns, with no cast of its own."""
+    import visiontransformer_tpu_torch.models.vitseg as vitseg
 
     runner = ModelRunner({**ROW, "num_classes": num_classes},
                          compute_dtype="float32", buckets=(2,), device="cpu")
     seen = []
 
-    def predict(model, images, **kwargs):
-        seen.append(kwargs)
-        out = torch.zeros(images.shape[:3], dtype=kwargs["mask_dtype"])
+    def epilogue(grid, out_size, mask_dtype):
+        seen.append({"mask_dtype": mask_dtype})
+        out = torch.zeros((grid.shape[0],) + tuple(out_size),
+                          dtype=mask_dtype)
         seen.append(out)
         return out
 
-    monkeypatch.setattr(worker, "vitseg_predict", predict)
+    monkeypatch.setattr(vitseg, "upsample_argmax_plain", epilogue)
     pending = runner.dispatch(np.zeros((1, 32, 32, 3), np.uint8))
     assert seen[0]["mask_dtype"] == mask_dtype == runner.mask_dtype
     assert pending._parts[0][0] is seen[1]  # (host masks, event) a replica

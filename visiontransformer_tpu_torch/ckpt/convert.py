@@ -41,8 +41,6 @@ from torch import nn
 from visiontransformer_tpu_torch.models.unet import ConvSegModel
 from visiontransformer_tpu_torch.ops.quant import (
     is_quantized,
-    quantize_conv_model_,
-    quantize_vit_,
     tree_is_quantized,
 )
 
@@ -84,15 +82,12 @@ def load_jax_params(model: nn.Module, tree) -> nn.Module:
     """Load a TPU-package param tree into ``model`` (strict: every
     parameter and buffer must be present with its shape; values are copied
     onto the model's device). A W8A8 tree first puts the model in that
-    form, in place: the encoder linears of vitseg (``LinearW8A8``), the
-    tree quantizer's layers of the other families
-    (``quantize_conv_model_``)."""
-    if isinstance(model, ConvSegModel):
-        if tree_is_quantized(tree) and not is_quantized(model):
-            quantize_conv_model_(model)
-        model.load_state_dict(conv_params_from_jax(tree), strict=True)
-        return model
+    form, in place (``models/registry.py:quantize_int8_``)."""
+    from visiontransformer_tpu_torch.models.registry import quantize_int8_
+
     if tree_is_quantized(tree) and not is_quantized(model):
-        quantize_vit_(model.backbone)
-    model.load_state_dict(vitseg_params_from_jax(tree), strict=True)
+        quantize_int8_(model)
+    bridge = (conv_params_from_jax if isinstance(model, ConvSegModel)
+              else vitseg_params_from_jax)
+    model.load_state_dict(bridge(tree), strict=True)
     return model

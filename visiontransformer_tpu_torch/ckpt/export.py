@@ -2,20 +2,22 @@
 
 The port's counterpart of the TPU package's ``ckpt/stablehlo.py``.
 ``torch.export`` traces the serving forward (images in [0, 1] -> uint8
-class masks, as the serving worker computes them: ``vitseg_predict`` for
-vitseg, the argmax of the logits for every other family, a W8A8 model's
-included) once under ``no_grad``, with the trained weights inside the
-program, and saves it. A vitseg program's size is its patch grid's; any
-other family's is named at export (``input_size``). A
-deployment host then runs inference with ``load_serving`` + ``call``: no
-model code, no configuration, no re-trace, and an error, not a silent
-retrace, if the input shape or the device does not match what was
-exported. On the card the program holds kernels 1 and 5 as the custom ops
-``vt::flash_attention_fwd`` (one node a layer) and ``vt::upsample_argmax``
-(``ops/flash_attention.py``, ``ops/upsample_argmax.py``), and kernel 10 as
-``vt::layer_norm`` and ``vt::add_layer_norm`` (``ops/layer_norm.py``: ln1
-and the final LayerNorm, and each ln2 with its residual), which this
-module registers by importing them before it loads a program.
+class masks: the family's masks forward,
+``models/registry.py:serving_forward``, as the serving worker runs it
+eagerly, a W8A8 model's included) once under ``no_grad``, with the
+trained weights inside the program, and saves it. A vitseg program's size
+is its patch grid's; any other family's is named at export
+(``input_size``). A deployment host then runs inference with
+``load_serving`` + ``call``: no model code, no configuration, no
+re-trace, and an error, not a silent retrace, if the input shape or the
+device does not match what was exported. On the card a vitseg program
+holds kernels 1 and 5 as the custom ops ``vt::flash_attention_fwd`` (one
+node a layer) and ``vt::upsample_argmax`` (``ops/flash_attention.py``,
+``ops/upsample_argmax.py``), and kernel 10 as ``vt::layer_norm`` (block
+0's ln1) and ``vt::add_layer_norm`` (``ops/layer_norm.py``: each ln2, and
+each later ln1 and the final LayerNorm, with the residual before it; under
+ToMe those two alone), which this module registers by importing them
+before it loads a program.
 
 File format, as the TPU package's: magic, 8-byte big-endian JSON-header
 length, JSON metadata (family, classes, shapes, the device type it was
@@ -38,8 +40,9 @@ from torch import nn
 from visiontransformer_tpu_torch.ops import flash_attention as _flash  # noqa: F401
 from visiontransformer_tpu_torch.ops import upsample_argmax as _epilogue  # noqa: F401
 from visiontransformer_tpu_torch.ops import layer_norm as _layer_norm  # noqa: F401
+from visiontransformer_tpu_torch.configs import ViTSegConfig
 from visiontransformer_tpu_torch.device import resolve_device
-from visiontransformer_tpu_torch.models.vitseg import ViTSeg, vitseg_predict
+from visiontransformer_tpu_torch.models.registry import serving_forward
 
 _MAGIC = b"VTTEXP1\n"
 
@@ -50,32 +53,13 @@ def serving_input_size(cfg, family: str = "vitseg",
     model's is fixed by its patch grid; the other families take any size,
     so the caller names one, and none raises (the program is
     static-shape), as in the TPU package."""
-    if family == "vitseg":
+    if isinstance(cfg, ViTSegConfig):
         return cfg.vit.image_size
     if input_size is None:
         raise ValueError(
             f"family {family!r} takes any input size but the exported "
             f"program is static: pass input_size")
     return int(input_size)
-
-
-class _ServingForward(nn.Module):
-    """vitseg: ``vitseg_predict`` (kernels 1 and 5 on CUDA); any other
-    family: ``argmax(model(images))`` as uint8, as ``ModelRunner``
-    serves it."""
-
-    def __init__(self, model: nn.Module, attn_impl: str, epilogue: str):
-        super().__init__()
-        self.model = model
-        self.attn_impl, self.epilogue = attn_impl, epilogue
-
-    def forward(self, images: torch.Tensor) -> torch.Tensor:
-        if isinstance(self.model, ViTSeg):
-            return vitseg_predict(self.model, images,
-                                  attn_impl=self.attn_impl,
-                                  epilogue=self.epilogue,
-                                  mask_dtype=torch.uint8)
-        return torch.argmax(self.model(images), dim=-1).to(torch.uint8)
 
 
 def export_serving(model: nn.Module, cfg, *, out_path: str,
@@ -90,17 +74,18 @@ def export_serving(model: nn.Module, cfg, *, out_path: str,
     attn_impl and epilogue: as ``vitseg_predict``'s ("auto": the kernels
     on CUDA, the plain forms on the CPU). Returns the metadata written to
     the header."""
-    family = "vitseg" if isinstance(model, ViTSeg) else model.family
-    size = serving_input_size(cfg, family, input_size)
+    size = serving_input_size(cfg, model.family, input_size)
     device = next(model.parameters()).device
     images = torch.zeros((batch_size, size, size, 3), device=device)
     with torch.no_grad():
         program = torch.export.export(
-            _ServingForward(model, attn_impl, epilogue).eval(), (images,))
+            serving_forward(model, out_size=(size, size),
+                            mask_dtype=torch.uint8, attn_impl=attn_impl,
+                            epilogue=epilogue).eval(), (images,))
     blob = io.BytesIO()
     torch.export.save(program, blob)
     meta = {
-        "family": family,
+        "family": model.family,
         "num_classes": int(cfg.num_classes),
         "batch_size": int(batch_size),
         "input_size": int(size),

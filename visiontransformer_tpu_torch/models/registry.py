@@ -90,7 +90,11 @@ from visiontransformer_tpu_torch.models.upernet import (
     upernet_apply,
     upernet_init,
 )
-from visiontransformer_tpu_torch.models.vitseg import ViTSeg, vitseg_apply
+from visiontransformer_tpu_torch.models.vitseg import (
+    MasksForward,
+    ViTSeg,
+    vitseg_apply,
+)
 from visiontransformer_tpu_torch.ops.quant import (
     quantize_conv_model_,
     quantize_vit_,
@@ -255,12 +259,45 @@ def resolve_model(family: str, config_name: str, *, num_classes: int,
                  get_model_family(family).init(torch.Generator(), cfg))
         if any(k.endswith(".kernel_q") for k in params):
             # A W8A8 checkpoint: the model takes the form it was saved in.
-            if family == "vitseg":
-                quantize_vit_(model.backbone)
-            else:
-                quantize_conv_model_(model)
+            quantize_int8_(model)
         model.load_state_dict(params, strict=True)
     return cfg, model.to(dev).eval()
+
+
+def quantize_int8_(model: nn.Module) -> None:
+    """The family's W8A8 form, in place (``ops/quant.py``): vitseg's
+    encoder linears; every other family's linears and interior convs."""
+    if isinstance(model, ViTSeg):
+        quantize_vit_(model.backbone)
+    else:
+        quantize_conv_model_(model)
+
+
+class ArgmaxMasks(nn.Module):
+    """Every other family's masks forward, as the TPU runner serves it:
+    ``argmax(model(images))`` in ``mask_dtype``, in one piece."""
+
+    cut = False
+
+    def __init__(self, model: nn.Module, mask_dtype: torch.dtype):
+        super().__init__()
+        self.model, self.mask_dtype = model, mask_dtype
+
+    def forward(self, images: torch.Tensor) -> torch.Tensor:
+        return torch.argmax(self.model(images), dim=-1).to(self.mask_dtype)
+
+
+def serving_forward(model: nn.Module, *, out_size: Tuple[int, int],
+                    mask_dtype: torch.dtype, attn_impl: str = "auto",
+                    epilogue: str = "auto") -> nn.Module:
+    """What the model's family serves, as a module holding the model:
+    (B, H, W, 3) images in [0, 1] -> masks in ``mask_dtype``; vitseg's
+    ``MasksForward`` (``cut``: the runner graphs it), any other family's
+    ``ArgmaxMasks`` (input size; no ``attn_impl`` or ``epilogue``)."""
+    if isinstance(model, ViTSeg):
+        return MasksForward(model, out_size, mask_dtype,
+                            attn_impl=attn_impl, epilogue=epilogue)
+    return ArgmaxMasks(model, mask_dtype)
 
 
 def _checkpoint_params(path: str, family: str, cfg):

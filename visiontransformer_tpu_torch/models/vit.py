@@ -1,4 +1,5 @@
-"""ViT backbone forward, for inference and training.
+"""ViT backbone forward: ``vit_encode`` block by block, for training and
+the logits; ``vit_cut_step``'s pieces for masks (``models/vitseg.py``).
 
 Mirrors the TPU package's ``models/vit.py`` (HF ``ViTModel`` semantics):
 patch embedding as patchify + one matmul, CLS token and learned position
@@ -111,14 +112,17 @@ def vit_embed(model: ViT, images: torch.Tensor, *,
     dropout."""
     with ranged("vit.embed"):
         x = patchify(images.to(dtype), model.cfg.patch_size)
-        return _embed_patch_tokens(model, model.patch_embed(x, dtype=dtype),
-                                   dtype=dtype, deterministic=deterministic,
-                                   generator=generator)
+        return vit_embed_patch_tokens(
+            model, model.patch_embed(x, dtype=dtype), dtype=dtype,
+            deterministic=deterministic, generator=generator)
 
 
-def _embed_patch_tokens(model: ViT, x: torch.Tensor, *, dtype: torch.dtype,
-                        deterministic: bool,
-                        generator: Optional[torch.Generator]) -> torch.Tensor:
+def vit_embed_patch_tokens(model: ViT, x: torch.Tensor, *,
+                           dtype: torch.dtype, deterministic: bool = True,
+                           generator: Optional[torch.Generator] = None
+                           ) -> torch.Tensor:
+    """``vit_embed`` after its projection: CLS + position embeddings +
+    embedding dropout over (B, N, hidden) patch tokens."""
     x = x.to(dtype)
     cls = model.cls_token.to(dtype).expand(x.shape[0], -1, -1)
     x = torch.cat([cls, x], dim=1)
@@ -311,29 +315,22 @@ def vit_encode(model: ViT, x: torch.Tensor, *, attn_impl: str,
     return x if state is None else unmerge(x, state)
 
 
-def vit_cut_embed(model: ViT, images: torch.Tensor, *, dtype: torch.dtype):
-    """The inference encoder cut at its attention calls, first piece: the
-    embedding and block 0's half before attention. Returns (x, the merge
-    state or None, block 0's qkv view); ``vit_cut_step`` goes on once the
-    caller has run ``block_attention`` on the view. With the config's
-    token merging; without dropout, parallelism or remat."""
-    x = vit_embed(model, images, dtype=dtype)
-    state = (init_merge_state(x.shape[0], x.shape[1], x.device)
-             if model.cfg.token_merge_r else None)
-    return x, state, encoder_layer_qkv(model.layers[0], x, model.cfg)
-
-
-def vit_cut_step(model: ViT, i: int, x: torch.Tensor, state,
-                 attn: torch.Tensor):
-    """Piece i (1 <= i <= layers) of the cut encoder: block i-1's half
-    after attention, given its attention output, and its merge; then
-    block i's half before attention, returning (x, state, qkv), or, after
-    the last block, the final LayerNorm and unmerge, returning the final
-    token states as ``vit_encode`` does."""
+def vit_cut_step(model: ViT, i: int, x: torch.Tensor, state=None,
+                 attn: Optional[torch.Tensor] = None):
+    """Piece i of the inference encoder cut at its attention calls (the
+    config's token merging; no dropout, parallelism or remat). Piece 0
+    takes embedded tokens x and starts the merge state; piece i > 0 runs
+    block i-1's half after attention on its attention output, and its
+    merge. Then block i's half before attention, returning (x, state, qkv)
+    for ``block_attention``, or, after the last block, the final LayerNorm
+    and unmerge, returning the final token states as ``vit_encode`` does."""
     cfg = model.cfg
     last = i == len(model.layers)
     normed = None
-    if state is None:
+    if i == 0:
+        state = (init_merge_state(x.shape[0], x.shape[1], x.device)
+                 if cfg.token_merge_r else None)
+    elif state is None:
         # Nothing lies between the block's residual and the next LayerNorm
         # (ToMe's merge would): encoder_layer_out gives both.
         x, normed = encoder_layer_out(
@@ -366,10 +363,11 @@ def vit_apply_from_patch_tokens(model: ViT, patch_tokens: torch.Tensor, *,
                                 generator: Optional[torch.Generator] = None
                                 ) -> torch.Tensor:
     """vit_apply from already projected (B, N, hidden) patch embeddings,
-    the entry of the fused preprocessing (``ops/fused_preproc.py``): CLS,
+    such as the fused preprocessing's (``ops/fused_preproc.py``): CLS,
     position embeddings, dropout and the encoder as in vit_apply."""
-    x = _embed_patch_tokens(model, patch_tokens, dtype=dtype,
-                            deterministic=deterministic, generator=generator)
+    x = vit_embed_patch_tokens(model, patch_tokens, dtype=dtype,
+                               deterministic=deterministic,
+                               generator=generator)
     return vit_encode(model, x, attn_impl=attn_impl,
                       deterministic=deterministic, generator=generator)
 

@@ -6,13 +6,13 @@ Conv1×1(256→classes), then one bilinear upsample (align_corners=False) to
 the output size. Activations are NHWC throughout, as in the TPU package.
 ``vitseg_apply`` with ``deterministic=False`` and a generator is the
 training forward (dropout in the backbone, fp32 logits at the input size).
-``vitseg_predict_fused`` is the serving forward from raw images with the
-resize and normalize folded into the patch embedding
-(``ops/fused_preproc.py``). ``ServingSegments`` is ``vitseg_predict`` of
-uint8 images cut at its attention calls, for the serving runner's CUDA
-graphs. ``vitseg_apply_pipelined`` runs the backbone's
-encoder as a GPipe pipeline (``parallel/pipeline.py``); a model whose
-``pipeline`` attribute the trainer set takes that forward.
+``MasksForward`` is the one masks forward, cut at its attention calls:
+``vitseg_predict``, ``vitseg_predict_fused`` (the resize and normalize
+folded into the patch embedding, ``ops/fused_preproc.py``), the serving
+runner, its CUDA graphs and the exported program run it.
+``vitseg_apply_pipelined`` runs the backbone's encoder as a GPipe pipeline
+(``parallel/pipeline.py``); a model whose ``pipeline`` attribute the
+trainer set takes that forward.
 """
 
 from __future__ import annotations
@@ -28,10 +28,10 @@ from visiontransformer_tpu_torch.models.vit import (
     ViT,
     block_attention,
     vit_apply,
-    vit_apply_from_patch_tokens,
     vit_apply_pipelined,
-    vit_cut_embed,
     vit_cut_step,
+    vit_embed,
+    vit_embed_patch_tokens,
 )
 from visiontransformer_tpu_torch.nn.layers import Conv2d
 from visiontransformer_tpu_torch.ops.fused_preproc import (
@@ -50,6 +50,8 @@ EPILOGUES = ("auto", "plain", "kernel")
 
 
 class ViTSeg(nn.Module):
+    family = "vitseg"
+
     def __init__(self, cfg: ViTSegConfig):
         super().__init__()
         self.cfg = cfg
@@ -142,7 +144,7 @@ def vitseg_predict(model: ViTSeg, images: torch.Tensor, *,
     """(B, H, W, 3) images -> (B, out_H, out_W) argmax class map in
     ``mask_dtype`` (int32, as the TPU package returns, or uint8, the
     serving path's type), with ONE bilinear upsample straight from the
-    token grid to ``out_size``.
+    token grid to ``out_size``: ``MasksForward`` run eagerly.
 
     epilogue: "kernel" runs the fused upsample+argmax kernel
     (``ops/upsample_argmax.py``; its plain version on a CPU tensor), which
@@ -150,19 +152,20 @@ def vitseg_predict(model: ViTSeg, images: torch.Tensor, *,
     itself; "plain" the interpolation products in fp32 then argmax; "auto"
     the kernel on a CUDA tensor and the plain form on the CPU. Both compute
     the same function."""
-    if out_size is None:
-        out_size = (images.shape[1], images.shape[2])
-    _check_epilogue(epilogue)
-    grid = vitseg_head_logits(model, images, attn_impl=attn_impl)
-    return _masks(grid, out_size, epilogue, mask_dtype)
+    return MasksForward(model, out_size or images.shape[1:3], mask_dtype,
+                        attn_impl=attn_impl, epilogue=epilogue)(images)
 
 
-class ServingSegments:
-    """``vitseg_predict`` of uint8 images (divided by 255 on the device)
-    cut at its attention calls and before its epilogue, for the serving
-    runner's CUDA graphs (``serve/worker.py``):
+class MasksForward(nn.Module):
+    """vitseg's masks forward, (B, H, W, 3) images -> (B, out_H, out_W)
+    masks in ``mask_dtype``, cut at its attention calls and before its
+    epilogue for the serving runner's CUDA graphs; ``forward`` composes the
+    pieces eagerly. ``attn_impl``, ``epilogue``: as ``vitseg_predict``'s.
 
-    - segment 0: the /255, the embedding, block 0's half before attention;
+    - segment 0: the /255 of uint8 images (float ones as they are), the
+      embedding (with ``preproc``, ``vitseg_build_fused_preproc``'s
+      constants, the fused preprocessing's), block 0's half before
+      attention;
     - segment i (0 < i < layers): block i-1's half after attention, its
       merge (ToMe), block i's half before attention;
     - segment ``layers``: the last block's half after attention, its
@@ -175,32 +178,42 @@ class ServingSegments:
     returns a flat tuple of tensors, so that both can be static buffers:
     segment 0 takes (images,), segment i > 0 the previous one's outputs and
     the attention's; every segment but the last returns (x, qkv) and the
-    merge state's tensors. ``run`` composes them eagerly, equal to
-    ``vitseg_predict(model, images.float() / 255, out_size=,
-    mask_dtype=)`` bit for bit."""
+    merge state's tensors."""
+
+    cut = True
 
     def __init__(self, model: ViTSeg, out_size: Tuple[int, int],
-                 mask_dtype: torch.dtype):
-        self.model = model
-        self.out_size = tuple(out_size)
-        self.mask_dtype = mask_dtype
+                 mask_dtype: torch.dtype, *, attn_impl: str = "auto",
+                 epilogue: str = "auto", preproc: Optional[dict] = None):
+        super().__init__()
+        if epilogue not in EPILOGUES:
+            raise ValueError(f"unknown epilogue {epilogue!r}; known: "
+                             f"{EPILOGUES}")
+        self.model, self.out_size = model, tuple(out_size)
+        self.mask_dtype, self.preproc = mask_dtype, preproc
+        self.attn_impl, self.epilogue_impl = attn_impl, epilogue
         self.count = len(model.backbone.layers) + 1
 
     def segment(self, i: int, inputs: tuple) -> tuple:
-        vit = self.model.backbone
+        vit, dtype = self.model.backbone, self.model.cfg.dtype
         if i == 0:
-            x, state, qkv = vit_cut_embed(vit, inputs[0].float() / 255.0,
-                                          dtype=self.model.cfg.dtype)
+            (x,), state, attn = inputs, None, None
+            if self.preproc is not None:
+                x = vit_embed_patch_tokens(vit, fused_resize_embed(
+                    self.preproc, x, dtype=dtype), dtype=dtype)
+            else:
+                if x.dtype == torch.uint8:
+                    x = x.float() / 255.0
+                x = vit_embed(vit, x, dtype=dtype)
         else:
             x, _, *state, attn = inputs
-            out = vit_cut_step(vit, i, x, MergeState(*state) if state
-                               else None, attn)
-            if i == self.count - 1:
-                # Contiguous here, in the graph, rather than in the
-                # epilogue's eager launch (``_masks``).
-                return (vitseg_head_from_tokens(self.model, out)
-                        .contiguous(),)
-            x, state, qkv = out
+            state = MergeState(*state) if state else None
+        out = vit_cut_step(vit, i, x, state, attn)
+        if i == self.count - 1:
+            # Contiguous here, in the graph, rather than in the epilogue's
+            # eager launch.
+            return (vitseg_head_from_tokens(self.model, out).contiguous(),)
+        x, state, qkv = out
         return (x, qkv) + (() if state is None else tuple(state))
 
     def attention(self, outputs: tuple,
@@ -208,33 +221,22 @@ class ServingSegments:
         """The attention of the block whose qkv view ``outputs`` holds,
         written into ``out`` if given."""
         return block_attention(outputs[1], self.model.cfg.vit,
-                               attn_impl="auto", out=out)
+                               attn_impl=self.attn_impl, out=out)
 
     def epilogue(self, outputs: tuple) -> torch.Tensor:
-        return _masks(outputs[0], self.out_size, "auto", self.mask_dtype)
+        grid, impl = outputs[0], self.epilogue_impl
+        with ranged("vitseg.epilogue"):
+            if impl == "kernel" or (impl == "auto" and grid.is_cuda):
+                return upsample_argmax(grid, self.out_size,
+                                       out_dtype=self.mask_dtype)
+            return upsample_argmax_plain(grid, self.out_size,
+                                         self.mask_dtype)
 
-    def run(self, images: torch.Tensor) -> torch.Tensor:
+    def forward(self, images: torch.Tensor) -> torch.Tensor:
         outputs = self.segment(0, (images,))
         for i in range(1, self.count):
             outputs = self.segment(i, outputs + (self.attention(outputs),))
         return self.epilogue(outputs)
-
-
-def _check_epilogue(epilogue: str) -> None:
-    if epilogue not in EPILOGUES:
-        raise ValueError(f"unknown epilogue {epilogue!r}; known: {EPILOGUES}")
-
-
-def _masks(grid: torch.Tensor, out_size, epilogue: str,
-           mask_dtype: torch.dtype) -> torch.Tensor:
-    kernel = epilogue == "kernel" or (epilogue == "auto" and grid.is_cuda)
-    if kernel:
-        grid = grid.contiguous()
-    with ranged("vitseg.epilogue"):
-        if kernel:
-            return upsample_argmax(grid, tuple(out_size),
-                                   out_dtype=mask_dtype)
-        return upsample_argmax_plain(grid, tuple(out_size), mask_dtype)
 
 
 def vitseg_build_fused_preproc(model: ViTSeg, *, in_size: int, mean, std,
@@ -260,12 +262,7 @@ def vitseg_predict_fused(model: ViTSeg, consts: dict, raw: torch.Tensor, *,
     embedding: (B, in, in, 3) raw images (fp32 in [0, 1], or uint8 where
     the constants fold 1/255) -> (B, out_H, out_W) masks in
     ``mask_dtype``; the same function as resize -> normalize ->
-    ``vitseg_predict`` up to floating-point association. ``epilogue`` as
-    in vitseg_predict."""
-    _check_epilogue(epilogue)
-    dtype = model.cfg.dtype
-    tokens = vit_apply_from_patch_tokens(
-        model.backbone, fused_resize_embed(consts, raw, dtype=dtype),
-        attn_impl=attn_impl, dtype=dtype)
-    grid = vitseg_head_from_tokens(model, tokens)
-    return _masks(grid, tuple(out_size), epilogue, mask_dtype)
+    ``vitseg_predict`` up to floating-point association: ``MasksForward``
+    with ``preproc=consts``. ``epilogue`` as in vitseg_predict."""
+    return MasksForward(model, out_size, mask_dtype, attn_impl=attn_impl,
+                        epilogue=epilogue, preproc=consts)(raw)

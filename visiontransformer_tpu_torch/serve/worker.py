@@ -9,8 +9,8 @@ in-process worker loop:
     → group by vision model → decode + resize on host
     → pad the batch to a fixed bucket size (a small fixed set of shapes
       per model)
-    → forward + fused upsample/argmax on the GPU (models/vitseg.py
-      vitseg_predict), or argmax of a conv family's logits
+    → the family's masks forward on the GPU (models/registry.py
+      serving_forward)
     → colorized mask PNG + connected-component detections
     → DONE (or FAILED with error_message — a transition the reference
       defines but never exercises, SURVEY.md §5)
@@ -23,11 +23,10 @@ over dp model replicas in this one process, one per device, each on its
 own CUDA stream, and gathers their uint8 masks (the TPU runner shards the
 batch over a dp mesh in one process too). Every bucket must divide by dp.
 
-CUDA graphs: on a CUDA device the vitseg forward of each bucket and
-replica is captured once (``_GraphedForward``) and replayed at every
-dispatch, cut at its attention calls and before its epilogue
-(``models/vitseg.py:ServingSegments``); kernels 1 and 5 launch eagerly
-between the replays.
+CUDA graphs: on a CUDA device a forward cut at its kernel calls (vitseg's
+``models/vitseg.py:MasksForward``) is captured once a bucket and replica
+(``_GraphedForward``) and replayed at every dispatch; kernels 1 and 5
+launch eagerly between the replays.
 """
 
 from __future__ import annotations
@@ -50,18 +49,14 @@ from visiontransformer_tpu_torch.evaluation.visualize import (
     class_color_table,
     colorize,
 )
-from visiontransformer_tpu_torch.models.registry import resolve_model
-from visiontransformer_tpu_torch.models.vitseg import (
-    ServingSegments,
-    set_token_merge_r,
-    vitseg_predict,
+from visiontransformer_tpu_torch.models.registry import (
+    quantize_int8_,
+    resolve_model,
+    serving_forward,
 )
+from visiontransformer_tpu_torch.models.vitseg import set_token_merge_r
 from visiontransformer_tpu_torch.native import available as native_available
 from visiontransformer_tpu_torch.native import detections as native_detections
-from visiontransformer_tpu_torch.ops.quant import (
-    quantize_conv_model_,
-    quantize_vit_,
-)
 from visiontransformer_tpu_torch.serve.store import JobStore
 from visiontransformer_tpu_torch.utils import spans
 
@@ -72,11 +67,12 @@ class ModelRunner:
     """One loaded model on one device: weights + a bucketed forward.
 
     The forward is the TPU runner's ``argmax(apply(images / 255))`` cast
-    to the mask type. For vitseg it is ``vitseg_predict`` at ``out_size =
-    input_size``: on a CUDA device it runs the flash-attention and fused
-    upsample+argmax kernels. For a conv family it is the family's apply
-    and ``torch.argmax`` (no kernel of the port's on that path, as no
-    Pallas kernel is on the TPU runner's). Segformer is served the same
+    to the mask type (``models/registry.py:serving_forward``). For vitseg
+    it is ``vitseg_predict``'s at ``out_size = input_size``: on a CUDA
+    device it runs the flash-attention and fused upsample+argmax kernels.
+    For a conv family it is the family's apply and ``torch.argmax`` (no
+    kernel of the port's on that path, as no Pallas kernel is on the TPU
+    runner's). Segformer is served the same
     way, eagerly, from the registry's presets or from an HF
     ``save_pretrained`` directory (``checkpoint_path``, read by
     ``ckpt/hf_dir.py``); on a CUDA device a MiT encoder's attention runs
@@ -93,12 +89,13 @@ class ModelRunner:
     bucket's rows split into dp contiguous parts, one a replica, and the
     masks gathered in row order. A 1-device mesh is plain placement.
 
-    On a CUDA device a vitseg model is served through CUDA graphs
-    (``_GraphedForward``), one set a bucket and replica, captured at the
-    bucket's first dispatch (``warmup`` dispatches every bucket) after an
-    eager pass of it, on one capture stream a replica and into one memory
-    pool a replica; the masks are those of ``vitseg_predict`` bit for bit.
-    The CPU and the other families run the forward eagerly."""
+    On a CUDA device a forward cut at its kernel calls (vitseg's) is served
+    through CUDA graphs (``_GraphedForward``), one set a bucket and
+    replica, captured at the bucket's first dispatch (``warmup``
+    dispatches every bucket) after an eager pass of it, on one capture
+    stream a replica and into one memory pool a replica; the masks are
+    its eager forward's bit for bit. The CPU and the other families run
+    the forward eagerly."""
 
     def __init__(self, model_row: Dict, *, compute_dtype: str = "bfloat16",
                  buckets: Sequence[int] = BUCKETS, device=None,
@@ -115,9 +112,9 @@ class ModelRunner:
         self.device = resolve_device(device)
         self.buckets = tuple(sorted(buckets))
         self.input_size = model_row["input_size"]
-        self.family = model_row.get("model_family") or "vitseg"
         self.cfg, self.model = resolve_model(
-            self.family, model_row["config_name"],
+            model_row.get("model_family") or "vitseg",
+            model_row["config_name"],
             num_classes=model_row["num_classes"],
             input_size=self.input_size, compute_dtype=compute_dtype,
             checkpoint_path=model_row.get("checkpoint_path") or "",
@@ -128,13 +125,8 @@ class ModelRunner:
             # same weights, tokens merged after every block.
             self.cfg = set_token_merge_r(self.model, merge_r)
         if model_row.get("quantize") == "int8":
-            # The row's W8A8 opt-in, quantized once, here, in place
-            # (ops/quant.py): vitseg's encoder linears, the other
-            # families' linears and interior convs.
-            if self.family == "vitseg":
-                quantize_vit_(self.model.backbone)
-            else:
-                quantize_conv_model_(self.model)
+            # The row's W8A8 opt-in, quantized once, here, in place.
+            quantize_int8_(self.model)
         self.color_table = class_color_table(None, self.cfg.num_classes)
         # uint8 in / uint8 out: the /255 runs on the device (uint8 -> fp32
         # then /255, as the TPU runner does); masks fit uint8 whenever
@@ -142,44 +134,41 @@ class ModelRunner:
         # epilogue kernel writes them in that type.
         self.mask_dtype = (torch.uint8 if self.cfg.num_classes <= 256
                            else torch.int32)
-        # (device, model, stream) of each replica: one without a mesh.
-        self.replicas = [(self.device, self.model, None)]
+        # (device, masks forward, stream) of each replica: one without a mesh.
+        forward = serving_forward(
+            self.model, out_size=(self.input_size, self.input_size),
+            mask_dtype=self.mask_dtype)
+        self.replicas = [(self.device, forward, None)]
         if devices is not None:
             self.replicas = [
-                (d, self.model if i == 0 else copy.deepcopy(self.model).to(d),
+                (d, forward if i == 0 else copy.deepcopy(forward).to(d),
                  torch.cuda.Stream(d) if d.type == "cuda" else None)
                 for i, d in enumerate(resolve_device(d) for d in devices)]
         # CUDA graphs of the forward: chosen by what the runner observes,
-        # the device type and the family.
-        self.graphed = self.device.type == "cuda" and self.family == "vitseg"
+        # the device type and the forward's cut.
+        self.graphed = self.device.type == "cuda" and forward.cut
         self._graphs: Dict[Tuple[int, int], _GraphedForward] = {}
-        # A capture stream and a graph memory pool a replica, by its model.
-        self._capture = {id(m): (torch.cuda.Stream(d),
+        # A capture stream and a graph memory pool a replica, by its forward.
+        self._capture = {id(f): (torch.cuda.Stream(d),
                                  torch.cuda.graph_pool_handle())
-                         for d, m, _ in self.replicas} if self.graphed else {}
+                         for d, f, _ in self.replicas} if self.graphed else {}
 
-    def _forward(self, model, images: np.ndarray, device) -> torch.Tensor:
+    def _forward(self, forward, images: np.ndarray, device) -> torch.Tensor:
         if self.graphed:
-            return self._graphed(model, images.shape, device)(images)
+            return self._graphed(forward, images.shape, device)(images)
         with spans.span("serve.input"):
             x = torch.from_numpy(np.array(images, copy=True)).to(device)
             x = x.float() / 255.0
         with spans.span("serve.forward"):
-            if self.family == "vitseg":
-                return vitseg_predict(
-                    model, x, out_size=(self.input_size, self.input_size),
-                    mask_dtype=self.mask_dtype)
-            return torch.argmax(model(x), dim=-1).to(self.mask_dtype)
+            return forward(x)
 
-    def _graphed(self, model, shape, device) -> "_GraphedForward":
-        """The graphs of the replica holding ``model`` at this input shape,
+    def _graphed(self, forward, shape, device) -> "_GraphedForward":
+        """The graphs of a replica's ``forward`` at this input shape,
         captured on first use."""
-        key = (id(model), shape[0])
+        key = (id(forward), shape[0])
         if key not in self._graphs:
-            segments = ServingSegments(
-                model, (self.input_size, self.input_size), self.mask_dtype)
             self._graphs[key] = _GraphedForward(
-                segments, shape, device, *self._capture[id(model)])
+                forward, shape, device, *self._capture[id(forward)])
             spans.count("serve.graph_captures")
         return self._graphs[key]
 
@@ -211,16 +200,13 @@ class ModelRunner:
             spans.count("serve.padded_rows", len(images) - b)
             if self.graphed:
                 spans.count("serve.graphed_batches")
-            if len(self.replicas) == 1:
-                return _PendingMasks([_to_host(self._forward(
-                    self.model, images, self.device))], b, batch)
             parts = []
             per = len(images) // len(self.replicas)
-            for i, (dev, model, stream) in enumerate(self.replicas):
+            for i, (dev, forward, stream) in enumerate(self.replicas):
                 rows = images[i * per:(i + 1) * per]
                 with (torch.cuda.stream(stream) if stream is not None
                       else contextlib.nullcontext()):
-                    parts.append(_to_host(self._forward(model, rows, dev)))
+                    parts.append(_to_host(self._forward(forward, rows, dev)))
             return _PendingMasks(parts, b, batch)
 
     def predict(self, images: np.ndarray) -> np.ndarray:
@@ -237,8 +223,8 @@ class ModelRunner:
 
 
 class _GraphedForward:
-    """One replica's vitseg forward at one input shape as CUDA graphs, one
-    a segment of ``ServingSegments``.
+    """One replica's masks forward at one input shape as CUDA graphs, one
+    a segment of its ``MasksForward``.
 
     Capture: on the replica's capture stream, after the device is idle and
     one eager pass of the segments has settled the libraries' choices and
@@ -256,8 +242,8 @@ class _GraphedForward:
     call site: the ``vit.attention`` and ``vitseg.epilogue`` ranges, the
     launch counters, and any wrapper of the modules' names."""
 
-    def __init__(self, segments: ServingSegments, shape, device,
-                 stream: torch.cuda.Stream, pool):
+    def __init__(self, segments, shape, device, stream: torch.cuda.Stream,
+                 pool):
         self.segments = segments
         self.images = torch.zeros(shape, dtype=torch.uint8, device=device)
         self.graphs: List[torch.cuda.CUDAGraph] = []
@@ -266,7 +252,7 @@ class _GraphedForward:
         replay = torch.cuda.current_stream(device)
         torch.cuda.synchronize(device)
         with torch.cuda.stream(stream):
-            segments.run(self.images)
+            segments(self.images)
             inputs, flat = (self.images,), None
             for i in range(segments.count):
                 graph = torch.cuda.CUDAGraph()
