@@ -75,6 +75,21 @@ failure:
              at bucket 32: 25 launches a forward in the eager pass before
              the capture and 25 in the capture, none plain, none in a
              replay;
+3b. linear   the linears' bias in cuBLASLt's epilogue (nn/layers.py:
+             linear) at every linear shape of the benchmark's cells
+             (LINEAR_CASES: ViT-B/16 and P4H768A12 at bucket 32, the patch
+             embedding, qkv and mlp_in; SegFormer-B5 at 8 crops of 1024^2,
+             each stage's q, k, v, proj, fc1, fc2): one call in the
+             epilogue, its largest error against the fp64 product of the
+             same bf16 operands plus the bias no larger than the plain
+             path's, each value within 1.5 bf16 ulps of the plain one
+             (linear_agreement); the kernels each path launches (no
+             elementwise add on the fused side); each timed by device time
+             beside the product alone and its bound; then ViT-B/16 through
+             ModelRunner's CUDA graphs at bucket 32 (25 linears in the
+             epilogue in the eager pass and 25 in the capture, none plain,
+             none in a replay) and one SegFormer-B5 forward at 1024^2 (312,
+             none plain);
 4. model     ViT-B/16 (17 classes, full width and depth, seeded random
              weights) on the bench workload: batch 32, 512^2 fp32 in,
              resize to 224^2, ImageNet normalize, vitseg_predict at 512^2
@@ -1230,6 +1245,194 @@ def phase_layer_norm(peaks, gen):
             "graphed": graphed,
             "p4": rows[((100384, 768), torch.bfloat16, "add_bias")]}
 
+
+
+# (rows, in, out) of every linear with a bias that the benchmark's cells run,
+# at their buckets, here and in tests/test_torch_linear.py: ViT-B/16 at 32
+# (the patch embedding, qkv, mlp_in), P4H768A12 at 32 (the same), and
+# SegFormer-B5 at 8 crops of 1024^2, stage by stage (q and proj, k and v on
+# the reduced keys, fc1, fc2).
+LINEAR_CASES = (
+    (6272, 768, 768), (6304, 768, 2304), (6304, 768, 3072),
+    (100352, 48, 768), (100384, 768, 2304), (100384, 768, 3072),
+    (524288, 64, 64), (8192, 64, 64), (524288, 64, 256), (524288, 256, 64),
+    (131072, 128, 128), (8192, 128, 128), (131072, 128, 512),
+    (131072, 512, 128),
+    (32768, 320, 320), (8192, 320, 320), (32768, 320, 1280),
+    (32768, 1280, 320),
+    (8192, 512, 512), (8192, 512, 2048), (8192, 2048, 512))
+# The fused linear against the plain one, value by value: the plain code
+# rounds the product (half a bf16 ulp of it), then the sum (half an ulp of
+# its result), the fused code the sum alone (half an ulp of its result), so
+# the two lie within 1.5 bf16 ulps of the largest of |x·W| and the results.
+# Or within this absolute floor, where all three are so small that a bf16
+# ulp of them is below the spread of two GEMMs' fp32 accumulations over
+# ``in`` terms in different orders (~sqrt(in)·2^-24 at these operands).
+LINEAR_MAX_ULPS = 1.5
+LINEAR_ABS_FLOOR = 2.0 ** -16
+
+
+def linear_inputs(shape, gen):
+    """(x, kernel, bias) of a linear check on the card: x N(0, 1) in bf16,
+    the kernel N(0, 1/in) and the bias 0.5 N(0, 1) in fp32, as a model
+    holds them (``linear`` casts both to x's dtype), so that |x·W| and the
+    bias are of one order and both roundings of the plain code count."""
+    rows, n_in, n_out = shape
+    x = torch.randn(rows, n_in, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    kernel = torch.randn(n_in, n_out, generator=gen,
+                         device="cuda") / n_in ** 0.5
+    bias = 0.5 * torch.randn(n_out, generator=gen, device="cuda")
+    return x, kernel, bias
+
+
+def linear_agreement(x, kernel, bias, fused, plain) -> dict:
+    """The fused and the plain linear's bf16 outputs against the fp64
+    product of the same bf16 operands plus the bf16 bias: each one's
+    largest error; their largest difference in bf16 ulps of the largest of
+    |x·W|, |fused| and |plain|, over the values above LINEAR_ABS_FLOOR; the
+    values more than LINEAR_MAX_ULPS apart, and those of them above the
+    floor. "ok": the fused error no larger than the plain one, and no value
+    apart by both."""
+    dt = x.dtype
+    prod = x.double() @ kernel.to(dt).double()
+    want = prod + bias.to(dt).double()
+    err_fused = float((fused.double() - want).abs().max())
+    err_plain = float((plain.double() - want).abs().max())
+    del want
+    scale = torch.maximum(prod.abs(), torch.maximum(
+        fused.double().abs(), plain.double().abs())).float()
+    del prod
+    e = torch.frexp(scale.clamp_min(2.0 ** -126)).exponent
+    ulp = torch.ldexp(torch.ones_like(scale), e - 8)
+    diff = (fused.float() - plain.float()).abs()
+    ulps = diff / ulp
+    over = ulps > LINEAR_MAX_ULPS
+    above = diff > LINEAR_ABS_FLOOR
+    bad = int((over & above).sum())
+    return {"err_fused": err_fused, "err_plain": err_plain,
+            "max_ulps": float(ulps[above].max()) if bool(above.any())
+            else 0.0,
+            "max_abs_diff": float(diff.max()),
+            "over_ulps": int(over.sum()), "over_ulps_and_floor": bad,
+            "ok": err_fused <= err_plain and bad == 0}
+
+
+def _kernel_names(fn) -> list:
+    """The device kernels one call of fn launches, in order (torch.profiler,
+    after a call that settles the libraries)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in sorted(
+        (e for e in prof.events() if _device_work(e)),
+        key=lambda e: e.time_range.start)]
+
+
+def phase_linear(peaks, gen):
+    """Phase 3b: the linears' bias in cuBLASLt's epilogue (``nn/layers.py:
+    linear``) at every linear shape of the benchmark's cells: the fused
+    call against the fp64 product and the plain code (``linear_agreement``),
+    the kernels each path launches (no elementwise add on the fused side),
+    each timed by device time beside the product alone and its bound; then
+    the engagement counts of a captured ViT-B/16 forward at bucket 32 and
+    of one SegFormer-B5 forward at 1024^2. Returns the rows and counts."""
+    from visiontransformer_tpu_torch.models.registry import resolve_model
+    from visiontransformer_tpu_torch.nn.layers import linear, linear_plain
+    from visiontransformer_tpu_torch.serve.worker import ModelRunner
+
+    rows, failed = [], []
+    for shape in LINEAR_CASES:
+        n, k, m = shape
+        x, kernel, bias = linear_inputs(shape, gen)
+        with torch.inference_mode():
+            spans.reset()
+            fused = linear(x, kernel, bias)
+            torch.cuda.synchronize()
+            counts = spans.counters()
+            plain = linear_plain(x, kernel, bias)
+            row = {"shape": list(shape),
+                   "epilogue": counts.get("linear_epilogue", 0),
+                   "plain": counts.get("linear_plain", 0)}
+            row.update(linear_agreement(x, kernel, bias, fused, plain))
+            del fused, plain
+            # The operands in bf16 already, as the next casts would leave
+            # them: each side's own kernels, the casts apart.
+            kb, bb = kernel.to(x.dtype), bias.to(x.dtype)
+
+            def fused_call():
+                return linear(x, kb, bb)
+
+            def plain_call():
+                return linear_plain(x, kb, bb)
+
+            def product():
+                return torch.matmul(x, kb)
+
+            row["fused_kernels"] = _kernel_names(fused_call)
+            row["plain_kernels"] = _kernel_names(plain_call)
+            row.update(fused_ms=device_ms(fused_call),
+                       plain_ms=device_ms(plain_call),
+                       product_ms=device_ms(product))
+        bound = bound_ms(peaks, (n * k + k * m + n * m + m) * 2,
+                         2 * n * k * m, "bf16")
+        row.update(bound_ms=bound[0], bound_by=bound[1],
+                   fused_over_plain=row["fused_ms"] / row["plain_ms"])
+        row["ok"] = (row["ok"] and row["epilogue"] == 1 and not row["plain"]
+                     and not any("elementwise" in name
+                                 for name in row["fused_kernels"]))
+        emit("linear", **row)
+        rows.append(row)
+        if not row["ok"]:
+            failed.append(row)
+        del x, kernel, bias, kb, bb
+        torch.cuda.empty_cache()
+    # ViT-B/16 at bucket 32 through the runner's CUDA graphs: the eager
+    # pass and the capture, 25 biased linears each (the patch embedding,
+    # 12 qkv, 12 mlp_in), all in the epilogue; replays call nothing.
+    spans.reset()
+    runner = ModelRunner({"model_family": "vitseg",
+                          "config_name": "P16H768A12", "num_classes": 17,
+                          "input_size": 224}, device="cuda", buckets=(32,))
+    runner.warmup()
+    warm = spans.counters()
+    runner.predict(np.zeros((32, 224, 224, 3), np.uint8))
+    after = spans.counters()
+    graphed = {"warmup_epilogue": warm.get("linear_epilogue", 0),
+               "warmup_plain": warm.get("linear_plain", 0),
+               "replay_epilogue": after.get("linear_epilogue", 0)
+               - warm.get("linear_epilogue", 0),
+               "captures": warm.get("serve.graph_captures", 0)}
+    emit("linear_graphed", **graphed)
+    del runner
+    torch.cuda.empty_cache()
+    if (graphed["captures"] != 1 or graphed["warmup_epilogue"] != 2 * 25
+            or graphed["warmup_plain"] or graphed["replay_epilogue"]):
+        failed.append(graphed)
+    # One bf16 SegFormer-B5 forward at the cell's crop: each of the 52
+    # blocks' q, k, v, proj, fc1 and fc2 in the epilogue.
+    _, model = resolve_model("segformer", "mit_b5", num_classes=19,
+                             input_size=1024, device="cuda")
+    spans.reset()
+    with torch.inference_mode():
+        model(torch.rand(1, 1024, 1024, 3, generator=gen,
+                         device="cuda")).argmax(-1)
+    torch.cuda.synchronize()
+    b5 = {k: spans.counters().get(k, 0)
+          for k in ("linear_epilogue", "linear_plain")}
+    emit("linear_mit_b5", **b5)
+    del model
+    torch.cuda.empty_cache()
+    if b5 != {"linear_epilogue": 6 * 52, "linear_plain": 0}:
+        failed.append(b5)
+    if failed:
+        raise AssertionError(f"linear: {failed}")
+    return {"rows": rows, "graphed": graphed, "mit_b5": b5}
 
 def phase_model(gen):
     from visiontransformer_tpu_torch.models.registry import resolve_model
@@ -4661,6 +4864,7 @@ def main() -> int:
     variants = phase_flash_variants(peaks, gen)
     upsample = phase_upsample(peaks, gen)
     layer_norm = phase_layer_norm(peaks, gen)
+    phase_linear(peaks, gen)
     model = phase_model(gen)
     serving = phase_serving()
     flash_train = phase_flash_train(peaks, gen)

@@ -2,9 +2,10 @@
 
 The functions mirror the TPU package's ``nn/layers.py`` arithmetic: a
 linear kernel is stored (in, out) in fp32 and cast to the activation dtype
-at use, with the bias added after the product in that dtype (a W8A8 layer,
-``LinearW8A8``, holds an int8 kernel and runs ``_linear_w8a8``'s int8
-product instead, for inference only); LayerNorm runs
+at use, with the bias added after the product in that dtype (on a CUDA
+device without a gradient, in the GEMM's epilogue before its one rounding:
+``linear``; a W8A8 layer, ``LinearW8A8``, holds an int8 kernel and runs
+``_linear_w8a8``'s int8 product instead, for inference only); LayerNorm runs
 in fp32 and casts back; convolutions take NHWC activations and HWIO
 kernels (``conv2d``, ``depthwise``); dropout draws its mask from an
 explicit generator. The modules hold parameters under the TPU package's
@@ -27,14 +28,74 @@ import torch.nn.functional as F
 from torch import nn
 
 from visiontransformer_tpu_torch.ops import layer_norm as _ln
+from visiontransformer_tpu_torch.utils import spans
+
+EPILOGUE_DTYPES = (torch.bfloat16, torch.float16, torch.float32)
+# The largest GEMM dimension PyTorch hands to cuBLASLt (``addmm``'s rule for
+# its bias epilogue); each dimension must also exceed 1 there.
+EPILOGUE_MAX_DIM = 65535 * 32
+
+
+def _folds(x: torch.Tensor) -> bool:
+    """Whether x's leading axes merge into one axis of rows without a
+    copy, as ``view(-1, in)`` merges them."""
+    stride = None
+    for size, step in zip(reversed(x.shape[:-1]), reversed(x.stride()[:-1])):
+        if size == 1:
+            continue
+        if stride is not None and step != stride:
+            return False
+        stride = step * size
+    return True
+
+
+def epilogue_takes(x: torch.Tensor, kernel: torch.Tensor,
+                   bias: Optional[torch.Tensor]) -> bool:
+    """Whether ``linear`` on x (in its compute dtype) runs as one GEMM with
+    the bias in cuBLASLt's epilogue: a CUDA tensor, no gradient being
+    taken, bf16, fp16 or fp32, a 2-D (in, out) kernel and an (out,) bias,
+    x's leading axes foldable into rows without a copy, and each of rows,
+    in and out above 1 and at most ``EPILOGUE_MAX_DIM``."""
+    if not (x.is_cuda and not torch.is_grad_enabled()
+            and x.dtype in EPILOGUE_DTYPES and bias is not None
+            and kernel.dim() == 2 and bias.dim() == 1 and x.dim() >= 1):
+        return False
+    rows = x.numel() // x.shape[-1] if x.shape[-1] else 0
+    return (tuple(bias.shape) == (kernel.shape[1],)
+            and x.shape[-1] == kernel.shape[0]
+            and all(1 < n <= EPILOGUE_MAX_DIM
+                    for n in (rows, kernel.shape[0], kernel.shape[1]))
+            and _folds(x))
 
 
 def linear(x: torch.Tensor, kernel: torch.Tensor,
            bias: Optional[torch.Tensor] = None, *,
            dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """y = x @ kernel + bias in the activation dtype (or ``dtype``)."""
+    """y = x @ kernel + bias in the activation dtype (or ``dtype``). Where
+    ``epilogue_takes`` the call, one GEMM (``addmm`` over x's rows, which
+    reaches cuBLASLt's bias epilogue) adds the bias to the fp32 accumulator
+    before the one rounding to that dtype, and counts ``linear_epilogue``;
+    every other call runs ``linear_plain``, and counts ``linear_plain`` if
+    it has a bias and runs on a CUDA device. The activation after a linear
+    stays a pass of its own: cuBLASLt's GELU epilogue is the tanh
+    approximation, not the exact GELU the models take."""
     if dtype is not None:
         x = x.to(dtype)
+    if epilogue_takes(x, kernel, bias):
+        spans.count("linear_epilogue")
+        dt = x.dtype
+        y = torch.addmm(bias.to(dt), x.reshape(-1, x.shape[-1]),
+                        kernel.to(dt))
+        return y.view(*x.shape[:-1], y.shape[-1])
+    if bias is not None and x.is_cuda:
+        spans.count("linear_plain")
+    return linear_plain(x, kernel, bias)
+
+
+def linear_plain(x: torch.Tensor, kernel: torch.Tensor,
+                 bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """y = x @ kernel in x's dtype, then + bias in that dtype: two
+    roundings, two kernels on a card."""
     y = torch.matmul(x, kernel.to(x.dtype))
     if bias is not None:
         y = y + bias.to(y.dtype)

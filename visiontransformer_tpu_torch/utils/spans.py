@@ -20,7 +20,8 @@ under a profiler, and without a device-side mirror. A
 ``record_function`` costs about 10 us even with no profiler running.
 - ``count(name, n=1)`` / ``counters()``: named counters (kernel launches
   under each kernel's name, calls on a card that took a kernel's plain
-  code, ``layer_norm_plain``, the serving path's batches, rows and jobs).
+  code, ``layer_norm_plain``; biased linears by path, ``linear_epilogue``
+  and ``linear_plain``; the serving path's batches, rows and jobs).
 - ``finished()``: the ring's spans, oldest first; ``reset()`` empties the
   ring and the counters.
 - ``next_batch()``: a fresh batch id, which the spans of one batch share.
