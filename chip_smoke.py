@@ -33,6 +33,27 @@ failure:
              mit_b5 forward through ModelRunner's path, counting
              mit.attention_flash (52 a forward), mit.attention_eager (0)
              and kernel 1's launches (52);
+2c. flash_bias  kernel 1 with SAM's decomposed relative-position bias
+             (flash_attention_bias: key k of row i adds rel_h[i, k // kw]
+             + rel_w[i, k % kw]) against its plain version, bf16, q, k, v
+             strided views of a fused QKV and the bias terms spreading
+             about 1: at d = 80 (the "stream" ring) SAM-H's shapes at the
+             serving bucket of 8, (B*H, N, kh x kw) = (3200, 196, 14 x 14)
+             windowed and (128, 4096, 64 x 64) global; at d = 64 ("wgmma")
+             SAM-B's (2400, 196), (96, 4096) and SAM-L's (3200, 196),
+             (128, 4096); partial row and key tiles (3 x 6, 13 x 10,
+             17 x 8) at both head dims; each of SAM's shapes timed by
+             device time beside F.scaled_dot_product_attention with the
+             bias materialised as attn_mask (its materialisation not
+             timed) and the bound; the registers and spills ptxas gave
+             the bias instantiations; one SAM-H forward at 8 x 1024^2
+             with a box each through the serving forward: 32 launches of
+             the bias instantiation, 32 sam.attention_flash (28 windowed
+             + 4 global), 0 sam.attention_eager, one launch of kernel 5
+             for the masks, and its time; kernel 5 on the forward's
+             logits (0, m) bit for bit against its tap-order plain
+             version and against the plain step (resize, then > 0) but
+             where the resized logit is within 1e-3 of the largest of 0;
 2b. flash_variants  the tuning sweeps' kernels (6: softmax forms; 7:
              2 or 4 interleaved chains; 8, 9: transposed P·V), all on
              warpgroup products ("wgmma_tma"): both port sweeps
@@ -724,6 +745,151 @@ def phase_flash_keys(peaks, gen):
         raise AssertionError(f"mit_b5's attention did not run on kernel 1 "
                              f"once a block: {counts}")
     del model
+    torch.cuda.empty_cache()
+    return timed
+
+
+# (B*H, kh, kw, d, timed) of the bias checks: SAM-H at the serving bucket
+# of 8 (16 heads; 25 windows an image), SAM-B (12 heads) and SAM-L (16
+# heads) at the same bucket, then partial row and key tiles.
+FLASH_BIAS_CASES = [(3200, 14, 14, 80, True), (128, 64, 64, 80, True),
+                    (2400, 14, 14, 64, True), (96, 64, 64, 64, True),
+                    (3200, 14, 14, 64, True), (128, 64, 64, 64, True),
+                    (4, 3, 6, 80, False), (4, 13, 10, 80, False),
+                    (4, 17, 8, 80, False), (4, 3, 6, 64, False),
+                    (4, 13, 10, 64, False), (4, 17, 8, 64, False)]
+
+
+def _ptxas_lines(kernel_part: str) -> list:
+    """ptxas's register, shared-memory and spill lines for the kernels of
+    kernel 1's build whose mangled name holds ``kernel_part``."""
+    from visiontransformer_tpu_torch.ops import _build
+
+    log = (_build.build_dir() / "flash_attention_fwd.log").read_text()
+    out, current = [], None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            current = line.split("'")[1] if "'" in line else line
+        elif current and kernel_part in current and (
+                "registers" in line or "spill" in line):
+            out.append(f"{current}: {line.split('info    :')[-1].strip()}")
+    return out
+
+
+def phase_flash_bias(peaks, gen):
+    """Phase 2c: kernel 1 with SAM's decomposed bias (module docstring).
+    Returns the timed rows."""
+    from visiontransformer_tpu_torch.models import sam
+    from visiontransformer_tpu_torch.ops.flash_attention import (
+        flash_attention_bias,
+        flash_attention_bias_plain,
+        forward_path,
+    )
+    from visiontransformer_tpu_torch.ops.upsample_argmax import (
+        upsample_argmax,
+        upsample_argmax_tap_plain,
+    )
+
+    failed, timed = [], []
+    for bh, kh, kw, d, is_timed in FLASH_BIAS_CASES:
+        n = kh * kw
+        heads = 16 if bh % 16 == 0 else 12 if bh % 12 == 0 else 2
+        b = bh // heads
+        qkv = torch.randn(b, n, 3, heads, d, generator=gen, device="cuda",
+                          dtype=torch.bfloat16).permute(2, 0, 3, 1, 4)
+        q, k, v = qkv[0], qkv[1], qkv[2]
+        rel_h = torch.randn(b, heads, n, kh, generator=gen, device="cuda",
+                            dtype=torch.bfloat16)
+        rel_w = torch.randn(b, heads, n, kw, generator=gen, device="cuda",
+                            dtype=torch.bfloat16)
+        got = flash_attention_bias(q, k, v, rel_h, rel_w)
+        want = flash_attention_bias_plain(q, k, v, rel_h, rel_w)
+        torch.cuda.synchronize()
+        ok, fields = flash_agrees(got, want)
+        row = {"shape": [bh, n, d], "grid": [kh, kw],
+               "path": forward_path(n, d, torch.bfloat16), "agrees": ok,
+               **fields}
+        del got, want
+        if not ok:
+            failed.append(row)
+        if is_timed and ok:
+            # SDPA's yardstick: the same logits with the bias materialised
+            # as an additive (B, H, N, N) mask, built outside the timing.
+            mask = (rel_h.unsqueeze(-1) + rel_w.unsqueeze(-2)).reshape(
+                b, heads, n, n)
+            row["ms"] = device_ms(
+                lambda: flash_attention_bias(q, k, v, rel_h, rel_w))
+            row["library_ms"] = device_ms(
+                lambda: F.scaled_dot_product_attention(q, k, v,
+                                                       attn_mask=mask))
+            row["bound_ms"], row["bound_by"] = bound_ms(
+                peaks, bh * (4 * n * d + n * (kh + kw)) * 2,
+                4 * bh * n * n * d, "bf16")
+            row["ratio"] = row["ms"] / row["library_ms"]
+            row["roofline_pct"] = 100 * row["bound_ms"] / row["ms"]
+            timed.append(row)
+            del mask
+        emit("flash_bias", **row)
+        del qkv, q, k, v, rel_h, rel_w
+        torch.cuda.empty_cache()
+    for line in _ptxas_lines("bias"):
+        emit("flash_bias_ptxas", line=line)
+    if failed:
+        raise AssertionError(f"kernel 1 with the bias disagrees: {failed}")
+    # One SAM-H forward as the runner serves it, seeded weights made on the
+    # card: every block's attention core through the bias instantiation.
+    cfg = sam.sam_config("sam_vit_h", input_size=1024)
+    with torch.device("cuda"):
+        model = sam.SamSeg(cfg)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.normal_(0.0, 0.02, generator=gen)
+        for layer in model.vision_encoder.layers:
+            for table in (layer.attn.rel_pos_h, layer.attn.rel_pos_w):
+                table.normal_(0.0, cfg.head_dim ** -0.5, generator=gen)
+    forward = sam.SamMasks(model.eval(), torch.uint8)
+    images = torch.rand(8, 1024, 1024, 3, generator=gen, device="cuda")
+    boxes = torch.tensor([[100.0, 200.0, 700.0, 900.0]],
+                         device="cuda").expand(8, 4)
+    spans.reset()
+    with torch.inference_mode():
+        masks = forward(images, boxes)
+    torch.cuda.synchronize()
+    counts = {k: spans.counters().get(k, 0) for k in (
+        "flash_attention_bias", "sam.attention_flash", "sam.attention_eager",
+        "flash_attention", "layer_norm_plain", "linear_plain",
+        "upsample_argmax")}
+    with torch.inference_mode():
+        ms = time_ms(lambda: forward(images, boxes), iters=3, warmup=1)
+        # The masks step on the forward's logits: kernel 5 on (0, m) bit
+        # for bit against its tap-order plain version, and against the
+        # plain step (resize in fp32, then > 0), which it may differ from
+        # only where the resized logit is within rounding of 0.
+        logits = sam.sam_mask_logits(model, images, boxes)
+        two = torch.stack([torch.zeros_like(logits), logits], dim=-1)
+        kernel = upsample_argmax(two, (1024, 1024), out_dtype=torch.uint8)
+        tap = upsample_argmax_tap_plain(two, (1024, 1024), torch.uint8)
+        up = sam.upscale_logits(logits, (1024, 1024))
+    flips = kernel != (up > 0).to(torch.uint8)
+    flip_max = float(up.abs()[flips].max()) if bool(flips.any()) else 0.0
+    epilogue = {"kernel_equals_tap_plain": torch.equal(kernel, tap),
+                "forward_equals_kernel": torch.equal(masks, kernel),
+                "plain_step_flips": int(flips.sum()),
+                "flip_logit_max": flip_max,
+                "logit_abs_max": float(up.abs().max())}
+    emit("flash_bias_sam_h", batch=8, **counts, forward_ms=ms,
+         mask_share=float(masks.float().mean()), **epilogue)
+    if (counts["flash_attention_bias"], counts["sam.attention_flash"],
+            counts["sam.attention_eager"], counts["upsample_argmax"]) != (
+                32, 32, 0, 1):
+        raise AssertionError(f"SAM-H's attention did not run on kernel 1's "
+                             f"bias instantiation once a block, or its "
+                             f"masks not on kernel 5 once: {counts}")
+    if not epilogue["kernel_equals_tap_plain"] or (
+            flip_max > 1e-3 * epilogue["logit_abs_max"]):
+        raise AssertionError(f"SAM-H's masks step on kernel 5 disagrees "
+                             f"with the plain step: {epilogue}")
+    del model, forward, images, logits, two, kernel, tap, up, flips
     torch.cuda.empty_cache()
     return timed
 
@@ -4861,6 +5027,7 @@ def main() -> int:
     smi, peaks = phase_env()
     flash, flash_timed = phase_flash(peaks, gen)
     phase_flash_keys(peaks, gen)
+    phase_flash_bias(peaks, gen)
     variants = phase_flash_variants(peaks, gen)
     upsample = phase_upsample(peaks, gen)
     layer_norm = phase_layer_norm(peaks, gen)

@@ -156,12 +156,15 @@ def test_remat_is_ignored_for_a_conv_family(jax_step):
 
 
 def test_registry_has_every_conv_family():
-    # Every family of the JAX package, segformer included.
-    assert sorted(registry.MODEL_FAMILIES) == sorted(
+    # Every family of the JAX package, segformer included, and the port's
+    # own served-only sam.
+    assert sorted(set(registry.MODEL_FAMILIES) - {"sam"}) == sorted(
         jregistry.MODEL_FAMILIES)
     assert sorted(cli.MODEL_FAMILY_CHOICES) == sorted(registry.MODEL_FAMILIES)
+    assert sorted(cli.TRAINED_FAMILY_CHOICES) == sorted(
+        jregistry.MODEL_FAMILIES)
     assert sorted(registry.CONV_FAMILIES) == sorted(
-        set(registry.MODEL_FAMILIES) - {"vitseg", "segformer"})
+        set(registry.MODEL_FAMILIES) - {"vitseg", "segformer", "sam"})
     assert registry.get_model_family("segformer").config_cls.__name__ == \
         "SegformerConfig"
     cfg, model = registry.resolve_model("segformer", "mit_b0", num_classes=3,

@@ -53,8 +53,12 @@ COMMANDS = ("train", "eval-sweep", "demo", "compare", "serve", "convert",
 # tests/test_torch_conv_train_serve.py holds them equal.
 MODEL_FAMILY_CHOICES = [
     "deeplabv3", "deeplabv3plus", "fpn", "linknet", "manet", "pan",
-    "pspnet", "segformer", "unet", "unetplusplus", "upernet", "vitseg",
+    "pspnet", "sam", "segformer", "unet", "unetplusplus", "upernet",
+    "vitseg",
 ]
+# The families the port trains and the TPU package checkpoints: all but
+# sam, which is served only.
+TRAINED_FAMILY_CHOICES = [f for f in MODEL_FAMILY_CHOICES if f != "sam"]
 USAGE = ("usage: python -m visiontransformer_tpu_torch "
          "{" + ",".join(COMMANDS) + "} [options]")
 
@@ -79,7 +83,7 @@ def _train_parser() -> argparse.ArgumentParser:
                    choices=["ce", "smp_multiclass", "paed_multiclass",
                             "paed_anchored", "paed_binary"])
     t.add_argument("--model", default="vitseg",
-                   choices=MODEL_FAMILY_CHOICES)
+                   choices=TRAINED_FAMILY_CHOICES)
     t.add_argument("--config", default="P16H1024A16",
                    help="sweep config name (vitseg), e.g. P16H512A8")
     t.add_argument("--encoder", default="resnet34",
@@ -491,7 +495,7 @@ def cmd_convert_orbax(argv) -> int:
     p.add_argument("--out", required=True,
                    help="directory the epoch=N-step=M checkpoint goes in")
     p.add_argument("--family", default="vitseg",
-                   choices=MODEL_FAMILY_CHOICES)
+                   choices=TRAINED_FAMILY_CHOICES)
     p.add_argument("--config", default=None,
                    help="vitseg: sweep config name or ViT size preset")
     p.add_argument("--encoder", default=None,
@@ -612,13 +616,15 @@ def cmd_export_serving(argv) -> int:
     p.add_argument("--ckpt", default="",
                    help="port checkpoint (or a directory of them, latest "
                         "picked), reference .ckpt file (vitseg) or HF "
-                        "SegFormer directory (segformer); empty: random "
+                        "SegFormer directory (segformer) or HF SamModel "
+                        "directory (sam); empty: random "
                         "init, useful for smoke tests")
     p.add_argument("--family", default="vitseg",
                    choices=MODEL_FAMILY_CHOICES)
     p.add_argument("--config", required=True,
                    help="vitseg: sweep config name or ViT size preset; "
-                        "other families: encoder preset")
+                        "sam: sam_vit_b, sam_vit_l or sam_vit_h; other "
+                        "families: encoder preset")
     p.add_argument("--num-classes", type=int, default=17)
     p.add_argument("--input-size", type=int, default=None,
                    help="image side of the program: vitseg's defaults to "
@@ -660,13 +666,16 @@ def cmd_register_model(argv) -> int:
                    help="vitseg: sweep config name (e.g. P16H768A12) or "
                         "ViT size preset (vit_b_16/vit_l_16/vit_h_14); "
                         "conv families: encoder preset (e.g. resnet34); "
-                        "segformer: also mit_b0 ... mit_b5")
+                        "segformer: also mit_b0 ... mit_b5; sam: sam_vit_b, "
+                        "sam_vit_l or sam_vit_h (masks {0, 1}, a box "
+                        "prompt an image)")
     p.add_argument("--num-classes", type=int, default=17)
     p.add_argument("--input-size", type=int, default=224)
     p.add_argument("--ckpt", default="",
                    help="port checkpoint dir, reference .ckpt file "
-                        "(vitseg) or HF SegFormer directory (segformer); "
-                        "empty: random init, useful for smoke tests")
+                        "(vitseg), HF SegFormer directory (segformer) or "
+                        "HF SamModel directory (sam); empty: random init, "
+                        "useful for smoke tests")
     p.add_argument("--description", default="")
     p.add_argument("--family", default="vitseg",
                    choices=MODEL_FAMILY_CHOICES,
@@ -699,6 +708,12 @@ def cmd_register_model(argv) -> int:
         print("error: --token-merge-r applies to vitseg models only",
               file=sys.stderr)
         return 1
+    if args.quantize and args.family == "sam":
+        print("error: --quantize int8 is not defined for sam",
+              file=sys.stderr)
+        return 1
+    if args.family == "sam":
+        args.num_classes = 2  # background and the prompted object
     store = JobStore(args.db, media_root=args.media_root)
     model_id = store.register_model(
         args.name, num_classes=args.num_classes, config_name=args.config,

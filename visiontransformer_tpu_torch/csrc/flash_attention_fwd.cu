@@ -9,6 +9,16 @@
 // queries against Nk = 1,024 keys). Rows, their blocks and the grid follow
 // N; the key loop, the staging of K and V and the last tile's mask follow
 // Nk. The training variant and kernels 2-4 keep Nk = N.
+// Inference also adds SAM's decomposed relative-position bias where asked
+// (vt_flash_attention_fwd_bias: fwd_stream_bias_kernel at d = 80,
+// fwd_wgmma_bias_kernel at d = 64): with Nk = kh * kw keys on a kh x kw grid,
+// key k of query row i adds rel_h[i, k / kw] + rel_w[i, k % kw], read as bf16
+// from (B*H, N, kh) and (B*H, N, kw) in the softmax step, which adds them to
+// the scaled logits in the log2 domain before the running max (RowBias,
+// online_softmax); the N x Nk bias is never formed. The kernels without a
+// bias take the step with NoBias and compile to the code they did before.
+// SAM-H at 1024^2, batch 8: 28 windowed calls at (B*H, N) = (3200, 196) and 4
+// global ones at (128, 4096), d = 80.
 // Inference (kTrain = false) is need_lse=False without dropout. Training
 // (kTrain = true, vt_flash_attention_fwd_train) also writes
 // lse = m + log(l) (natural log, fp32, (B*H, N)) and applies attention
@@ -78,6 +88,8 @@
 // Q, K and V may be strided views (the model passes slices of the fused QKV
 // projection without a copy); only the last dimension must be contiguous,
 // and for bf16 rows must be 16-byte aligned (the wrapper raises otherwise).
+
+#include <type_traits>
 
 #include "flash_attention_common.cuh"
 #include "flash_attention_wgmma.cuh"
@@ -217,31 +229,109 @@ struct Dropout {
         threshold(a.keep_threshold), inv_keep(a.inv_keep) {}
 };
 
+// SAM's decomposed relative-position bias (the inference kernel's bias
+// instantiations, vt_flash_attention_fwd_bias): with Nk = kh * kw keys on a
+// kh x kw grid, key k of query row q adds rel_h[q, k / kw] + rel_w[q, k % kw]
+// to its scaled logit. rel_h (B*H, N, kh) and rel_w (B*H, N, kw) are
+// contiguous bf16; kw is even, so Nk is even and a lane's key pair (c, c + 1)
+// (c even) never straddles a grid row: one bf16 of rel_h and one bf16 pair of
+// rel_w a row and pair.
+struct BiasArgs {
+  const bf16* rel_h;
+  const bf16* rel_w;
+  int kh, kw;
+  float inv_kw;  // 1 / kw: (c + 0.5) * inv_kw truncates to c / kw exactly
+                 // while (kh + 1) * kw < 2^22 (the wrapper holds Nk <= 2^20)
+};
+
+// The instantiations without a bias.
+struct NoBias {};
+
+// The bias of the two query rows a lane holds (row_lo and row_lo + 8, rows
+// past n reading row n - 1, whose logits are never stored).
+struct RowBias {
+  const bf16* h;
+  const bf16* w;
+  int kh, kw;
+  float inv_kw;
+  int r0, r1;  // rows of (B*H, N); the wrapper holds B*H*N*kh, *kw < 2^31
+  __device__ __forceinline__ RowBias(const BiasArgs& a, int bh, int row_lo,
+                                     int n)
+      : h(a.rel_h), w(a.rel_w), kh(a.kh), kw(a.kw), inv_kw(a.inv_kw),
+        r0(bh * n + min(row_lo, n - 1)), r1(bh * n + min(row_lo + 8, n - 1)) {}
+  // The biases of keys c and c + 1 (c even, c < Nk) of both rows, in the
+  // log2 domain: b[2 * row + j] for key c + j.
+  __device__ __forceinline__ void load(int c, float (&b)[4]) const {
+    const int kr = __float2int_rz((static_cast<float>(c) + 0.5f) * inv_kw);
+    const int kc = c - kr * kw;
+    const float h0 = __bfloat162float(__ldg(h + r0 * kh + kr));
+    const float h1 = __bfloat162float(__ldg(h + r1 * kh + kr));
+    const float2 w0 = __bfloat1622float2(__ldg(
+        reinterpret_cast<const __nv_bfloat162*>(w + r0 * kw + kc)));
+    const float2 w1 = __bfloat1622float2(__ldg(
+        reinterpret_cast<const __nv_bfloat162*>(w + r1 * kw + kc)));
+    b[0] = (h0 + w0.x) * kLog2e;
+    b[1] = (h0 + w0.y) * kLog2e;
+    b[2] = (h1 + w1.x) * kLog2e;
+    b[3] = (h1 + w1.y) * kLog2e;
+  }
+};
+
+__device__ __forceinline__ NoBias row_bias(const NoBias&, int, int, int) {
+  return {};
+}
+__device__ __forceinline__ RowBias row_bias(const BiasArgs& a, int bh,
+                                            int row_lo, int n) {
+  return RowBias(a, bh, row_lo, n);
+}
+
 // One step of the online softmax over a tile of 8 * kNT keys starting at
 // key0, for the two rows a lane holds: s is in the mma.sync C layout
 // (s[4 * nt + e]: row e >> 1, key key0 + 8 nt + 2 t + (e & 1)), raw Q K^T.
 // Keys >= nk are masked; m (log2 domain) and l (this lane's part of the sum
 // of the undropped p) are updated; s becomes p = exp2(s * scale_log2e - m);
-// alpha is the factor the accumulator's rows take.
-template <int kNT>
+// alpha is the factor the accumulator's rows take. With a RowBias, each
+// logit takes its bias in the log2 domain before the running max: s becomes
+// p = exp2(s * scale_log2e + bias * log2 e - m). NoBias compiles to the
+// step without it.
+template <int kNT, class Bias = NoBias>
 __device__ __forceinline__ void online_softmax(float (&s)[4 * kNT],
                                                float (&m)[2], float (&l)[2],
                                                float (&alpha)[2], int key0,
                                                int t, int nk,
-                                               float scale_log2e) {
+                                               float scale_log2e,
+                                               const Bias& bias = Bias{}) {
+  constexpr bool kBias = std::is_same<Bias, RowBias>::value;
   const bool tail = key0 + 8 * kNT > nk;  // some keys of the tile are past Nk
   float mx[2] = {kNegInf, kNegInf};
+  if constexpr (kBias) {
 #pragma unroll
-  for (int i = 0; i < 4 * kNT; ++i) {
-    if (tail && key0 + (i >> 2) * 8 + 2 * t + (i & 1) >= nk) s[i] = kNegInf;
-    mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+    for (int nt = 0; nt < kNT; ++nt) {
+      // Nk is even: key c + 1 is past it exactly when c is.
+      const int c = key0 + 8 * nt + 2 * t;
+      float b[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      if (c < nk) bias.load(c, b);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = 4 * nt + e;
+        s[i] = (tail && c >= nk) ? kNegInf : fmaf(s[i], scale_log2e, b[e]);
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[i]);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4 * kNT; ++i) {
+      if (tail && key0 + (i >> 2) * 8 + 2 * t + (i & 1) >= nk) s[i] = kNegInf;
+      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+    }
   }
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
     mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-    // The scale is positive, so the max commutes with it.
-    const float m_new = fmaxf(m[r], mx[r] * scale_log2e);
+    // The scale is positive, so the max commutes with it; the biased logits
+    // are in the log2 domain already.
+    const float m_new = fmaxf(m[r], kBias ? mx[r] : mx[r] * scale_log2e);
     alpha[r] = fast_exp2(m[r] - m_new);
     m[r] = m_new;
     l[r] *= alpha[r];
@@ -249,7 +339,7 @@ __device__ __forceinline__ void online_softmax(float (&s)[4 * kNT],
 #pragma unroll
   for (int i = 0; i < 4 * kNT; ++i) {
     const int r = (i >> 1) & 1;
-    s[i] = fast_exp2(fmaf(s[i], scale_log2e, -m[r]));
+    s[i] = fast_exp2(kBias ? s[i] - m[r] : fmaf(s[i], scale_log2e, -m[r]));
     l[r] += s[i];
   }
 }
@@ -286,13 +376,17 @@ constexpr int kStreamThreads = 32 * kStreamWarps;  // 128
 constexpr int kKeyTile = 64;                       // keys per shared tile
 constexpr int kRing = 3;                           // tiles in the ring
 
-template <int D, int kChains, bool kTrain>
-__global__ void __launch_bounds__(kStreamThreads)
-fwd_stream_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                  const bf16* __restrict__ v, bf16* __restrict__ o,
-                  Strides sq, Strides sk, Strides sv, Strides so, int heads,
-                  int n, int nk, float scale, TrainArgs train) {
+// The kernel's body; Bias is NoBias (fwd_stream_kernel) or BiasArgs
+// (fwd_stream_bias_kernel, one chain).
+template <int D, int kChains, bool kTrain, class Bias>
+__device__ __forceinline__ void fwd_stream_body(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, bf16* __restrict__ o, Strides sq, Strides sk,
+    Strides sv, Strides so, int heads, int n, int nk, float scale,
+    const TrainArgs& train, const Bias& bias) {
   static_assert(D % 16 == 0, "head dim must be a multiple of 16");
+  static_assert(std::is_same<Bias, NoBias>::value || (kChains == 1 && !kTrain),
+                "the bias instantiation is inference with one chain");
   constexpr int kSteps = D / 16;           // k-steps of Q K^T
   constexpr int kOutTiles = D / 8;         // n-tiles of O
   constexpr int kKeyTiles = kKeyTile / 8;  // n-tiles of S
@@ -349,6 +443,7 @@ fwd_stream_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   // The dropout state (dead code in the inference instantiation).
   const Dropout drop(train, bh);
+  const auto rb = row_bias(bias, bh, row0 + g, n);  // chain 0's rows
   for (int tile = 0; tile < num_tiles; ++tile) {
     cp_async_wait<kRing - 2>();  // this thread's copies of `tile` landed
     __syncthreads();             // everyone's did; tile - 1 is consumed
@@ -386,7 +481,7 @@ fwd_stream_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int c = 0; c < kChains; ++c) {
       float alpha[2];
       online_softmax<kKeyTiles>(s[c], m[c], l[c], alpha, key0, t, nk,
-                                scale_log2e);
+                                scale_log2e, rb);
       if constexpr (kTrain) {
         if (drop.on)
           apply_dropout<kKeyTiles>(s[c], drop, row0 + c * 16 + g, key0, t,
@@ -459,26 +554,62 @@ fwd_stream_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int D, bool kTrain>
+template <int D, int kChains, bool kTrain>
+__global__ void __launch_bounds__(kStreamThreads)
+fwd_stream_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                  const bf16* __restrict__ v, bf16* __restrict__ o,
+                  Strides sq, Strides sk, Strides sv, Strides so, int heads,
+                  int n, int nk, float scale, TrainArgs train) {
+  fwd_stream_body<D, kChains, kTrain>(q, k, v, o, sq, sk, sv, so, heads, n,
+                                      nk, scale, train, NoBias{});
+}
+
+// Inference with SAM's decomposed bias (BiasArgs), at d = 80.
+template <int D>
+__global__ void __launch_bounds__(kStreamThreads)
+fwd_stream_bias_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v, bf16* __restrict__ o,
+                       Strides sq, Strides sk, Strides sv, Strides so,
+                       int heads, int n, int nk, float scale, BiasArgs bias) {
+  fwd_stream_body<D, 1, false>(q, k, v, o, sq, sk, sv, so, heads, n, nk, scale,
+                               TrainArgs{nullptr, nullptr, 1u << 24, 1.0f},
+                               bias);
+}
+
+// Bias: NoBias launches fwd_stream_kernel, BiasArgs fwd_stream_bias_kernel.
+template <int D, bool kTrain, class Bias = NoBias>
 cudaError_t launch_stream(const void* q, const void* k, const void* v,
                           void* o, Strides sq, Strides sk, Strides sv,
                           Strides so, int bh, int heads, int n, int nk,
-                          float scale, TrainArgs train, cudaStream_t stream) {
-  constexpr int kChains = D <= 32 ? 2 : 1;
-  auto kernel = fwd_stream_kernel<D, kChains, kTrain>;
+                          float scale, TrainArgs train, cudaStream_t stream,
+                          const Bias& bias = Bias{}) {
+  constexpr bool kBias = std::is_same<Bias, BiasArgs>::value;
+  constexpr int kChains = D <= 32 && !kBias ? 2 : 1;
   // The ring: K and V of kRing tiles. Above 48 KB a kernel must opt in,
   // once per instantiation.
   constexpr int kBytes =
       kRing * 2 * kKeyTile * (D + kPad) * static_cast<int>(sizeof(bf16));
-  static const cudaError_t opt_in = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
-  if (opt_in != cudaSuccess) return opt_in;
   const int slabs = (n + 16 * kChains - 1) / (16 * kChains);
   const dim3 grid((slabs + kStreamWarps - 1) / kStreamWarps, bh);
-  kernel<<<grid, kStreamThreads, kBytes, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), sq, sk, sv, so,
-      heads, n, nk, scale, train);
+  if constexpr (kBias) {
+    auto kernel = fwd_stream_bias_kernel<D>;
+    static const cudaError_t opt_in = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
+    if (opt_in != cudaSuccess) return opt_in;
+    kernel<<<grid, kStreamThreads, kBytes, stream>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+        static_cast<const bf16*>(v), static_cast<bf16*>(o), sq, sk, sv, so,
+        heads, n, nk, scale, bias);
+  } else {
+    auto kernel = fwd_stream_kernel<D, kChains, kTrain>;
+    static const cudaError_t opt_in = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
+    if (opt_in != cudaSuccess) return opt_in;
+    kernel<<<grid, kStreamThreads, kBytes, stream>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+        static_cast<const bf16*>(v), static_cast<bf16*>(o), sq, sk, sv, so,
+        heads, n, nk, scale, train);
+  }
   return cudaGetLastError();
 }
 
@@ -496,13 +627,14 @@ constexpr int wgmma_smem_bytes() {
 // kWarpgroups warpgroups of 64 query rows a block. The register cap lets
 // an SM hold as many blocks as its shared memory does (at two warpgroups,
 // 128 registers a thread; the training variant spills nothing there).
-template <int kWarpgroups, bool kTrain>
-__global__ void __launch_bounds__(kWarpgroups * wg::kThreads,
-                                  kWarpgroups == 1 ? 3 : 2)
-fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ o,
-                 Strides sq, Strides sk, Strides sv, Strides so, int heads,
-                 int n, int nk, float scale, TrainArgs train) {
+// The kernel's body; Bias is NoBias (fwd_wgmma_kernel) or BiasArgs
+// (fwd_wgmma_bias_kernel).
+template <int kWarpgroups, bool kTrain, class Bias>
+__device__ __forceinline__ void fwd_wgmma_body(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, bf16* __restrict__ o, Strides sq, Strides sk,
+    Strides sv, Strides so, int heads, int n, int nk, float scale,
+    const TrainArgs& train, const Bias& bias) {
   using namespace wg;
   constexpr int kBlockThreads = kWarpgroups * wg::kThreads;
   extern __shared__ unsigned char wg_smem_raw[];
@@ -549,6 +681,7 @@ fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < 32; ++i) acc[i] = 0.0f;
   const Dropout drop(train, bh);  // dead code in the inference instantiation
+  const auto rb = row_bias(bias, bh, row_lo, n);
 
   // Iteration j issues S of tile j and P V of tile j - 1, waits for both,
   // and runs tile j's softmax; the last iteration only adds P V. Running
@@ -590,7 +723,7 @@ fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       wg_wait();
       fence_regs(s);
       const int key0 = j * wg::kTile;
-      online_softmax<8>(s, m, l, alpha, key0, t, nk, scale_log2e);
+      online_softmax<8>(s, m, l, alpha, key0, t, nk, scale_log2e, rb);
       // l above summed the undropped p; only P V drops.
       if constexpr (kTrain)
         if (drop.on) apply_dropout<8>(s, drop, row_lo, key0, t, lane);
@@ -646,13 +779,47 @@ fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+template <int kWarpgroups, bool kTrain>
+__global__ void __launch_bounds__(kWarpgroups * wg::kThreads,
+                                  kWarpgroups == 1 ? 3 : 2)
+fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, bf16* __restrict__ o,
+                 Strides sq, Strides sk, Strides sv, Strides so, int heads,
+                 int n, int nk, float scale, TrainArgs train) {
+  fwd_wgmma_body<kWarpgroups, kTrain>(q, k, v, o, sq, sk, sv, so, heads, n, nk,
+                                      scale, train, NoBias{});
+}
+
+// Inference with SAM's decomposed bias (BiasArgs).
+template <int kWarpgroups>
+__global__ void __launch_bounds__(kWarpgroups * wg::kThreads,
+                                  kWarpgroups == 1 ? 3 : 2)
+fwd_wgmma_bias_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v, bf16* __restrict__ o,
+                      Strides sq, Strides sk, Strides sv, Strides so,
+                      int heads, int n, int nk, float scale, BiasArgs bias) {
+  fwd_wgmma_body<kWarpgroups, false>(
+      q, k, v, o, sq, sk, sv, so, heads, n, nk, scale,
+      TrainArgs{nullptr, nullptr, 1u << 24, 1.0f}, bias);
+}
+
+// The wgmma kernel of an instantiation: with SAM's bias (kBias, inference)
+// or without (kTrain or not).
+template <int kWarpgroups, bool kTrain, bool kBias>
+auto wgmma_kernel() {
+  if constexpr (kBias)
+    return fwd_wgmma_bias_kernel<kWarpgroups>;
+  else
+    return fwd_wgmma_kernel<kWarpgroups, kTrain>;
+}
+
 // Block slots of the card for an instantiation (blocks an SM holds, times
 // SMs), asked once; 0 and *err set if the runtime refuses.
-template <int kWarpgroups, bool kTrain>
+template <int kWarpgroups, bool kTrain, bool kBias = false>
 long long wgmma_slots(cudaError_t* err) {
   static cudaError_t status = cudaSuccess;
   static const long long slots = [] {
-    auto kernel = fwd_wgmma_kernel<kWarpgroups, kTrain>;
+    auto kernel = wgmma_kernel<kWarpgroups, kTrain, kBias>();
     constexpr int kBytes = wgmma_smem_bytes<kWarpgroups>();
     int dev = 0, sms = 0, per_sm = 0;
     // Above 48 KB a kernel must opt in, once per instantiation.
@@ -672,19 +839,26 @@ long long wgmma_slots(cudaError_t* err) {
   return slots;
 }
 
-template <int kWarpgroups, bool kTrain>
+template <int kWarpgroups, bool kTrain, class Bias>
 cudaError_t launch_wgmma_blocks(const void* q, const void* k, const void* v,
                                 void* o, Strides sq, Strides sk, Strides sv,
                                 Strides so, int bh, int heads, int n, int nk,
                                 float scale, TrainArgs train,
-                                cudaStream_t stream) {
+                                cudaStream_t stream, const Bias& bias) {
   constexpr int kRows = kWarpgroups * wg::kTile;
   const dim3 grid((n + kRows - 1) / kRows, bh);
-  fwd_wgmma_kernel<kWarpgroups, kTrain>
-      <<<grid, kWarpgroups * wg::kThreads, wgmma_smem_bytes<kWarpgroups>(),
-         stream>>>(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                   static_cast<const bf16*>(v), static_cast<bf16*>(o), sq, sk,
-                   sv, so, heads, n, nk, scale, train);
+  if constexpr (std::is_same<Bias, BiasArgs>::value)
+    fwd_wgmma_bias_kernel<kWarpgroups>
+        <<<grid, kWarpgroups * wg::kThreads, wgmma_smem_bytes<kWarpgroups>(),
+           stream>>>(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                     static_cast<const bf16*>(v), static_cast<bf16*>(o), sq,
+                     sk, sv, so, heads, n, nk, scale, bias);
+  else
+    fwd_wgmma_kernel<kWarpgroups, kTrain>
+        <<<grid, kWarpgroups * wg::kThreads, wgmma_smem_bytes<kWarpgroups>(),
+           stream>>>(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                     static_cast<const bf16*>(v), static_cast<bf16*>(o), sq,
+                     sk, sv, so, heads, n, nk, scale, train);
   return cudaGetLastError();
 }
 
@@ -695,11 +869,11 @@ cudaError_t launch_wgmma_blocks(const void* q, const void* k, const void* v,
 // are ahead where both fill the card alike, 64-row blocks where they fill
 // it more than 10 % better: (48, 197), (48, 321), (48, 785) against
 // (384, 197), (48, 1025), (192, 1025), (24, 3137).
-template <bool kTrain>
+template <bool kTrain, bool kBias = false>
 cudaError_t wgmma_warpgroups(int bh, int n, int* warpgroups) {
   cudaError_t err1, err2;
-  const long long slots1 = wgmma_slots<1, kTrain>(&err1);
-  const long long slots2 = wgmma_slots<2, kTrain>(&err2);
+  const long long slots1 = wgmma_slots<1, kTrain, kBias>(&err1);
+  const long long slots2 = wgmma_slots<2, kTrain, kBias>(&err2);
   if (err1 != cudaSuccess) return err1;
   if (err2 != cudaSuccess) return err2;
   const long long blocks1 = static_cast<long long>(bh) * ((n + 63) / 64);
@@ -711,19 +885,24 @@ cudaError_t wgmma_warpgroups(int bh, int n, int* warpgroups) {
   return cudaSuccess;
 }
 
-template <bool kTrain>
+// Bias: NoBias launches fwd_wgmma_kernel, BiasArgs fwd_wgmma_bias_kernel,
+// each by its own fill.
+template <bool kTrain, class Bias = NoBias>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
                          void* o, Strides sq, Strides sk, Strides sv,
                          Strides so, int bh, int heads, int n, int nk,
-                         float scale, TrainArgs train, cudaStream_t stream) {
+                         float scale, TrainArgs train, cudaStream_t stream,
+                         const Bias& bias = Bias{}) {
+  constexpr bool kBias = std::is_same<Bias, BiasArgs>::value;
   int warpgroups = 0;
-  const cudaError_t err = wgmma_warpgroups<kTrain>(bh, n, &warpgroups);
+  const cudaError_t err = wgmma_warpgroups<kTrain, kBias>(bh, n, &warpgroups);
   if (err != cudaSuccess) return err;
   if (warpgroups == 1)
     return launch_wgmma_blocks<1, kTrain>(q, k, v, o, sq, sk, sv, so, bh,
-                                          heads, n, nk, scale, train, stream);
+                                          heads, n, nk, scale, train, stream,
+                                          bias);
   return launch_wgmma_blocks<2, kTrain>(q, k, v, o, sq, sk, sv, so, bh, heads,
-                                        n, nk, scale, train, stream);
+                                        n, nk, scale, train, stream, bias);
 }
 
 // fp32: the scalar kernel; bf16: wgmma at d = 64, the mma.sync ring at the
@@ -808,6 +987,40 @@ int vt_flash_attention_fwd_train(
                         inv_keep};
   return dispatch<true>(dtype, q, k, v, o, sq, sk, sv, so, batch, heads, n, n,
                         d, scale, train, static_cast<cudaStream_t>(stream));
+}
+
+// Inference with SAM's decomposed relative-position bias (bfloat16 only):
+// as vt_flash_attention_fwd with n_k = kh * kw keys, and key k of query row
+// i of head (b, h) adding rel_h[b*H + h, i, k / kw] + rel_w[b*H + h, i,
+// k % kw] to its scaled logit; rel_h (B*H, n, kh) and rel_w (B*H, n, kw)
+// contiguous bfloat16, kw even, n_k <= 2^20 and B*H*n*max(kh, kw) < 2^31.
+// d = 64 runs the wgmma kernel, d = 80 the mma.sync ring; any other head dim
+// returns cudaErrorInvalidValue. Returns a cudaError_t.
+int vt_flash_attention_fwd_bias(const void* q, const void* k, const void* v,
+                                void* o, const void* rel_h, const void* rel_w,
+                                long long q_sb, long long q_sh, long long q_sn,
+                                long long k_sb, long long k_sh, long long k_sn,
+                                long long v_sb, long long v_sh, long long v_sn,
+                                long long o_sb, long long o_sh, long long o_sn,
+                                int batch, int heads, int n, int kh, int kw,
+                                int d, float scale, void* stream) {
+  if (batch <= 0 || heads <= 0 || n <= 0 || kh <= 0 || kw <= 0 || kw % 2 ||
+      batch * heads > 65535 || static_cast<long long>(kh) * kw > (1 << 20) ||
+      static_cast<long long>(batch) * heads * n * (kh > kw ? kh : kw) >=
+          (1LL << 31))
+    return cudaErrorInvalidValue;
+  const Strides sq{q_sb, q_sh, q_sn}, sk{k_sb, k_sh, k_sn};
+  const Strides sv{v_sb, v_sh, v_sn}, so{o_sb, o_sh, o_sn};
+  const BiasArgs bias{static_cast<const bf16*>(rel_h),
+                      static_cast<const bf16*>(rel_w), kh, kw, 1.0f / kw};
+  const TrainArgs none{nullptr, nullptr, 1u << 24, 1.0f};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int nk = kh * kw;
+  switch (d) {
+    case 64: return launch_wgmma<false>(q, k, v, o, sq, sk, sv, so, batch * heads, heads, n, nk, scale, none, s, bias);
+    case 80: return launch_stream<80, false>(q, k, v, o, sq, sk, sv, so, batch * heads, heads, n, nk, scale, none, s, bias);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 // The rows a block of the inference kernel's wgmma instantiation (bfloat16,

@@ -1,15 +1,18 @@
 """Model family registry: name -> (init, apply, config type), the TPU
 package's ``models/registry.py``, with ``resolve_model``'s checkpoint
 loading (a port checkpoint directory, a reference Lightning ``.ckpt`` for
-vitseg, a pretrained HF SegFormer directory for segformer, or a TPU-package
-Orbax checkpoint where tensorstore is installed).
+vitseg, a pretrained HF SegFormer directory for segformer, an HF
+``SamModel`` directory for sam, or a TPU-package Orbax checkpoint where
+tensorstore is installed).
 
 ``vitseg`` is the primary network; the ten conv families share the
 residual GroupNorm encoder of ``models/unet.py`` and differ in their
 decoders; ``segformer`` puts the all-MLP decoder on a MiT preset
-(``models/mit.py``) or on that encoder. An init takes (generator, cfg) and
-returns the model on the CPU; an apply takes (model, NHWC images, ...)
-and returns NHWC fp32 logits.
+(``models/mit.py``) or on that encoder. ``sam`` (``models/sam.py``), which
+the TPU package does not have, is served with a box prompt an image and is
+not trained. An init takes (generator, cfg) and returns the model on the
+CPU; an apply takes (model, NHWC images, ...) and returns NHWC fp32
+logits.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from torch import nn
 from visiontransformer_tpu_torch.ckpt.convert import conv_params_from_jax
 from visiontransformer_tpu_torch.ckpt.hf_dir import (
     is_hf_dir,
+    read_hf_sam,
     read_hf_segformer,
 )
 from visiontransformer_tpu_torch.ckpt.io import restore_checkpoint
@@ -64,6 +68,15 @@ from visiontransformer_tpu_torch.models.manet import (
 )
 from visiontransformer_tpu_torch.models.mit import MIT_PRESETS
 from visiontransformer_tpu_torch.models.pan import PANConfig, pan_apply, pan_init
+from visiontransformer_tpu_torch.models.sam import (
+    SAM_PRESETS,
+    SamConfig,
+    SamMasks,
+    SamSeg,
+    sam_apply,
+    sam_config,
+    sam_init,
+)
 from visiontransformer_tpu_torch.models.pspnet import (
     PSPNetConfig,
     pspnet_apply,
@@ -146,10 +159,11 @@ MODEL_FAMILIES = {
     "upernet": ModelFamily(upernet_init, upernet_apply, UPerNetConfig),
     "segformer": ModelFamily(segformer_init, segformer_apply,
                              SegformerConfig),
+    "sam": ModelFamily(sam_init, sam_apply, SamConfig),
 }
 # The ten families on the shared GroupNorm encoder alone.
 CONV_FAMILIES = tuple(name for name in MODEL_FAMILIES
-                      if name not in ("vitseg", "segformer"))
+                      if name not in ("vitseg", "segformer", "sam"))
 
 
 def get_model_family(name: str) -> ModelFamily:
@@ -179,7 +193,9 @@ def vitseg_config(config_name: str, *, num_classes: int,
 
 def encoder_presets(family: str) -> list:
     """The encoder presets a non-vitseg family takes: ``ENCODER_PRESETS``,
-    and for segformer the MiT presets too."""
+    and for segformer the MiT presets too; sam's presets for sam."""
+    if family == "sam":
+        return sorted(SAM_PRESETS)
     return sorted(ENCODER_PRESETS) + (
         sorted(MIT_PRESETS) if family == "segformer" else [])
 
@@ -187,13 +203,18 @@ def encoder_presets(family: str) -> list:
 def model_config(family: str, config_name: str, *, num_classes: int,
                  input_size: int = 224, compute_dtype: str = "bfloat16"):
     """The config of a named model: ``config_name`` is a sweep config or
-    ViT size preset for vitseg, an encoder preset (``encoder_presets``)
-    for the other families, which take any input size."""
+    ViT size preset for vitseg, a SAM preset for sam (at ``input_size``;
+    its masks are {0, 1} whatever ``num_classes``), an encoder preset
+    (``encoder_presets``) for the other families, which take any input
+    size."""
     fam = get_model_family(family)
     if family == "vitseg":
         return vitseg_config(config_name, num_classes=num_classes,
                              input_size=input_size,
                              compute_dtype=compute_dtype)
+    if family == "sam":
+        return sam_config(config_name, input_size=input_size,
+                          compute_dtype=compute_dtype)
     if config_name not in encoder_presets(family):
         raise KeyError(f"unknown encoder preset {config_name!r}; known: "
                        f"{encoder_presets(family)}")
@@ -214,7 +235,10 @@ def resolve_model(family: str, config_name: str, *, num_classes: int,
     ``SegformerForSemanticSegmentation`` (``ckpt/hf_dir.py``): its MiT
     preset (matched by geometry), class count and decode width replace
     ``config_name``'s and ``num_classes``, the head takes the folded
-    BatchNorm (``head_norm="affine"``), as the TPU package's does. Any
+    BatchNorm (``head_norm="affine"``), as the TPU package's does. For sam,
+    such a directory is an HF ``SamModel`` directory (``read_hf_sam``): its
+    geometry, matched to a preset, replaces ``config_name``'s, and its
+    image size must be ``input_size``. Any
     other directory is a port checkpoint (``ckpt/io.py``); its
     ``params``, or the whole tree if it has none, load strictly (a W8A8
     state dict into the model's W8A8 form). A path
@@ -233,6 +257,9 @@ def resolve_model(family: str, config_name: str, *, num_classes: int,
     dev = resolve_device(device)
     cfg = model_config(family, config_name, num_classes=num_classes,
                        input_size=input_size, compute_dtype=compute_dtype)
+    if family == "sam" and checkpoint_path and is_hf_dir(checkpoint_path):
+        return _resolve_hf_sam(checkpoint_path, input_size, compute_dtype,
+                               dev)
     if family == "segformer" and checkpoint_path and is_hf_dir(
             checkpoint_path):
         hf_cfg, state = read_hf_segformer(checkpoint_path)
@@ -264,9 +291,27 @@ def resolve_model(family: str, config_name: str, *, num_classes: int,
     return cfg, model.to(dev).eval()
 
 
+def _resolve_hf_sam(path: str, input_size: int, compute_dtype: str,
+                    dev: torch.device) -> Tuple[SamConfig, SamSeg]:
+    """(cfg, model) of an HF ``SamModel`` directory: the model is built
+    without storage and takes the read tensors as its own (strictly), so
+    the weights are held once on the host."""
+    _, cfg, state = read_hf_sam(path, compute_dtype)
+    if cfg.image_size != input_size:
+        raise ValueError(f"{path} holds SAM at {cfg.image_size}^2; the row "
+                         f"asks for input_size {input_size}")
+    with torch.device("meta"):
+        model = SamSeg(cfg)
+    model.load_state_dict(state, strict=True, assign=True)
+    return cfg, model.to(dev).eval()
+
+
 def quantize_int8_(model: nn.Module) -> None:
     """The family's W8A8 form, in place (``ops/quant.py``): vitseg's
-    encoder linears; every other family's linears and interior convs."""
+    encoder linears; every other family's linears and interior convs. sam
+    has none: it raises."""
+    if isinstance(model, SamSeg):
+        raise ValueError("the int8 (W8A8) opt-in is not defined for sam")
     if isinstance(model, ViTSeg):
         quantize_vit_(model.backbone)
     else:
@@ -292,8 +337,15 @@ def serving_forward(model: nn.Module, *, out_size: Tuple[int, int],
                     epilogue: str = "auto") -> nn.Module:
     """What the model's family serves, as a module holding the model:
     (B, H, W, 3) images in [0, 1] -> masks in ``mask_dtype``; vitseg's
-    ``MasksForward`` (``cut``: the runner graphs it), any other family's
-    ``ArgmaxMasks`` (input size; no ``attn_impl`` or ``epilogue``)."""
+    ``MasksForward`` (``cut``: the runner graphs it), sam's ``SamMasks``
+    (``prompted``: it also takes (B, 4) boxes; ``out_size`` its image
+    size), any other family's ``ArgmaxMasks`` (input size; no
+    ``attn_impl`` or ``epilogue``)."""
+    if isinstance(model, SamSeg):
+        if tuple(out_size) != (model.cfg.image_size,) * 2:
+            raise ValueError(f"SAM serves masks at its image size "
+                             f"{model.cfg.image_size}, not {out_size}")
+        return SamMasks(model, mask_dtype, attn_impl=attn_impl)
     if isinstance(model, ViTSeg):
         return MasksForward(model, out_size, mask_dtype,
                             attn_impl=attn_impl, epilogue=epilogue)

@@ -16,6 +16,11 @@ keys and values (Nk = N but in MiT's spatial-reduction attention).
 
 Dropout applies only when ``deterministic`` is False and the rate is above
 0, and then needs an explicit ``torch.Generator``.
+
+Attention with SAM's decomposed relative-position bias (``models/sam.py``)
+has a dispatch of its own, ``biased_attention_path``: kernel 1's bias
+instantiation (``flash_attention_bias``) where it takes the call, else its
+plain version, which materialises the bias and the logits in fp32.
 """
 
 from __future__ import annotations
@@ -24,7 +29,11 @@ from typing import Optional
 
 import torch
 
-from visiontransformer_tpu_torch.ops.flash_attention import flash_attention
+from visiontransformer_tpu_torch.ops.flash_attention import (
+    bias_kernel_takes,
+    flash_attention,
+    needs_grad,
+)
 
 IMPLEMENTATIONS = ("auto", "eager", "flash")
 # Attention dropout seeds are drawn in [0, 2^31).
@@ -94,3 +103,20 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _into(out: Optional[torch.Tensor], y: torch.Tensor) -> torch.Tensor:
     return y if out is None else out.copy_(y)
+
+
+def biased_attention_path(implementation: str, q: torch.Tensor,
+                          k: torch.Tensor, rel_h: torch.Tensor,
+                          rel_w: torch.Tensor) -> str:
+    """"flash" or "eager": the path attention with SAM's bias takes.
+    "flash" where ``implementation`` resolves to it and, on a CUDA tensor,
+    kernel 1's bias instantiation takes the call (``bias_kernel_takes``),
+    or, on the CPU, no gradient is taken (the custom op's CPU
+    implementation is the plain version); "eager", the plain version
+    called directly (``flash_attention_bias_plain``, autograd through it),
+    otherwise."""
+    if resolve_implementation(implementation, q) == "flash" and (
+            bias_kernel_takes(q, k, rel_h, rel_w) if q.is_cuda
+            else not needs_grad(q, k, rel_h, rel_w)):
+        return "flash"
+    return "eager"

@@ -13,6 +13,13 @@ Kernels (``csrc/``), each replacing a kernel of the TPU package's
 - the same source, training (``flash_attention_train``): also writes the
   natural-log lse and applies attention dropout inside the kernel
   (``_fwd_kernel`` with ``need_lse=True``);
+- the same source, inference with SAM's decomposed relative-position bias
+  (``flash_attention_bias``, the custom op ``vt::flash_attention_fwd_bias``):
+  with Nk = kh·kw keys on a kh × kw grid, key k of query row i adds
+  rel_h[..., i, k // kw] + rel_w[..., i, k % kw] to its scaled logit, inside
+  the kernel's softmax step, so no N×Nk bias or logit tensor is written;
+  bfloat16 at d = 64 ("wgmma") and d = 80 ("stream") with kw even
+  (``bias_kernel_takes``);
 - ``flash_attention_bwd_dq.cu`` (``flash_attention_bwd_dq``) and
   ``flash_attention_bwd_dkv.cu`` (``flash_attention_bwd_dkv``): the two
   backward kernels (``_bwd_dq_kernel``, ``_bwd_dkv_kernel``).
@@ -75,6 +82,10 @@ _SIGNATURES = {
             + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p,
                                     ctypes.c_uint, ctypes.c_float,
                                     ctypes.c_void_p],
+            ctypes.c_int),
+        "vt_flash_attention_fwd_bias": (
+            [ctypes.c_void_p] * 6 + _STRIDES * 4 + [ctypes.c_int] * 6
+            + [ctypes.c_float, ctypes.c_void_p],
             ctypes.c_int),
         "vt_flash_attention_fwd_block_rows": (
             [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)],
@@ -189,6 +200,21 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
     scale = 1.0 / math.sqrt(q.shape[-1])
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     p = torch.softmax(s, dim=-1)
+    return torch.matmul(p, v.float()).to(q.dtype)
+
+
+def flash_attention_bias_plain(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, rel_h: torch.Tensor,
+                               rel_w: torch.Tensor) -> torch.Tensor:
+    """The bias instantiations' function in plain PyTorch, fp32 math: q
+    (B, H, N, d) against k and v (B, H, kh·kw, d), key k of row i adding
+    rel_h[..., i, k // kw] + rel_w[..., i, k % kw] (rel_h (B, H, N, kh),
+    rel_w (B, H, N, kw)) to its logit scaled by 1/√d; output in q's
+    dtype."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    bias = rel_h.float().unsqueeze(-1) + rel_w.float().unsqueeze(-2)
+    p = torch.softmax(s + bias.flatten(-2), dim=-1)
     return torch.matmul(p, v.float()).to(q.dtype)
 
 
@@ -552,6 +578,83 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return torch.ops.vt.flash_attention_fwd(q, k, v)
 
 
+# ------------------------------------------------ the bias instantiations
+BIAS_HEAD_DIMS = (64, 80)  # "wgmma" at 64, the mma.sync ring at 80
+_BIAS_MAX_KEYS = 1 << 20
+
+
+def needs_grad(*tensors: torch.Tensor) -> bool:
+    """Whether autograd records a call on these tensors."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def bias_kernel_takes(q: torch.Tensor, k: torch.Tensor,
+                      rel_h: torch.Tensor, rel_w: torch.Tensor) -> bool:
+    """Whether ``flash_attention_bias`` on these inputs launches kernel 1's
+    bias instantiation: a CUDA tensor, no gradient being taken, bfloat16, d
+    in ``BIAS_HEAD_DIMS``, rel_h (B, H, N, kh) and rel_w (B, H, N, kw) of
+    q's dtype, Nk = kh·kw with kw even and at most 2^20 keys, B·H·N·max(kh,
+    kw) < 2^31, and rows the kernel reads (``_kernel_layout``). Every other
+    call is the caller's to run eagerly."""
+    b, h, n, d = q.shape
+    kh, kw = rel_h.shape[-1], rel_w.shape[-1]
+    return (q.is_cuda and not needs_grad(q, k, rel_h, rel_w)
+            and q.dtype == torch.bfloat16 and d in BIAS_HEAD_DIMS
+            and rel_h.dtype == rel_w.dtype == q.dtype
+            and k.shape[-2] == kh * kw and kw % 2 == 0
+            and kh * kw <= _BIAS_MAX_KEYS
+            and b * h * n * max(kh, kw) < 2 ** 31
+            and rel_h.shape == (b, h, n, kh) and rel_w.shape == (b, h, n, kw)
+            and _kernel_layout(q) and _kernel_layout(k))
+
+
+def flash_attention_bias(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         rel_h: torch.Tensor, rel_w: torch.Tensor
+                         ) -> torch.Tensor:
+    """softmax(q·kᵀ/√d + bias)·v with SAM's decomposed bias
+    (``flash_attention_bias_plain``), through the custom op
+    ``vt::flash_attention_fwd_bias``: on a CUDA tensor kernel 1's bias
+    instantiation, which raises unless ``bias_kernel_takes`` the call; on
+    the CPU the plain version. Without a gradient only."""
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"flash_attention_bias: unsupported device "
+                         f"{q.device}")
+    return torch.ops.vt.flash_attention_fwd_bias(q, k, v, rel_h, rel_w)
+
+
+def _flash_attention_bias_cuda(q, k, v, rel_h, rel_w) -> torch.Tensor:
+    _check("flash_attention_bias", q, keys=(k, v))
+    rel_h, rel_w = (t.contiguous() for t in (rel_h, rel_w))
+    if not bias_kernel_takes(q, k, rel_h, rel_w) or any(
+            t.device != q.device or t.data_ptr() % 4 for t in (rel_h, rel_w)):
+        raise ValueError(
+            f"flash_attention_bias: the kernel takes bfloat16 at d in "
+            f"{BIAS_HEAD_DIMS} without a gradient, with rel_h (B, H, N, kh) "
+            f"and rel_w (B, H, N, kw) of q's dtype, kw even and Nk = kh·kw; "
+            f"got q {tuple(q.shape)} {q.dtype}, k {tuple(k.shape)}, rel_h "
+            f"{tuple(rel_h.shape)} {rel_h.dtype}, rel_w {tuple(rel_w.shape)} "
+            f"{rel_w.dtype}")
+    out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    if out.numel() == 0:
+        return out
+    b, h, n, d = q.shape
+    lib = _build.load("flash_attention_fwd",
+                      _SIGNATURES["flash_attention_fwd"])
+    with torch.cuda.device(q.device):
+        err = lib.vt_flash_attention_fwd_bias(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            rel_h.data_ptr(), rel_w.data_ptr(), *_strides(q, k, v, out), b,
+            h, n, rel_h.shape[-1], rel_w.shape[-1], d, 1.0 / math.sqrt(d),
+            _stream(q.device))
+    _build.check(lib, err, "flash_attention_bias")
+    spans.count("flash_attention_bias")
+    return out
+
+
+def _flash_attention_bias_fake(q, k, v, rel_h, rel_w) -> torch.Tensor:
+    return torch.empty_like(q, memory_format=torch.contiguous_format)
+
+
 # ------------------------------------------------- vt::flash_attention_fwd
 # Kernel 1 as a PyTorch operator: the CUDA implementation is the kernel's
 # launch, the CPU one the plain version, the fake one gives the output's
@@ -635,3 +738,11 @@ torch.library.register_fake("vt::flash_attention_fwd", _flash_attention_fake,
                             lib=_LIB)
 torch.library.register_fake("vt::flash_attention_fwd.out",
                             _flash_attention_out_fake, lib=_LIB)
+
+# The bias instantiations as an operator of their own, registered alike.
+_LIB.define("flash_attention_fwd_bias(Tensor q, Tensor k, Tensor v, "
+            "Tensor rel_h, Tensor rel_w) -> Tensor")
+_LIB.impl("flash_attention_fwd_bias", _flash_attention_bias_cuda, "CUDA")
+_LIB.impl("flash_attention_fwd_bias", flash_attention_bias_plain, "CPU")
+torch.library.register_fake("vt::flash_attention_fwd_bias",
+                            _flash_attention_bias_fake, lib=_LIB)

@@ -261,13 +261,16 @@ class JobStore:
         opt-in ToMe acceleration for vitseg rows (ops/token_merge.py;
         measured near-lossless on trained models, docs/PERFORMANCE.md).
         quantize: "" (exact) or "int8" — W8A8 dynamic quantization of the
-        model's dense/conv weights, any family (ops/quant.py; measured
-        ~1.18x the vitseg serving pipeline, near-lossless on trained
-        models)."""
+        model's dense/conv weights, any family but sam (ops/quant.py;
+        measured ~1.18x the vitseg serving pipeline, near-lossless on
+        trained models). A "sam" row (config_name a SAM preset) is served
+        with a box prompt an image and takes neither opt-in."""
         if token_merge_r and model_family != "vitseg":
             raise ValueError("token_merge_r applies to vitseg models only")
         if quantize not in ("", "int8"):
             raise ValueError("quantize must be '' or 'int8'")
+        if quantize and model_family == "sam":
+            raise ValueError("the int8 opt-in is not defined for sam")
         with self._conn() as c:
             cur = c.execute(
                 "INSERT OR REPLACE INTO vision_models"

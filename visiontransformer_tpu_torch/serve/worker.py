@@ -77,7 +77,10 @@ class ModelRunner:
     ``save_pretrained`` directory (``checkpoint_path``, read by
     ``ckpt/hf_dir.py``); on a CUDA device a MiT encoder's attention runs
     kernel 1 with a key count of its own, one launch a block
-    (``models/mit.py``). The row's opt-ins apply at load, as in the TPU runner:
+    (``models/mit.py``). SAM (``models/sam.py``) is served eagerly too, with
+    one box prompt an image: ``dispatch(images, boxes=)``, the whole image
+    where no boxes are given, masks {0, 1}. The row's opt-ins apply at
+    load, as in the TPU runner:
     ``token_merge_r`` (ToMe merging, vitseg only) and ``quantize ==
     "int8"`` (W8A8: vitseg's encoder linears, the tree quantizer's linears
     and interior convs for every other family). ``device=None`` means
@@ -139,6 +142,8 @@ class ModelRunner:
             self.model, out_size=(self.input_size, self.input_size),
             mask_dtype=self.mask_dtype)
         self.replicas = [(self.device, forward, None)]
+        # Whether the forward takes a box prompt an image (sam's).
+        self.prompted = getattr(forward, "prompted", False)
         if devices is not None:
             self.replicas = [
                 (d, forward if i == 0 else copy.deepcopy(forward).to(d),
@@ -153,14 +158,18 @@ class ModelRunner:
                                  torch.cuda.graph_pool_handle())
                          for d, f, _ in self.replicas} if self.graphed else {}
 
-    def _forward(self, forward, images: np.ndarray, device) -> torch.Tensor:
+    def _forward(self, forward, images: np.ndarray, device,
+                 boxes: Optional[np.ndarray] = None) -> torch.Tensor:
         if self.graphed:
             return self._graphed(forward, images.shape, device)(images)
         with spans.span("serve.input"):
             x = torch.from_numpy(np.array(images, copy=True)).to(device)
             x = x.float() / 255.0
+            if boxes is not None:
+                boxes = torch.from_numpy(np.array(
+                    boxes, dtype=np.float32)).to(device)
         with spans.span("serve.forward"):
-            return forward(x)
+            return forward(x) if boxes is None else forward(x, boxes)
 
     def _graphed(self, forward, shape, device) -> "_GraphedForward":
         """The graphs of a replica's ``forward`` at this input shape,
@@ -172,11 +181,15 @@ class ModelRunner:
             spans.count("serve.graph_captures")
         return self._graphs[key]
 
-    def dispatch(self, images: np.ndarray, batch: Optional[int] = None):
+    def dispatch(self, images: np.ndarray, batch: Optional[int] = None,
+                 boxes: Optional[np.ndarray] = None):
         """(B, H, W, 3) uint8 -> in-flight masks handle (padded to a
         bucket). Call resolve() on the handle to get (B, H, W) class ids.
         ``batch`` is the id the batch's spans carry (``utils/spans.py``),
-        a fresh one if None."""
+        a fresh one if None. ``boxes``: (B, 4) box prompts (x0, y0, x1, y1)
+        in the images' pixels, one an image, for a prompted family (sam;
+        None: the whole image; padded rows take the whole image too); any
+        other family refuses them."""
         if batch is None:
             batch = spans.next_batch()
         with spans.span("serve.dispatch", batch), torch.inference_mode():
@@ -189,12 +202,20 @@ class ModelRunner:
                     f"the /255 normalization runs on-device), got "
                     f"{images.dtype}")
             b = images.shape[0]
+            if boxes is not None and not self.prompted:
+                raise ValueError("ModelRunner.dispatch: boxes are a prompt "
+                                 "of the sam family; this model takes none")
+            if self.prompted:
+                boxes = _prompt_boxes(boxes, b, images.shape[1:3])
             bucket = next((s for s in self.buckets if s >= b),
                           self.buckets[-1])
             if b < bucket:
                 pad = np.zeros((bucket - b,) + images.shape[1:],
                                images.dtype)
                 images = np.concatenate([images, pad])
+                if boxes is not None:
+                    boxes = np.concatenate([boxes, _prompt_boxes(
+                        None, bucket - b, images.shape[1:3])])
             spans.count("serve.batches")
             spans.count("serve.rows", b)
             spans.count("serve.padded_rows", len(images) - b)
@@ -204,9 +225,16 @@ class ModelRunner:
             per = len(images) // len(self.replicas)
             for i, (dev, forward, stream) in enumerate(self.replicas):
                 rows = images[i * per:(i + 1) * per]
+                prompts = (None if boxes is None
+                           else boxes[i * per:(i + 1) * per])
                 with (torch.cuda.stream(stream) if stream is not None
                       else contextlib.nullcontext()):
-                    parts.append(_to_host(self._forward(forward, rows, dev)))
+                    # Without a prompt, the call an unprompted forward has
+                    # always had (the benchmark's planted faults wrap it).
+                    parts.append(_to_host(
+                        self._forward(forward, rows, dev) if prompts is None
+                        else self._forward(forward, rows, dev,
+                                           boxes=prompts)))
             return _PendingMasks(parts, b, batch)
 
     def predict(self, images: np.ndarray) -> np.ndarray:
@@ -287,6 +315,21 @@ class _GraphedForward:
                 self.segments.attention(outputs, out=attn)
             self.graphs[-1].replay()
             return self.segments.epilogue(self.outputs)
+
+
+def _prompt_boxes(boxes: Optional[np.ndarray], n: int,
+                  size: Tuple[int, int]) -> np.ndarray:
+    """(n, 4) float32 boxes: the given ones, checked, or the whole image
+    (0, 0, W, H) for each of n rows."""
+    if boxes is None:
+        return np.tile(np.array([[0.0, 0.0, size[1], size[0]]], np.float32),
+                       (n, 1))
+    boxes = np.asarray(boxes, dtype=np.float32)
+    if boxes.shape != (n, 4):
+        raise ValueError(f"ModelRunner.dispatch: boxes must be ({n}, 4) "
+                         f"(x0, y0, x1, y1), one an image; got "
+                         f"{boxes.shape}")
+    return boxes
 
 
 def _mesh_devices(mesh_shape, devices, device) -> Optional[list]:

@@ -115,6 +115,9 @@ class Trainer:
         CUDA; the conv families have none). mesh: a ``DeviceMesh`` to train
         over (``parallel/multihost.py:pod_mesh``); by default the job's
         ranks in ``TrainConfig.mesh_shape``."""
+        if model == "sam":
+            raise ValueError("the sam family is served, not trained, by "
+                             "the port (models/sam.py)")
         planned = wants_plan(train_cfg, mesh)
         self.device = (launch.device(device) if planned
                        else resolve_device(device))
